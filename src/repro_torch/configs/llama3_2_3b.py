@@ -1,0 +1,17 @@
+"""Llama-3.2-3B [dense]: 28L d_model=3072 24H (GQA kv=8) d_ff=8192
+vocab=128256, tied embeddings (the JAX package's ``configs/llama3_2_3b``)."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3.2-3b",
+    family="dense",
+    num_layers=28,
+    d_model=3072,
+    num_heads=24,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=128256,
+    rope_theta=5e5,
+    tie_embeddings=True,
+)
