@@ -4,14 +4,25 @@
 
 Phases, each printing one line (and failing the run with a traceback):
   1. device  -- the card's name and power limit (exits non-zero without CUDA);
-  2. build   -- nvcc builds the three kernels from src/repro_torch/csrc/;
-  3. kernels -- each kernel against its plain PyTorch version on the card at
-                the full-width llama3_2_3b shapes, with times;
+  2. build   -- nvcc builds the kernels from the four src/repro_torch/csrc/*.cu;
+  3. kernels -- each of the five kernels against its plain PyTorch version on
+                the card at the full-width llama3_2_3b shapes, with times, and
+                the bit-identities the serving invariants rest on: K1's rows
+                across batch sizes, K4 == K3 on a contiguous page table, K5's
+                query t == K4 at cur_len + t + 1;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
                 checked against the path's expected count, and a
                 torch.profiler breakdown of one generate;
+  4b. paged  -- teacher-forced decode over the paged pool against the
+                contiguous cache on the same bytes: logits bit-identical;
+  4c. serve  -- full-width Engine.serve (continuous batching, prefix cache
+                on, 8 requests over 4 slots) under both policies, vanilla and
+                with speculate_k=2 and a bf16 draft, with exact launch counts,
+                tokens/s, TTFT, decode ms per step, the pool and cache stats,
+                the accept rate, the share of requests whose tokens equal
+                generate's (and vanilla serve's), and the device idle share;
   5. parity  -- the reduced config on the card (kernels) against the CPU
                 (plain versions) from the same weights.
 The line before the last is the kernels JSON; the last line is
@@ -63,12 +74,14 @@ def _bound_ms(nbytes: float, flops: float):
 
 
 def _counters():
+    from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
     from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 
     return {"razer_matmul": razer_matmul_cuda, "razer_act_qdq": razer_act_qdq_cuda,
-            "razer_kv_attention": razer_kv_attention_cuda}
+            "razer_kv_attention": razer_kv_attention_cuda, "paged_kv_attention": paged_kv_attention_cuda,
+            "paged_kv_attention_verify": paged_kv_attention_verify_cuda}
 
 
 def _reset_counts():
@@ -78,6 +91,18 @@ def _reset_counts():
 
 def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+MAIN_PATH_LAUNCHES = {}  # kernel -> launches summed over every main-path run
+
+
+def _main_path_counts():
+    """Counts of a main-path run (reset just before it), added to the
+    totals the kernels line reports."""
+    counts = _read_counts()
+    for name, n in counts.items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +137,12 @@ def _check_matmul(cfg, dev, gen, detail):
             err = (got - want).abs()
             assert bool((err <= bound).all()), f"razer_matmul K={k} N={n} M={m}: {float(err.max())}"
             max_err = max(max_err, float(err.max()))
+        # split-K boundaries depend on (N, K) only: a row's bits do not move with M
+        x = torch.randn((128, k), generator=gen, device=dev).to(torch.bfloat16)
+        rows = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                                  m1=pw.sv_magnitudes[1])[:1] for m in (1, 4, 8, 24, 128)]
+        assert all(torch.equal(r, rows[0]) for r in rows[1:]), f"razer_matmul K={k} N={n}: row 0 moves with M"
+    detail["razer_matmul_row_invariant_M"] = [1, 4, 8, 24, 128]
     dense = [{name: layer[name].dequantize().to(torch.bfloat16) for name, _, _ in shapes} for layer in layers]
     out = {}
     for m in (4, 4 * 32):
@@ -140,6 +171,45 @@ def _check_matmul(cfg, dev, gen, detail):
                   "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by}
         detail[f"razer_matmul_layer_M{m}"] = out[m]
     return max_err, out[4]
+
+
+def _split_k_cost(cfg, dev, gen, detail, m: int = 128):
+    """What choosing K1's split-K from (N, K) alone costs at prefill: one
+    layer's 7 linears at M = 128 with the (N, K) splits against one split
+    each (what a choice from M gives at this size, but for wk/wv's 3), same
+    inputs, timed in turns (new, old, old, new) within this call."""
+    import ctypes
+
+    from repro_torch.core.packing import pack_weight
+    from repro_torch.kernels import build
+    from repro_torch.kernels.razer_matmul import _ARGTYPES, _splits
+
+    fn = build.function("razer_matmul", "razer_matmul_launch", _ARGTYPES)
+    calls = []
+    for _, k, n in _linear_shapes(cfg):
+        pw = pack_weight(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        splits, per = _splits(n, k)
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+        partial = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+        calls.append((x, pw, out, partial, splits, per, k, n))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def layer(new: bool):
+        for x, pw, out, partial, splits, per, k, n in calls:
+            sp, pr = (splits, per) if new else (1, k // 64)
+            build.check(fn(x.data_ptr(), 1, pw.codes.data_ptr(), pw.scale_meta.data_ptr(), partial.data_ptr(),
+                           out.data_ptr(), m, k, n, sp, pr, pw.sv_magnitudes[0], pw.sv_magnitudes[1], stream),
+                        "razer_matmul")
+
+    times = {"nk_splits": [], "one_split": []}
+    for new in (True, False, False, True):
+        times["nk_splits" if new else "one_split"].append(_cuda_ms(lambda: layer(new), reps=10))
+    extra = sum(2 * c[4] * m * c[7] * 4 for c in calls if c[4] > 1)  # partials written and read
+    out = {"M": m, "ms_nk_splits": times["nk_splits"], "ms_one_split": times["one_split"],
+           "splits": {f"{c[6]}x{c[7]}": c[4] for c in calls}, "extra_partial_bytes": extra}
+    detail["razer_matmul_split_k_cost_M128"] = out
+    return out
 
 
 def _check_act_qdq(cfg, dev, gen, detail):
@@ -199,6 +269,86 @@ def _check_kv_attention(cfg, dev, gen, detail):
     return err, out
 
 
+def _check_paged_attention(cfg, dev, gen, detail):
+    """K4 and K5 against their plain versions (1e-4) on a scattered page
+    table at the llama3_2_3b head widths, the bit-identities K4 == K3 and
+    K5[t] == K4 at cur_len + t + 1, and the times of K4 and of K5 at T = 3
+    (speculate_k = 2)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+    from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
+    from repro_torch.serving.kvcache import kv_dequantize, kv_quantize
+
+    b, h, kvh, hd, ps, npg = 4, cfg.num_heads, cfg.num_kv_heads, cfg.hd, 16, 8
+    n_pages = b * npg + 1
+    pool = (*kv_quantize(torch.randn((n_pages, ps, kvh, hd), generator=gen, device=dev)),
+            *kv_quantize(torch.randn((n_pages, ps, kvh, hd), generator=gen, device=dev)))
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(0)) + 1
+    table = perm.reshape(b, npg).to(torch.int32).to(dev)  # scattered, disjoint rows
+    q = torch.randn((b, h, hd), generator=gen, device=dev)
+    cur = torch.tensor([9, 40, 97, 128], dtype=torch.int32, device=dev)
+    got = paged_kv_attention_cuda(q, *pool, table, cur, check_pages=True)
+    want = ref.paged_kv_attention_ref(q, *pool, table, cur)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)  # f32 softmax, other sum order
+    err4 = float((got - want).abs().max())
+    # bit-identity with K3 when each sequence's pages are contiguous
+    flat = (1 + torch.arange(b * npg, dtype=torch.int32, device=dev)).reshape(b, npg)
+    contiguous = [x[1:].reshape(b, npg * ps, kvh, x.shape[-1]).contiguous() for x in pool]
+    assert torch.equal(paged_kv_attention_cuda(q, *pool, flat, cur), razer_kv_attention_cuda(q, *contiguous, cur)), \
+        "K4 on a contiguous table differs from K3 on the same bytes"
+
+    err5 = 0.0
+    committed = torch.tensor([9, 40, 97, 125], dtype=torch.int32, device=dev)
+    qts = {}
+    for t in (1, 3):
+        qt = torch.randn((b, t, h, hd), generator=gen, device=dev)
+        got = paged_kv_attention_verify_cuda(qt, *pool, table, committed, check_pages=True)
+        want = ref.paged_kv_attention_verify_ref(qt, *pool, table, committed)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        err5 = max(err5, float((got - want).abs().max()))
+        for i in range(t):  # query i == a decode step at committed + i + 1, bit for bit
+            one = paged_kv_attention_cuda(qt[:, i].contiguous(), *pool, table, committed + i + 1)
+            assert torch.equal(got[:, i], one), f"K5 query {i} of T={t} differs from K4"
+        qts[t] = qt
+
+    def dequant_heads(lens):  # (B, H, S, hd) f32 K/V for SDPA, gathered through the table
+        kv = [kv_dequantize(ref._gathered(pool[i], table), ref._gathered(pool[i + 1], table), hd)
+              for i in (0, 2)]
+        return [x.transpose(1, 2).repeat_interleave(h // kvh, dim=1) for x in kv]
+
+    ks, vs = dequant_heads(cur)
+    s_max = npg * ps
+    pos = torch.arange(s_max, device=dev)
+    mask4 = pos[None, None, None, :] < cur[:, None, None, None]
+    qt = qts[3]
+    lim = committed[:, None] + torch.arange(3, device=dev)[None, :] + 1  # (B, T)
+    mask5 = pos[None, None, None, :] < lim[:, None, :, None]  # (B, 1, T, S)
+    q5 = qt.transpose(1, 2)  # (B, H, T, hd)
+    kv_row = kvh * (hd // 2 + hd // 16) * 2  # K and V bytes of one position
+    out = {}
+    valid4 = int(cur.sum())
+    bound, by = _bound_ms(2 * q.numel() * 4 + valid4 * kv_row + table.numel() * 4 + b * 4, 4 * valid4 * h * hd)
+    out["paged_kv_attention"] = (err4, {
+        "ms": _cuda_ms(lambda: paged_kv_attention_cuda(q, *pool, table, cur), reps=50),
+        "plain_ms": _cuda_ms(lambda: ref.paged_kv_attention_ref(q, *pool, table, cur), reps=10),
+        "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], ks, vs, attn_mask=mask4),
+                               reps=50),
+        "bound_ms": bound, "bound_by": by})
+    valid5 = int((committed + 3).sum())  # each input position read once
+    ops5 = 4 * int(lim.sum()) * h * hd
+    bound, by = _bound_ms(2 * qt.numel() * 4 + valid5 * kv_row + table.numel() * 4 + b * 4, ops5)
+    out["paged_kv_attention_verify"] = (err5, {
+        "ms": _cuda_ms(lambda: paged_kv_attention_verify_cuda(qt, *pool, table, committed), reps=50),
+        "plain_ms": _cuda_ms(lambda: ref.paged_kv_attention_verify_ref(qt, *pool, table, committed), reps=10),
+        "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(q5, ks, vs, attn_mask=mask5), reps=50),
+        "bound_ms": bound, "bound_by": by})
+    detail["paged_kv_attention_B4_ps16"] = out["paged_kv_attention"][1]
+    detail["paged_kv_attention_verify_B4_T3_ps16"] = out["paged_kv_attention_verify"][1]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
@@ -210,27 +360,33 @@ def _policies():
     return {"w4_kv": w4, "w4a4_kv": w4a4}
 
 
-def _full_width(dev, detail):
+def _engines(dev, detail):
+    """Random full-width llama3_2_3b weights (seed 0) on the card and one
+    Engine per policy, each packing them; the engines keep the dense tree
+    for the speculative bf16 draft."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.engine import Engine, ServeConfig, pack_model_weights
+    from repro_torch.serving.engine import Engine, ServeConfig
 
     cfg = get_config("llama3_2_3b")
+    torch.cuda.reset_peak_memory_stats()
+    raw = init_params(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    engines = {name: Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=policy), device=dev)
+               for name, policy in _policies().items()}
+    torch.cuda.synchronize()
+    detail["pack_s_two_engines"] = time.perf_counter() - t0
+    return cfg, engines
+
+
+def _full_width(cfg, engines, detail):
     max_len, n_new = 128, 16
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    raw = init_params(cfg, seed=0, device=dev)
-    packed = pack_model_weights(raw, cfg, _policies()["w4_kv"])
-    del raw
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    results = {"pack_s": pack_s}
+    results = {"pack_s_two_engines": detail["pack_s_two_engines"]}
     layers, per_fwd = cfg.num_layers, 7 * cfg.num_layers
-    for name, policy in _policies().items():
-        eng = Engine(packed, cfg, ServeConfig(max_len=max_len, max_new_tokens=n_new, quant=policy), device=dev)
+    for name, eng in engines.items():
+        policy = eng.policy
         toks = np.zeros((len(prompts), 32), np.int64)
         for i, p in enumerate(prompts):
             toks[i, : len(p)] = p
@@ -239,11 +395,12 @@ def _full_width(dev, detail):
         for rep in range(2):  # the first run warms up, the second is timed
             _reset_counts()
             out = eng.generate(prompts)
-            counts = _read_counts()
+            counts = _main_path_counts() if rep else _read_counts()
             steps = eng.stats["decode_steps"]
             want = {"razer_matmul": per_fwd * (1 + steps),
                     "razer_act_qdq": per_fwd * (1 + steps) if policy.act is not None else 0,
-                    "razer_kv_attention": layers * steps}
+                    "razer_kv_attention": layers * steps, "paged_kv_attention": 0,
+                    "paged_kv_attention_verify": 0}
             assert counts == want, (name, counts, want)
             assert steps == n_new - 1 and all(len(o) == len(p) + n_new for o, p in zip(out, prompts))
             assert all(0 <= t < cfg.vocab_size for o in out for t in o)
@@ -253,21 +410,190 @@ def _full_width(dev, detail):
             "tokens_per_s": len(prompts) * n_new / (st["prefill_s"] + st["decode_s"]),
             "launches": counts, "batch": len(prompts), "bucket": st["bucket"], "new_tokens": n_new}
     results["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    results["profile_w4a4_kv"] = _profile(eng, prompts)
+    results["profile_w4a4_kv"] = _profile(lambda: eng.generate(prompts, max_new_tokens=4))
     detail["e2e"] = results
     return results
 
 
-def _profile(eng, prompts, new_tokens: int = 4):
-    """Device time by kernel over one generate (prefill + 3 decode steps),
-    from torch.profiler, and the share of the wall time the device was idle."""
+def _paged_vs_contiguous(cfg, eng, detail, steps: int = 5):
+    """Teacher-forced decode at full width, batch 4: one generate prefill's
+    K/V written into a paged pool row by row (``write_prefill``, pages
+    interleaved across the rows) and into the contiguous packed cache; then
+    ``decode_step(pages=...)`` and the contiguous ``decode_step`` fed the
+    same tokens.  The logits must be bit-identical: the same ops at the same
+    batch, with K4 returning K3's bits."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving.pagepool import KVPagePool, PagePoolConfig
+
+    max_len = 128
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), 32), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    last, caches = eng._bucketed_prefill(toks, lens, max_len=max_len, qdq_kv=True)
+    pool = KVPagePool(cfg, PagePoolConfig(num_pages=4 * (max_len // 16), page_size=16, max_len=max_len),
+                      device=eng.device)
+    for i in range(len(prompts)):
+        pool.allocate(i, 1)
+    for n in range(2, max_len // 16 + 1):  # grow the rows in turn: pages interleave
+        for i in range(len(prompts)):
+            pool.append(i, 16 * n)
+    for i, n in enumerate(lens):
+        pool.write_prefill(i, [{"k": c["k"][i:i + 1], "v": c["v"][i:i + 1]} for c in caches], int(n))
+    contiguous = eng._quantize_caches(caches)
+    table = pool.page_table(list(range(len(prompts))))
+    cur = torch.as_tensor(lens, device=eng.device)
+    tok = torch.argmax(last, dim=-1)
+    _reset_counts()
+    with torch.no_grad():
+        for step in range(steps):
+            want, contiguous = tf.decode_step(eng.params, tok, contiguous, cur, cfg, eng.policy)
+            got, _ = tf.decode_step(eng.params, tok, pool.layers, cur, cfg, eng.policy, pages=table)
+            assert torch.equal(got, want), f"paged decode logits differ from contiguous at step {step}"
+            tok = torch.argmax(want, dim=-1)
+            cur = cur + 1
+    counts = _read_counts()
+    assert counts["paged_kv_attention"] == counts["razer_kv_attention"] == cfg.num_layers * steps, counts
+    out = {"steps": steps, "batch": len(prompts), "logits_bit_identical": True, "launches": counts}
+    detail["paged_vs_contiguous"] = out
+    return out
+
+
+def _span_ms(tracer, name):
+    """Mean milliseconds of a tracer's ``name`` spans (B/E pairs)."""
+    starts, total, n = [], 0.0, 0
+    for ph, ev, ts, *_ in tracer.events:
+        if ev != name:
+            continue
+        if ph == "B":
+            starts.append(ts)
+        elif ph == "E":
+            total += ts - starts.pop()
+            n += 1
+    return total * 1e3 / n if n else 0.0
+
+
+def _serve_requests(cfg, n_new):
+    """8 requests of 8..100 tokens (seed 0); request 6 shares its first 40
+    tokens with request 5, so the prefix cache hits mid-page (COW fork)."""
+    from repro_torch.serving.scheduler import Request
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32, 40, 57, 64, 100)]
+    prompts[6][:40] = prompts[5][:40]
+    return [Request(rid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
+
+
+def _gap_at(eng, prompt, ref_tokens, step):
+    """Top-2 logit gap of a reference continuation at ``step``, replayed
+    teacher-forced for this prompt alone through the contiguous path."""
+    from repro_torch.models import transformer as tf
+
+    s = len(prompt)
+    toks = np.zeros((1, eng._bucket(s)), np.int64)
+    toks[0, :s] = prompt
+    logits, caches = eng._bucketed_prefill(toks, np.array([s]), max_len=eng.scfg.max_len, qdq_kv=True)
+    caches = eng._quantize_caches(caches)
+    cur = torch.tensor([s], device=eng.device)
+    with torch.no_grad():
+        for t in range(step):
+            logits, caches = tf.decode_step(eng.params, torch.tensor([ref_tokens[t]], device=eng.device), caches,
+                                            cur, eng.cfg, eng.policy)
+            cur = cur + 1
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _agreement(eng, reqs, ref_outputs):
+    """Share of requests whose new tokens equal the reference's; for each
+    that differs, the first differing step and the reference's top-2 gap."""
+    diffs = []
+    for r, ref_out in zip(reqs, ref_outputs):
+        ref_new = ref_out[len(r.prompt):]
+        if list(r.out_tokens) != list(ref_new):
+            step = next(i for i, (a, b) in enumerate(zip(r.out_tokens, ref_new)) if a != b)
+            diffs.append({"rid": r.rid, "step": step, "ref_top2_gap": _gap_at(eng, r.prompt, ref_new, step)})
+    return (len(reqs) - len(diffs)) / len(reqs), diffs
+
+
+def _serve_full_width(cfg, engines, detail):
+    """Engine.serve at full width: 8 requests over 4 slots, max_len 256,
+    pages of 16, 16 new tokens, prefix cache on; under each policy vanilla,
+    then speculate_k=2 with a bf16 draft.  Launch counts are checked exactly:
+    K4 = 28 x (decode + draft steps), K5 = 28 x verify steps, K3 = 0, K1 (and
+    K2 under W4A4) = 196 x (prefill passes + target decode/verify passes)."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.pagepool import PagePoolConfig
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    n_new, slots, max_len, ps = 16, 4, 256, 16
+    layers, per_fwd = cfg.num_layers, 7 * cfg.num_layers
+    pool_cfg = PagePoolConfig(num_pages=slots * (max_len // ps), page_size=ps, max_len=max_len)
+    sched_cfg = SchedulerConfig(max_slots=slots)
+    out = {}
+    for name, eng in engines.items():
+        eng.serve(_serve_requests(cfg, 2)[:2], sched_cfg=sched_cfg, pool_cfg=pool_cfg)  # warm-up
+        ref = eng.generate([r.prompt for r in _serve_requests(cfg, n_new)], max_new_tokens=n_new)
+        vanilla = None
+        for k in (0, 2):
+            reqs = _serve_requests(cfg, n_new)
+            tracer = Tracer()
+            _reset_counts()
+            rep = eng.serve(reqs, sched_cfg=sched_cfg, pool_cfg=pool_cfg, speculate_k=k,
+                            draft_policy="bf16" if k else None, trace=tracer)
+            torch.cuda.synchronize()
+            counts = _main_path_counts()
+            assert all(r.state == "finished" and len(r.out_tokens) == n_new for r in rep.requests)
+            assert all(0 <= t < cfg.vocab_size for o in rep.outputs for t in o)
+            prefills = sum(1 for r in rep.requests if r.dedup_of is None)
+            target_passes = prefills + rep.decode_steps  # a verify pass is the target's decode pass
+            want = {"razer_matmul": per_fwd * target_passes,
+                    "razer_act_qdq": per_fwd * target_passes if eng.policy.act is not None else 0,
+                    "razer_kv_attention": 0,
+                    "paged_kv_attention": layers * ((0 if k else rep.decode_steps) + rep.draft_steps),
+                    "paged_kv_attention_verify": layers * rep.decode_steps if k else 0}
+            assert counts == want, (name, k, counts, want)
+            assert rep.cache_hits >= 1 and rep.requests[6].cached_tokens == 40, \
+                (rep.cache_hits, rep.requests[6].cached_tokens)
+            same_gen, gen_diffs = _agreement(eng, rep.requests, ref)
+            row = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time,
+                   "ttft_p50_s": rep.ttft_p50, "ttft_p95_s": rep.ttft_p95,
+                   "decode_steps": rep.decode_steps, "prefill_tokens": rep.prefill_tokens,
+                   "cached_tokens": rep.cached_tokens, "peak_pages": rep.peak_pages, "peak_slots": rep.peak_slots,
+                   "cache_hit_rate": rep.cache_hit_rate, "accept_rate": rep.accept_rate,
+                   "share_equal_to_generate": same_gen, "differs_from_generate": gen_diffs,
+                   "launches": counts}
+            if k:
+                row["draft_ms_per_iteration"] = _span_ms(tracer, "draft")
+                row["verify_ms_per_iteration"] = _span_ms(tracer, "verify")
+                row["draft_steps"] = rep.draft_steps
+                share, diffs = _agreement(eng, rep.requests, vanilla)
+                row["share_equal_to_vanilla_serve"], row["differs_from_vanilla_serve"] = share, diffs
+            else:
+                row["decode_ms_per_step"] = _span_ms(tracer, "decode_step")
+                vanilla = rep.outputs
+            out[f"{name}_k{k}"] = row
+        eng._spec_cache.clear()  # free the bf16 draft tree before the next engine
+    eng = engines["w4a4_kv"]
+    out["profile_w4a4_kv_serve"] = _profile(lambda: eng.serve(
+        _serve_requests(cfg, 4)[:4], sched_cfg=sched_cfg, pool_cfg=pool_cfg))
+    detail["serve"] = out
+    return out
+
+
+def _profile(run):
+    """Device time by kernel over one ``run()`` (a generate of prefill + 3
+    decode steps, or a short serve), from torch.profiler, and the share of
+    the wall time the device was idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=new_tokens)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]  # kernels, not ops
@@ -349,11 +675,20 @@ def main() -> int:
     gen.manual_seed(0)
     checks = {"razer_matmul": _check_matmul(cfg, dev, gen, detail),
               "razer_act_qdq": _check_act_qdq(cfg, dev, gen, detail),
-              "razer_kv_attention": _check_kv_attention(cfg, dev, gen, detail)}
+              "razer_kv_attention": _check_kv_attention(cfg, dev, gen, detail),
+              **_check_paged_attention(cfg, dev, gen, detail)}
     print("kernels vs plain: " + json.dumps({k: {"max_abs_err": v[0], **v[1]} for k, v in checks.items()}))
+    print("K1 split-K from (N, K) vs one split at M=128: " + json.dumps(_split_k_cost(cfg, dev, gen, detail)))
 
-    e2e = _full_width(dev, detail)
+    cfg, engines = _engines(dev, detail)
+    e2e = _full_width(cfg, engines, detail)
     print("e2e llama3_2_3b full width: " + json.dumps(e2e))
+    paged = _paged_vs_contiguous(cfg, engines["w4_kv"], detail)
+    print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
+    serve = _serve_full_width(cfg, engines, detail)
+    print("serve llama3_2_3b full width: " + json.dumps(serve))
+    del engines
+    torch.cuda.empty_cache()
     parity = _card_vs_cpu(dev, detail)
     print("card vs cpu (reduced): " + json.dumps(parity))
 
@@ -365,10 +700,15 @@ def main() -> int:
         "razer_kv_attention": ("src/repro_torch/csrc/razer_kv_attention.cu",
                                "src/repro/kernels/razer_kv_attention.py:101",
                                "B=4 H=24 KVH=8 hd=128 S=128, cur_len 9/40/97/128"),
+        "paged_kv_attention": ("src/repro_torch/csrc/paged_kv_attention.cu",
+                               "src/repro/kernels/paged_kv_attention.py:71",
+                               "B=4 H=24 KVH=8 hd=128 ps=16, scattered table, cur_len 9/40/97/128"),
+        "paged_kv_attention_verify": ("src/repro_torch/csrc/paged_kv_attention.cu",
+                                      "src/repro/kernels/paged_kv_attention.py:170",
+                                      "B=4 T=3 H=24 KVH=8 hd=128 ps=16, committed 9/40/97/125"),
     }
-    launches = e2e["w4a4_kv"]["launches"]
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
-                "launches": launches[name], "max_abs_err": checks[name][0],
+                "launches": MAIN_PATH_LAUNCHES[name], "max_abs_err": checks[name][0],
                 "ms": checks[name][1]["ms"], "plain_ms": checks[name][1]["plain_ms"],
                 "bound_ms": checks[name][1]["bound_ms"], "bound_by": checks[name][1]["bound_by"],
                 "library_ms": checks[name][1]["library_ms"], "work": meta[name][2]}

@@ -9,11 +9,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .formats import positive_format_values, round_to_values
+from .formats import FP4_MAX, FP4_VALUES, positive_format_values, round_to_values
 
-__all__ = ["BlockQuantized", "block_reshape", "block_unreshape"]
+__all__ = ["BlockQuantized", "block_reshape", "block_unreshape", "nvfp4_quantize"]
 
 
 def block_reshape(x: torch.Tensor, block_size: int, axis: int = -1) -> torch.Tensor:
@@ -66,3 +67,19 @@ def _block_scales(xb: torch.Tensor, scale_fmt: str, elem_max: float, tensor_scal
     scale = round_to_values(raw, grid)
     smallest = float(grid[grid > 0][0])
     return torch.where((scale == 0) & (absmax > 0), torch.full_like(scale, smallest), scale)
+
+
+def nvfp4_quantize(x: torch.Tensor, *, block_size: int = 16, scale_fmt: str = "e4m3", axis: int = -1,
+                   tensor_scale: Optional[torch.Tensor] = None) -> BlockQuantized:
+    """Eq. 1-3 on a float32 tensor: the quantized representation (not
+    dequantized).  ``tensor_scale`` defaults to ``max|x| / (scale_grid_max *
+    6)`` (1 when x is all zeros)."""
+    xb = block_reshape(x, block_size, axis)
+    scale_grid_max = float(positive_format_values(scale_fmt)[-1])
+    if tensor_scale is None:
+        tensor_scale = x.abs().amax() / (scale_grid_max * FP4_MAX)
+        tensor_scale = torch.where(tensor_scale == 0, torch.ones_like(tensor_scale), tensor_scale)
+    d8 = _block_scales(xb, scale_fmt, FP4_MAX, tensor_scale)
+    scaled = _safe_div(xb, (tensor_scale * d8)[..., None])
+    q = round_to_values(scaled, np.unique(FP4_VALUES))
+    return BlockQuantized(q=q, block_scale=d8, tensor_scale=tensor_scale, axis=axis)

@@ -4,7 +4,7 @@
 quantized; ``LayerRule`` maps param-tree paths (fnmatch globs, or regexes with
 a ``re:`` prefix) to a spec or to dense; ``QuantPolicy`` bundles the role
 specs with an ordered rule list where the first match wins.  The JAX
-package's field-override rules and fakequant constructor are not ported.
+package's field-override rules are not ported.
 """
 from __future__ import annotations
 
@@ -86,9 +86,10 @@ class TensorSpec:
         raise ValueError(f"the packed wire format encodes at most 2 SV pairs; got {tuple(mags)}")
 
     def quantize(self, x: torch.Tensor, axis: int = -1, **kw):
-        merged = registry.spec_kwargs(self)
+        entry = self.entry
+        merged = registry.spec_kwargs(entry, self)
         merged.update(kw)
-        return self.entry.quantize(x, axis=axis, **merged)
+        return entry.quantize(x, axis=axis, **merged)
 
     def qdq(self, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
         """Quantize-dequantize, preserving dtype."""
@@ -154,6 +155,25 @@ class QuantPolicy:
     @classmethod
     def bf16(cls) -> "QuantPolicy":
         return cls()
+
+    @classmethod
+    def fakequant(cls, weight_format: str = "razer", act_format: Optional[str] = None, *,
+                  weight_scale_fmt: str = "e3m3", act_scale_fmt: str = "e4m3",
+                  weight_svs: Sequence[float] = WEIGHT_SPECIAL_VALUES,
+                  act_svs: Sequence[float] = ACT_SPECIAL_VALUES, block_size: int = 16,
+                  rules: Tuple[LayerRule, ...] = DEFAULT_DENSE_RULES) -> "QuantPolicy":
+        """Accuracy-experiment policy: dense weights quantize-dequantized at
+        every forward (and activations, with ``act_format``)."""
+        act = None
+        if act_format is not None:
+            act = TensorSpec.act(act_format, scale_fmt=act_scale_fmt, special_values=tuple(act_svs),
+                                 block_size=block_size)
+        return cls(
+            weight=TensorSpec.weight(weight_format, mode="fakequant", scale_fmt=weight_scale_fmt,
+                                     special_values=tuple(weight_svs), block_size=block_size),
+            act=act,
+            rules=rules,
+        )
 
     @classmethod
     def packed(cls, format: str = "razer", *, weight_svs: Sequence[float] = WEIGHT_SPECIAL_VALUES,

@@ -3,10 +3,12 @@
 A format names its quantize function and, optionally, how a weight is packed
 into a wire container, the matmul kernel that consumes that container and the
 fused activation fake-quant kernel.  ``qlinear`` dispatches a packed weight by
-its container type.  This slice registers the ``razer`` format only.
+its container type.  The port registers ``razer`` (packed, with kernels) and
+``nvfp4`` (quantize only: the default draft format of speculative serving).
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -49,13 +51,15 @@ def packed_entry(obj) -> Optional[FormatEntry]:
     return None
 
 
-def spec_kwargs(spec) -> dict:
-    """The keyword arguments a format's quantize function receives for a
-    TensorSpec (the razer quantizer takes all three)."""
+def spec_kwargs(entry: FormatEntry, spec) -> dict:
+    """The keyword arguments ``entry.quantize`` receives for a TensorSpec:
+    only those its signature names (nvfp4 takes no special values), as the
+    JAX package forwards them."""
+    params = inspect.signature(entry.quantize).parameters
     kw = {"block_size": spec.block_size}
-    if spec.scale_fmt is not None:
+    if "scale_fmt" in params and spec.scale_fmt is not None:
         kw["scale_fmt"] = spec.scale_fmt
-    if spec.special_values is not None:
+    if "special_values" in params and spec.special_values is not None:
         kw["special_values"] = spec.special_values
     return kw
 
@@ -82,9 +86,11 @@ def _razer_act_qdq(x, spec):
 
 
 def _register_builtins() -> None:
+    from .nvfp4 import nvfp4_quantize
     from .packing import PackedRazerWeight
     from .razer import razer_quantize
 
+    register_format("nvfp4", nvfp4_quantize)
     register_format("razer", razer_quantize, pack_fn=_razer_pack, matmul_kernel=_razer_matmul,
                     act_kernel=_razer_act_qdq, packed_type=PackedRazerWeight)
 

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``.  The
 libraries go into ``src/repro_torch/build/`` (listed in ``.gitignore``), named
-by a hash of the source and flags, so an edited source rebuilds and an
-unchanged one is reused.  All sources build in parallel, one ``nvcc`` each, at
+by a hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so
+an edited source or header rebuilds and an unchanged one is reused.  All sources build in parallel, one ``nvcc`` each, at
 the first launch of any kernel.
 """
 from __future__ import annotations
@@ -47,6 +47,8 @@ def _nvcc() -> str:
 def _target(name: str) -> pathlib.Path:
     flags = BASE_FLAGS + EXTRA_FLAGS.get(name, [])
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(flags).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

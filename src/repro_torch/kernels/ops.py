@@ -15,11 +15,13 @@ import torch
 from repro_torch.core.packing import PackedRazerWeight
 
 from . import ref
+from .paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
 from .razer_kv_attention import razer_kv_attention_cuda
 from .razer_matmul import razer_matmul_cuda
 from .razer_quantize import razer_act_qdq_cuda
 
-__all__ = ["razer_matmul", "razer_act_qdq", "razer_kv_attention"]
+__all__ = ["razer_matmul", "razer_act_qdq", "razer_kv_attention", "razer_paged_kv_attention",
+           "razer_paged_kv_attention_verify"]
 
 
 def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
@@ -64,3 +66,46 @@ def razer_kv_attention(q: torch.Tensor, cache, cur_len) -> torch.Tensor:
         out = ref.razer_kv_attention_ref(qf, *caches, cur_len)
     out = out.to(q.dtype)
     return out[:, None] if squeeze else out
+
+
+def _pool_arrays(cache):
+    return cache["k_codes"], cache["k_meta"], cache["v_codes"], cache["v_meta"]
+
+
+def _lengths(cur_len, b: int, device) -> torch.Tensor:
+    return torch.as_tensor(cur_len, dtype=torch.int32, device=device).reshape(-1).expand(b).contiguous()
+
+
+def razer_paged_kv_attention(q: torch.Tensor, cache, page_table: torch.Tensor, cur_len) -> torch.Tensor:
+    """Decode attention over a paged pool slice (serving.pagepool layout:
+    arrays (P, ps, KVH, x), page_table (B, NP), cur_len (B,) valid lengths).
+
+    q: (B, 1, H, hd) or (B, H, hd); returns q's shape and dtype."""
+    squeeze = q.dim() == 4
+    qf = q[:, 0] if squeeze else q
+    pool = _pool_arrays(cache)
+    if q.is_cuda:
+        out = paged_kv_attention_cuda(qf.to(torch.float32).contiguous(), *pool,
+                                      page_table.to(torch.int32).contiguous(),
+                                      _lengths(cur_len, qf.shape[0], q.device))
+    else:
+        out = ref.paged_kv_attention_ref(qf, *pool, page_table, cur_len)
+    out = out.to(q.dtype)
+    return out[:, None] if squeeze else out
+
+
+def razer_paged_kv_attention_verify(q: torch.Tensor, cache, page_table: torch.Tensor, cur_len) -> torch.Tensor:
+    """Multi-query verify attention over a paged pool slice: q (B, T, H, hd),
+    query t at position cur_len[b] + t attending positions < cur_len[b] + t
+    + 1; ``cur_len`` is the committed length and the T positions' wire bytes
+    are already in the pages.  Returns (B, T, H, hd) in q's dtype."""
+    if q.dim() != 4:
+        raise ValueError(f"verify attention wants (B, T, H, hd) queries, got {tuple(q.shape)}")
+    pool = _pool_arrays(cache)
+    if q.is_cuda:
+        out = paged_kv_attention_verify_cuda(q.to(torch.float32).contiguous(), *pool,
+                                             page_table.to(torch.int32).contiguous(),
+                                             _lengths(cur_len, q.shape[0], q.device))
+    else:
+        out = ref.paged_kv_attention_verify_ref(q, *pool, page_table, cur_len)
+    return out.to(q.dtype)

@@ -7,7 +7,6 @@ sends CPU tensors to ``plain`` instead.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -22,19 +21,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+# blocks the split-K grid aims for at decode-sized M: two per SM of an H100
+# SXM (132 SMs).  A constant, not the card's SM count, so that the split
+# boundaries -- and with them every output bit -- depend on (N, K) alone.
+_TARGET_BLOCKS = 2 * 132
 
 
-def _splits(m: int, n: int, k: int, device: torch.device):
-    """(splits, k_tiles_per_split): split K until the grid holds about two
-    blocks per SM, with no empty split."""
+def _splits(n: int, k: int):
+    """(splits, k_tiles_per_split) from the weight's shape alone: split K
+    until N's column tiles fill about ``_TARGET_BLOCKS`` blocks, with no
+    empty split.  The row count M never enters, so one activation row sums
+    its K in the same grouping whatever the batch (decode, padded serve
+    slots, a verify pass, prefill), and its output is bit for bit the same."""
     k_tiles = k // BK
-    bm = 4 if m <= 4 else 16  # the kernel's row tile
-    tiles = -(-n // _BN) * -(-m // bm)
-    sms = _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-    want = min(max(1, -(-2 * sms // tiles)), k_tiles)
+    want = min(max(1, -(-_TARGET_BLOCKS // -(-n // _BN))), k_tiles)
     per = -(-k_tiles // want)
     return -(-k_tiles // per), per
 
@@ -60,7 +60,7 @@ def razer_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Te
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    splits, per = _splits(m, n, k, x.device)
+    splits, per = _splits(n, k)
     partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
     fn = build.function("razer_matmul", "razer_matmul_launch", _ARGTYPES)
     with torch.cuda.device(x.device):

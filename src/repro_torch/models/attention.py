@@ -3,7 +3,8 @@
 Full-sequence attention is an online-softmax walk over KV chunks written as
 plain matmuls, as the JAX package computes it outside any kernel.  Decode
 attends one query per sequence against a bf16 cache, or, through
-``kernels.ops``, against the RaZeR-packed cache.
+``kernels.ops``, against the RaZeR-packed cache, contiguous or paged; the
+speculative verify step attends T queries per sequence over the paged pool.
 
 Dtypes follow the JAX einsums with ``preferred_element_type=float32``: the
 operands are promoted to their common type and multiplied with f32
@@ -11,6 +12,8 @@ accumulation, and the probabilities are cast to V's dtype before the PV
 product.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,12 +39,14 @@ def _pick_chunk(s: int, target: int = 1024) -> int:
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                      kv_chunk: int = 1024) -> torch.Tensor:
+                      q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, KVH, hd) with H % KVH == 0 -> (B, Sq, H, hd).
 
-    Query i sits at position i (no offset); the causal mask keeps key
-    positions <= i.  Masked scores are -1e30 and the output is
-    acc / max(l, 1e-30), as in the JAX package."""
+    Query i sits at position ``q_offset + i`` and key j at position j; the
+    causal mask keeps key positions <= the query's.  The prefix-cached
+    continuation prefill passes the cached length as ``q_offset``, with K/V
+    laid out so that every entry's position is its index.  Masked scores are
+    -1e30 and the output is acc / max(l, 1e-30), as in the JAX package."""
     b, sq, h, hd = q.shape
     _, skv, kvh, _ = k.shape
     g = h // kvh
@@ -49,7 +54,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     scale = _softmax_scale(hd)
     op = torch.promote_types(q.dtype, k.dtype)
     qg = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).to(op).float()  # (b,kvh,g,sq,hd)
-    qpos = torch.arange(sq, device=q.device)
+    qpos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, kvh, g, sq), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32, device=q.device)
@@ -103,20 +108,46 @@ def _qkv(x: torch.Tensor, p, cfg: ArchConfig, quant: QuantPolicy, positions: tor
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
+def _write_pages(cache, k: torch.Tensor, v: torch.Tensor, pid: torch.Tensor, slot: torch.Tensor) -> None:
+    """Quantize K/V (..., KVH, hd) and write each token into pool page
+    ``pid`` slot ``slot`` (index tensors of K's leading shape), in place.
+
+    The JAX package writes a new pool and donates the old buffers; here the
+    per-layer arrays are views of the pool's buffers, so the bytes land in
+    the pool itself.  Idle slots all write to the null page: duplicate
+    indices, whose order on the GPU is undefined, which is harmless because
+    the null page never holds a valid position."""
+    from repro_torch.serving.kvcache import kv_quantize
+
+    kc, km = kv_quantize(k)
+    vc, vm = kv_quantize(v)
+    pid, slot = pid.long(), slot.long()
+    for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
+        cache[name][pid, slot] = val
+
+
 def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache, cur_len: torch.Tensor, *,
-               quant: QuantPolicy = BF16):
+               quant: QuantPolicy = BF16, pages: Optional[torch.Tensor] = None):
     """One-token decode at per-sequence positions ``cur_len`` (B,).
 
-    ``cache`` is a bf16 ``{"k", "v"}`` dict or the RaZeR-packed layout of
-    ``serving.kvcache``; the new token's K/V is written into it in place and
-    attention runs over ``cur_len + 1`` positions.  Returns (y, cache)."""
+    ``cache`` is a bf16 ``{"k", "v"}`` dict, the RaZeR-packed layout of
+    ``serving.kvcache``, or -- with ``pages``, the (B, NP) page table -- one
+    layer's slice of the paged pool (``serving.pagepool``).  The new token's
+    K/V is written into it in place and attention runs over ``cur_len + 1``
+    positions.  Returns (y, cache)."""
     from repro_torch.kernels import ops
     from repro_torch.serving.kvcache import quantized_kv_write
 
     b = x.shape[0]
     cur = torch.as_tensor(cur_len, device=x.device).reshape(-1).expand(b)
     q, k, v = _qkv(x, p, cfg, quant, cur.reshape(b, 1))
-    if "k_codes" in cache:
+    if pages is not None:
+        # idle slots (cur_len 0, all-null page row) land on the null page
+        ps = cache["k_codes"].shape[1]
+        rows = torch.arange(b, device=x.device)
+        _write_pages(cache, k[:, 0], v[:, 0], pages[rows, cur.long() // ps], cur % ps)
+        out = ops.razer_paged_kv_attention(q, cache, pages, cur + 1)
+    elif "k_codes" in cache:
         cache = quantized_kv_write(cache, k, v, cur)
         out = ops.razer_kv_attention(q, cache, cur + 1)
     else:
@@ -125,3 +156,29 @@ def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache, cur_len: torch.Tensor
         cache["v"][rows, cur.long()] = v[:, 0].to(cache["v"].dtype)
         out = decode_attention(q, cache["k"], cache["v"], cur + 1)
     return qlinear(out.reshape(b, 1, -1), p["wo"], quant), cache
+
+
+def gqa_decode_verify(x: torch.Tensor, p, cfg: ArchConfig, cache, cur_len: torch.Tensor, *,
+                      quant: QuantPolicy = BF16, pages: torch.Tensor):
+    """Speculative verify over the paged pool: ``x`` (B, T, d) carries the
+    last committed token and the T - 1 drafts of each slot, at positions
+    ``cur_len[b] + t``.  All T tokens' K/V are quantized and written into
+    their page slots first (over whatever the draft pass wrote there), then
+    one multi-query attention masks query t to positions < cur_len + t + 1:
+    per query, the write-then-attend order and the reduction of a vanilla
+    one-token decode step.  Idle slots (cur_len 0, all-null row) write to
+    the null page.  Returns (y (B, T, d), cache)."""
+    from repro_torch.kernels import ops
+
+    b, t, _ = x.shape
+    cl = torch.as_tensor(cur_len, device=x.device).reshape(-1).expand(b)
+    positions = cl[:, None] + torch.arange(t, device=x.device)[None, :]  # (B, T)
+    q, k, v = _qkv(x, p, cfg, quant, positions)
+    ps = cache["k_codes"].shape[1]
+    # the logical page clips to the table's width as write_prefill does: real
+    # slots stay inside it by the scheduler's len + max_new + k reservation
+    logical = torch.clamp(positions // ps, max=pages.shape[1] - 1)
+    pid = pages[torch.arange(b, device=x.device)[:, None], logical.long()]
+    _write_pages(cache, k, v, pid, positions % ps)
+    out = ops.razer_paged_kv_attention_verify(q, cache, pages, cl)
+    return qlinear(out.reshape(b, t, -1), p["wo"], quant), cache

@@ -21,7 +21,7 @@ from . import attention as attn
 from .config import ArchConfig
 from .layers import dense_init, embed, embedding_init, rms_norm, swiglu, unembed
 
-__all__ = ["init_params", "prefill", "decode_step"]
+__all__ = ["init_params", "prefill", "prefill_paged_suffix", "decode_step", "decode_verify"]
 
 
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
@@ -112,15 +112,83 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
     return unembed(x_last, _head(params))[:, 0], caches
 
 
+def prefill_paged_suffix(params, tokens: torch.Tensor, pool_caches, page_row: torch.Tensor, pre_len: int,
+                         sfx_len: int, cfg: ArchConfig, quant: QuantPolicy = BF16):
+    """Continuation prefill of a prefix-cached request.
+
+    ``tokens`` (1, S_b) is the uncached suffix padded to a bucket, at
+    positions ``[pre_len, pre_len + sfx_len)``; ``page_row`` (NP_b,) holds
+    the leading pages of this sequence, enough to cover the cached prefix;
+    ``pool_caches`` is the pool's per-layer list of views.  Per layer the
+    attended buffer is ``[gathered pages | suffix bucket]``: the pages are
+    gathered and dequantized into a ``C = NP_b * page_size`` prefix, and the
+    suffix K/V, quantize-dequantized through the wire format as
+    ``prefill(qdq_kv=True)`` does, is written at offset ``pre_len``.  Every
+    entry's position is its index, so causal masking with ``q_offset =
+    pre_len`` hides the stale page bytes, the bucket padding and the copied
+    page's stale tail: all sit past the last valid query.
+
+    Returns (last logits (1, V), the suffix K/V caches), which the caller
+    writes with ``write_prefill(..., start=pre_len)``."""
+    from repro_torch.serving.kvcache import kv_dequantize
+
+    b, s = tokens.shape
+    dev = tokens.device
+    kvh, hd = cfg.num_kv_heads, cfg.hd
+    rows = page_row.long()
+    c_width = rows.shape[0] * pool_caches[0]["k_codes"].shape[1]
+    x = embed(tokens, params["embed"], cfg.cdtype)
+    positions = pre_len + torch.arange(s, device=dev).expand(b, s)
+    caches: List[Dict[str, torch.Tensor]] = []
+    for lp, pool in zip(params["layers_0"], pool_caches):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn._qkv(h, lp["mixer"], cfg, quant, positions)
+        k = k.to(cfg.cdtype)
+        v = v.to(cfg.cdtype)
+
+        def kv_buffer(sfx, codes, meta):
+            pre = kv_dequantize(codes[rows], meta[rows], hd).reshape(1, c_width, kvh, hd)
+            buf = torch.cat([pre, torch.zeros_like(sfx, dtype=pre.dtype)], dim=1)
+            buf[:, pre_len:pre_len + s] = sfx
+            return buf
+
+        k_all = kv_buffer(_qdq_kv(k, hd), pool["k_codes"], pool["k_meta"])
+        v_all = kv_buffer(_qdq_kv(v, hd), pool["v_codes"], pool["v_meta"])
+        mix = attn.chunked_attention(q, k_all, v_all, causal=True, q_offset=pre_len)
+        x = x + qlinear(mix.reshape(b, s, -1), lp["mixer"]["wo"], quant)
+        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
+        caches.append({"k": k, "v": v})
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x[:, sfx_len - 1:sfx_len], _head(params))[:, 0], caches
+
+
 def decode_step(params, token: torch.Tensor, caches, cur_len: torch.Tensor, cfg: ArchConfig,
-                quant: QuantPolicy = BF16):
+                quant: QuantPolicy = BF16, *, pages: Optional[torch.Tensor] = None):
     """token (B,) at positions ``cur_len`` (B,) -> (logits (B, V), caches);
-    the caches are updated in place."""
+    the caches are updated in place.  With ``pages`` (B, NP) the caches are
+    the paged pool's per-layer views and every layer shares the table."""
     x = embed(token[:, None], params["embed"], cfg.cdtype)
     for i, lp in enumerate(params["layers_0"]):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, caches[i] = attn.gqa_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant)
+        mix, caches[i] = attn.gqa_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant, pages=pages)
         x = x + mix
         x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, _head(params))[:, 0], caches
+
+
+def decode_verify(params, tokens: torch.Tensor, caches, cur_len: torch.Tensor, cfg: ArchConfig,
+                  quant: QuantPolicy = BF16, *, pages: torch.Tensor):
+    """Speculative verify step over the paged pool: ``tokens`` (B, T) -- the
+    last committed token and the T - 1 drafts per slot -> (logits (B, T, V),
+    caches).  Position t's logits predict the token at ``cur_len + t + 1``;
+    each layer goes through ``attn.gqa_decode_verify``."""
+    x = embed(tokens, params["embed"], cfg.cdtype)  # (B, T, d)
+    for i, lp in enumerate(params["layers_0"]):
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        mix, caches[i] = attn.gqa_decode_verify(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant,
+                                                pages=pages)
+        x = x + mix
+        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(x, _head(params)), caches

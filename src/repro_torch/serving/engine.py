@@ -1,10 +1,17 @@
-"""Static-batch serving engine (PyTorch port of ``Engine.generate`` in
-``repro.serving.engine``): RaZeR-packed weights, optional W4A4 activation
-fake-quant, and the RaZeR-packed KV cache.
+"""Serving engine (PyTorch port of ``repro.serving.engine``): RaZeR-packed
+weights, optional W4A4 activation fake-quant, and the RaZeR-packed KV cache.
 
-One ragged batch of prompts is right-padded to a power-of-two bucket,
-prefilled in one pass, and greedy-decoded over fixed (batch, max_len) caches
-with per-sequence lengths.
+Two serving modes:
+
+  * ``Engine.generate`` -- static batching: one ragged batch of prompts is
+    right-padded to a power-of-two bucket, prefilled in one pass, and
+    greedy-decoded over fixed (batch, max_len) caches with per-sequence
+    lengths.
+  * ``Engine.serve``    -- continuous batching: a ``serving.scheduler``
+    admission/decode loop over the paged RaZeR KV pool
+    (``serving.pagepool``), with the prefix cache on by default
+    (``serving.prefixcache``) and optional self-speculative decoding
+    (``serving.speculative``).
 """
 from __future__ import annotations
 
@@ -19,8 +26,9 @@ from repro_torch.core.policy import QuantPolicy, TensorSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs import percentile
 
-__all__ = ["ServeConfig", "Engine", "pack_model_weights"]
+__all__ = ["ServeConfig", "Engine", "ServeReport", "pack_model_weights"]
 
 
 @dataclasses.dataclass
@@ -69,8 +77,8 @@ def _to_device(tree, device):
 
 class Engine:
     """``Engine(params, cfg, ServeConfig(...))`` packs ``params`` under the
-    policy once and serves ``generate`` on ``device`` (the GPU unless the
-    caller passes ``device="cpu"``)."""
+    policy once and serves ``generate`` and ``serve`` on ``device`` (the GPU
+    unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, params, cfg: ArchConfig, serve_cfg: ServeConfig, *, device="cuda"):
         self.device = resolve_device(device)
@@ -79,8 +87,12 @@ class Engine:
         self.policy = serve_cfg.quant
         self.kv_quant = bool(serve_cfg.kv_quant or self.policy.kv is not None)
         params = _to_device(params, self.device)
+        # the dense tree stays reachable for self-speculative serving: the
+        # draft re-quantizes the same checkpoint under a cheaper policy
+        self._raw_params = params
         if self.policy.mode == "packed":
             params = pack_model_weights(params, cfg, self.policy)
+        params = dict(params)
         # the tables are only ever read in the compute dtype (embed casts,
         # unembed casts to x's dtype), so cast them once
         for name in ("embed", "lm_head"):
@@ -88,6 +100,9 @@ class Engine:
                 params[name] = params[name].to(cfg.cdtype)
         self.params = params
         self.stats: Dict[str, Any] = {}
+        # speculative decoders keyed by resolved draft policy (draft params
+        # are reused across serve() calls)
+        self._spec_cache: Dict[Any, Any] = {}
 
     @staticmethod
     def _bucket(n: int, cap: Optional[int] = None) -> int:
@@ -167,3 +182,342 @@ class Engine:
         self.stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_steps": steps,
                       "batch": b, "bucket": s}
         return out
+
+    # -- continuous batching (paged KV pool + scheduler) ---------------------
+    def draft_source_params(self):
+        """The tree the speculative draft re-quantizes: the dense
+        (pre-packing) tree of a packed engine, else the served params."""
+        return self._raw_params if self.policy.mode == "packed" else self.params
+
+    def _speculator(self, draft_policy):
+        """Build (or reuse) the ``SpeculativeDecoder`` for a draft policy,
+        keyed by the resolved policy (callable drafts by identity)."""
+        from repro_torch.serving.speculative import SpeculativeDecoder, resolve_draft_policy
+
+        resolved = resolve_draft_policy(draft_policy)
+        key = resolved if isinstance(resolved, QuantPolicy) else id(resolved)
+        if key not in self._spec_cache:
+            self._spec_cache[key] = SpeculativeDecoder(self, draft_policy)
+        return self._spec_cache[key]
+
+    def _serve_prefill(self, prompt: Sequence[int]):
+        """Prefill ONE request padded to a power-of-two bucket, attending the
+        wire bytes the pool pages will hold (``qdq_kv``), which is what makes
+        a prefix-cached continuation equal this uncached pass."""
+        s = len(prompt)
+        toks = np.zeros((1, self._bucket(s)), np.int64)
+        toks[0, :s] = prompt
+        return self._bucketed_prefill(toks, np.asarray([s], np.int32), max_len=toks.shape[1], qdq_kv=True)
+
+    @torch.no_grad()
+    def _prefill_range(self, prompt, start: int, end: int, pool, rid: int):
+        """Prefill tokens ``[start, end)`` of ``prompt`` against the
+        sequence's pool pages covering ``[0, start)``: ``start == 0`` is the
+        plain bucketed prefill; otherwise the suffix (bucketed) attends the
+        written pages, gathered and dequantized per layer over a
+        power-of-two page count.  Returns (last logits of position
+        ``end - 1``, K/V caches for ``write_prefill(..., length=end,
+        start=start)``)."""
+        if start == 0:
+            return self._serve_prefill(prompt[:end])
+        c, s = start, end - start
+        ps = pool.pool_cfg.page_size
+        npb = min(1 << (-(-c // ps) - 1).bit_length(), pool.pool_cfg.pages_per_seq)
+        toks = np.zeros((1, self._bucket(s)), np.int64)
+        toks[0, :s] = prompt[c:end]
+        row = torch.from_numpy(pool.page_row(rid)[:npb]).to(self.device)
+        return tf.prefill_paged_suffix(self.params, torch.as_tensor(toks, device=self.device), pool.layers, row,
+                                       c, s, self.cfg, self.policy)
+
+    def _as_requests(self, requests, n_new: int):
+        """Normalize a request stream (``scheduler.Request`` or raw token-id
+        prompts, freely mixed) into a list of ``Request``; raw prompts get
+        arrival 0, the engine's eos, and fresh rids past any explicit one."""
+        from repro_torch.serving.scheduler import Request
+
+        requests = list(requests)  # may be a generator; iterated twice below
+        next_rid = max((r.rid for r in requests if isinstance(r, Request)), default=-1) + 1
+        reqs: List[Request] = []
+        for r in requests:
+            if isinstance(r, Request):
+                reqs.append(r)
+            else:
+                reqs.append(Request(rid=next_rid, prompt=list(r), max_new_tokens=n_new,
+                                    eos_id=self.scfg.eos_id))
+                next_rid += 1
+        return reqs
+
+    def serve(self, requests, *, sched_cfg=None, pool_cfg=None, max_new_tokens: Optional[int] = None,
+              prefix_cache: bool = True, speculate_k: int = 0, draft_policy=None, clock=None,
+              trace=None) -> "ServeReport":
+        """Continuous batching: serve a stream of requests over the paged
+        RaZeR-quantized KV pool, decoding a dynamic batch each iteration.
+
+        ``requests`` are ``scheduler.Request``s or raw token-id prompts.  A
+        request is admitted once its ``arrival`` offset (seconds from the
+        call) has passed and a decode slot, pool pages for its worst case and
+        the prefill token budget allow.  Greedy decode, numerically the
+        ``generate`` path with a quantized KV cache.
+
+        ``prefix_cache`` (default on) shares prompt-prefix pages through a
+        radix tree over page-aligned token chunks; a hit prefills only the
+        uncached suffix.  ``speculate_k > 0`` drafts ``k`` tokens per slot
+        with the same checkpoint under ``draft_policy`` (default fakequant
+        nvfp4) and verifies all ``k + 1`` positions in one multi-query pass,
+        rolling rejected pages back with ``pool.truncate``; greedy outputs
+        stay those of ``speculate_k=0``.
+
+        ``clock`` (an ``obs.Clock``; ``obs.FakeClock`` makes latency stats
+        exact in tests) and ``trace`` (an ``obs.Tracer``) are the
+        observability seams; the metrics registry, ``kv_audit`` and
+        ``profile_dir`` of the JAX engine are not ported yet.
+
+        Returns a ``ServeReport``."""
+        from repro_torch.obs import NULL_TRACER, Clock
+        from repro_torch.serving.pagepool import KVPagePool, PagePoolConfig
+        from repro_torch.serving.prefixcache import PrefixCache
+        from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+
+        sched_cfg = sched_cfg or SchedulerConfig()
+        if speculate_k:
+            sched_cfg = dataclasses.replace(sched_cfg, speculate_k=speculate_k)
+        k = sched_cfg.speculate_k
+        if k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {k}")
+        spec = self._speculator(draft_policy) if k else None
+        n_new = max_new_tokens or self.scfg.max_new_tokens
+        reqs = self._as_requests(requests, n_new)
+        if pool_cfg is None:
+            ps = 16
+            pages_per_seq = -(-self.scfg.max_len // ps)
+            pool_cfg = PagePoolConfig(num_pages=sched_cfg.max_slots * pages_per_seq, page_size=ps,
+                                      max_len=self.scfg.max_len)
+        pool = KVPagePool(self.cfg, pool_cfg, device=self.device)
+        cache = PrefixCache(pool) if prefix_cache else None
+        clock = clock if clock is not None else Clock()
+        tracer = trace if trace is not None else NULL_TRACER
+        sched = Scheduler(sched_cfg, pool, cache=cache, tracer=tracer)
+        for r in reqs:
+            sched.submit(r)
+
+        t0 = clock.now()
+
+        def now() -> float:
+            return clock.now() - t0
+
+        if tracer.enabled:
+            # trace timestamps on the serve-relative timeline
+            tracer.clock = now
+            tracer.set_track(tracer.pid, tracer.tid, process="engine", thread="serve")
+        if spec is not None:
+            spec.clock, spec.tracer = clock, tracer
+        # the cached speculator accumulates stats across serve() calls;
+        # report this run's delta against a snapshot
+        spec_base = dataclasses.replace(spec.stats) if spec else None
+        decode_steps, prefill_tokens, cached_tokens, peak_pages, peak_slots = self._serve_loop(
+            sched, pool, spec, k, now, clock, tracer)
+
+        wall = now()
+        return ServeReport(
+            requests=reqs, wall_time=wall, new_tokens=sum(len(r.out_tokens) for r in reqs),
+            decode_steps=decode_steps, prefill_tokens=prefill_tokens,
+            peak_pages=peak_pages, peak_slots=peak_slots,
+            page_bytes=pool.bytes_per_page(), pool_bytes=pool.total_bytes(),
+            cached_tokens=cached_tokens,
+            cache_lookups=cache.lookups if cache else 0,
+            cache_hits=cache.hits if cache else 0,
+            cache_evictions=cache.evictions if cache else 0,
+            speculate_k=k,
+            drafted_tokens=spec.stats.drafted - spec_base.drafted if spec else 0,
+            accepted_drafts=spec.stats.accepted - spec_base.accepted if spec else 0,
+            draft_steps=spec.stats.draft_steps - spec_base.draft_steps if spec else 0,
+            draft_time=spec.stats.draft_time - spec_base.draft_time if spec else 0.0,
+            verify_time=spec.stats.verify_time - spec_base.verify_time if spec else 0.0,
+        )
+
+    @torch.no_grad()
+    def _serve_loop(self, sched, pool, spec, k: int, now, clock, tracer):
+        """The continuous-batching event loop (``serve`` owns setup and the
+        report).  Returns (decode_steps, prefill_tokens, cached_tokens,
+        peak_pages, peak_slots)."""
+        decode_steps = prefill_tokens = cached_tokens = 0
+        peak_pages = peak_slots = 0
+        # slot -> pages assignments change only on admission and retirement,
+        # so the device page table is kept between scheduler events
+        page_table = None
+        idle_retries = 0
+        while sched.has_work:
+            admitted = sched.admit(now())
+            if not admitted and not sched.running:
+                # nothing runnable yet: sleep until the next arrival, then
+                # retry admission.  With nothing running the pool is empty,
+                # so an arrived head always admits; repeated no-progress
+                # retries past its arrival mean a broken invariant
+                nxt = sched.next_arrival()
+                idle_retries = idle_retries + 1 if (nxt is None or nxt <= now()) else 0
+                if nxt is None or idle_retries > 1000:
+                    raise RuntimeError("scheduler stalled: an arrived request cannot be admitted "
+                                       "into an idle engine")
+                clock.sleep(max(nxt - now(), 0.0))
+                continue
+            idle_retries = 0
+            # prefill phase (token-budgeted; a prefix-cache hit prefills only
+            # the uncached suffix and writes just the pages past the shared
+            # boundary)
+            by_rid = {r.rid: r for r in admitted}
+            for req in admitted:
+                if req.dedup_of is not None:
+                    # same-batch duplicate: its donor has prefilled, so the
+                    # COW copy of the partial last page can be taken; the
+                    # first token is the donor's
+                    pool.flush_forks(req.rid)
+                    cached_tokens += req.cached_tokens
+                    sched.start(req, by_rid[req.dedup_of].out_tokens[0], now())
+                    continue
+                with tracer.span("prefill", rid=req.rid, tokens=len(req.prompt) - req.cached_tokens,
+                                 cached=req.cached_tokens):
+                    if req.cached_tokens:
+                        pool.flush_forks(req.rid)  # COW copy, after the donors' writes
+                        last, caches = self._prefill_range(req.prompt, req.cached_tokens, len(req.prompt),
+                                                           pool, req.rid)
+                        pool.write_prefill(req.rid, caches, len(req.prompt), start=req.cached_tokens)
+                    else:
+                        last, caches = self._serve_prefill(req.prompt)
+                        pool.write_prefill(req.rid, caches, len(req.prompt))
+                prefill_tokens += len(req.prompt) - req.cached_tokens
+                cached_tokens += req.cached_tokens
+                sched.start(req, int(torch.argmax(last[0])), now())
+            if admitted:
+                page_table = None
+            peak_pages = max(peak_pages, pool.pages_in_use)
+            peak_slots = max(peak_slots, len(sched.running))
+            # decode phase: one dynamic-batch step over the active slots
+            batch = sched.decode_batch()
+            if batch is None:
+                continue
+            if spec is not None:
+                # draft-k-verify-1 appends and truncates pages every
+                # iteration, so no table is kept across it
+                spec.decode_iteration(pool, sched, batch, k, now)
+                decode_steps += 1
+                page_table = None
+                peak_pages = max(peak_pages, pool.pages_in_use)
+                continue
+            seq_ids, tokens, cur_lens = batch
+            with tracer.span("decode_step", batch=len(sched.running)):
+                if page_table is None:
+                    page_table = pool.page_table(seq_ids)
+                logits, _ = tf.decode_step(
+                    self.params, torch.as_tensor(tokens, device=self.device), pool.layers,
+                    torch.as_tensor(np.asarray(cur_lens, np.int32), device=self.device), self.cfg,
+                    self.policy, pages=page_table)
+                toks = torch.argmax(logits, dim=-1).tolist()
+            decode_steps += 1
+            if sched.post_decode(toks, now()):
+                page_table = None  # a retirement freed a slot
+        return decode_steps, prefill_tokens, cached_tokens, peak_pages, peak_slots
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """Outcome of one ``Engine.serve`` run: outputs + serving metrics."""
+
+    requests: List[Any]
+    wall_time: float
+    new_tokens: int
+    decode_steps: int
+    prefill_tokens: int
+    peak_pages: int
+    peak_slots: int
+    page_bytes: int
+    pool_bytes: int
+    # ``prefill_tokens`` counts computed prompt tokens; ``cached_tokens`` the
+    # prompt tokens served from shared or copied pages (prefix-cache hits and
+    # same-batch dedup, so it can be nonzero with the cache off)
+    cached_tokens: int = 0
+    cache_lookups: int = 0
+    cache_hits: int = 0
+    cache_evictions: int = 0
+    # speculative decoding: with ``speculate_k > 0`` each decode step is one
+    # draft-k-verify-1 iteration
+    speculate_k: int = 0
+    drafted_tokens: int = 0
+    accepted_drafts: int = 0
+    draft_steps: int = 0
+    draft_time: float = 0.0
+    verify_time: float = 0.0
+
+    @property
+    def outputs(self) -> List[List[int]]:
+        """prompt + generated tokens per request, in submission order (the
+        shape ``Engine.generate`` returns)."""
+        return [list(r.prompt) + list(r.out_tokens) for r in self.requests]
+
+    @property
+    def cache_hit_rate(self) -> float:
+        """Fraction of prompt tokens served from the prefix cache."""
+        total = self.cached_tokens + self.prefill_tokens
+        return self.cached_tokens / total if total else 0.0
+
+    @property
+    def accept_rate(self) -> float:
+        """Fraction of draft proposals the target's argmax accepted."""
+        return self.accepted_drafts / self.drafted_tokens if self.drafted_tokens else 0.0
+
+    @property
+    def draft_overhead(self) -> float:
+        """Fraction of speculative decode time spent drafting."""
+        total = self.draft_time + self.verify_time
+        return self.draft_time / total if total else 0.0
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Mean committed tokens per decode iteration."""
+        return self.new_tokens / self.decode_steps if self.decode_steps else 0.0
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.new_tokens / max(self.wall_time, 1e-9)
+
+    # per-request samples; the percentiles are exact nearest-rank
+    def ttft_values(self) -> List[float]:
+        """Per-request time to first token (s), finished requests only."""
+        return [r.first_token_time - r.arrival for r in self.requests if r.first_token_time is not None]
+
+    def latency_values(self) -> List[float]:
+        """Per-request total latency (s), finished requests only."""
+        return [r.finish_time - r.arrival for r in self.requests if r.finish_time is not None]
+
+    def tpot_values(self) -> List[float]:
+        """Per-request mean latency per token after the first (s)."""
+        return [(r.finish_time - r.first_token_time) / (len(r.out_tokens) - 1) for r in self.requests
+                if r.finish_time is not None and len(r.out_tokens) > 1]
+
+    @property
+    def mean_ttft(self) -> float:
+        ts = self.ttft_values()
+        return sum(ts) / len(ts) if ts else 0.0
+
+    @property
+    def mean_latency(self) -> float:
+        ts = self.latency_values()
+        return sum(ts) / len(ts) if ts else 0.0
+
+    def ttft_percentile(self, q: float) -> float:
+        return percentile(self.ttft_values(), q)
+
+    def latency_percentile(self, q: float) -> float:
+        return percentile(self.latency_values(), q)
+
+    def tpot_percentile(self, q: float) -> float:
+        return percentile(self.tpot_values(), q)
+
+    ttft_p50 = property(lambda self: self.ttft_percentile(50))
+    ttft_p95 = property(lambda self: self.ttft_percentile(95))
+    ttft_p99 = property(lambda self: self.ttft_percentile(99))
+    latency_p50 = property(lambda self: self.latency_percentile(50))
+    latency_p95 = property(lambda self: self.latency_percentile(95))
+    latency_p99 = property(lambda self: self.latency_percentile(99))
+    tpot_p50 = property(lambda self: self.tpot_percentile(50))
+    tpot_p95 = property(lambda self: self.tpot_percentile(95))
+    tpot_p99 = property(lambda self: self.tpot_percentile(99))

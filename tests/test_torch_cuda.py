@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.core.packing import pack_weight
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
 from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
+from repro_torch.kernels.razer_matmul import razer_matmul_cuda
 from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 from repro_torch.serving.kvcache import kv_quantize
 
@@ -58,3 +60,81 @@ def test_cuda_kv_attention_matches_plain(cuda_device):
     cur = torch.tensor([1, 50, 96], dtype=torch.int32, device=cuda_device)
     got = razer_kv_attention_cuda(q, kc, km, vc, vm, cur)
     torch.testing.assert_close(got, ref.razer_kv_attention_ref(q, kc, km, vc, vm, cur), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(512, 192), (3072, 1024), (3072, 3072)])
+def test_cuda_matmul_row_bit_identical_across_m(cuda_device, k, n):
+    """K1's split-K boundaries depend on (N, K) only: the first rows' output
+    is bit for bit the same at every batch size."""
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    pw = pack_weight(torch.randn((k, n), generator=g, device=cuda_device) / k**0.5)
+    x = torch.randn((128, k), generator=g, device=cuda_device).to(torch.bfloat16)
+    outs = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                              m1=pw.sv_magnitudes[1]) for m in (1, 4, 8, 24, 128)]
+    for out in outs[1:]:
+        assert torch.equal(out[:1], outs[0])
+
+
+def _paged_fixture(device, b=4, h=24, kvh=8, hd=128, ps=16, npg=8, seed=3):
+    """A pool of b * npg random pages (+ the null page) and scattered,
+    disjoint page tables, at the llama3_2_3b head widths."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_pages = b * npg + 1
+    pool = kv_quantize(torch.randn((n_pages, ps, kvh, hd), generator=g, device=device))
+    pool += kv_quantize(torch.randn((n_pages, ps, kvh, hd), generator=g, device=device))
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.reshape(b, npg).to(torch.int32).to(device)
+    q = torch.randn((b, h, hd), generator=g, device=device)
+    return q, pool, table
+
+
+@pytest.mark.cuda
+def test_cuda_paged_matches_plain(cuda_device):
+    """K4 within rtol = atol = 1e-4 of its plain version on a scattered table
+    (f32, expf, another summation order), cur_len 9/40/97/128."""
+    q, pool, table = _paged_fixture(cuda_device)
+    cur = torch.tensor([9, 40, 97, 128], dtype=torch.int32, device=cuda_device)
+    got = paged_kv_attention_cuda(q, *pool, table, cur, check_pages=True)
+    torch.testing.assert_close(got, ref.paged_kv_attention_ref(q, *pool, table, cur), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 3])
+def test_cuda_verify_matches_plain(cuda_device, t):
+    q, pool, table = _paged_fixture(cuda_device)
+    qt = torch.randn((4, t, 24, 128), generator=torch.Generator(device=cuda_device).manual_seed(t),
+                     device=cuda_device)
+    cur = torch.tensor([0, 15, 60, 124], dtype=torch.int32, device=cuda_device)
+    got = paged_kv_attention_verify_cuda(qt, *pool, table, cur, check_pages=True)
+    want = ref.paged_kv_attention_verify_ref(qt, *pool, table, cur)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_equals_contiguous_bitwise(cuda_device):
+    """K4 over pages that hold each sequence contiguously returns K3's bits
+    on the same bytes: the two kernels share one attention body."""
+    q, pool, _ = _paged_fixture(cuda_device)
+    b, npg, ps = 4, 8, 16
+    table = (1 + torch.arange(b * npg, dtype=torch.int32, device=cuda_device)).reshape(b, npg)
+    contiguous = [x[1:].reshape(b, npg * ps, *x.shape[2:]).contiguous() for x in pool]
+    cur = torch.tensor([9, 40, 97, 128], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(paged_kv_attention_cuda(q, *pool, table, cur),
+                       razer_kv_attention_cuda(q, *contiguous, cur))
+
+
+@pytest.mark.cuda
+def test_cuda_verify_queries_equal_decode_bitwise(cuda_device):
+    """K5's query t at committed length c returns K4's bits at length
+    c + t + 1 (T = 1 included): the reduction of a vanilla decode step."""
+    _, pool, table = _paged_fixture(cuda_device)
+    qt = torch.randn((4, 3, 24, 128), generator=torch.Generator(device=cuda_device).manual_seed(5),
+                     device=cuda_device)
+    cur = torch.tensor([0, 15, 60, 124], dtype=torch.int32, device=cuda_device)
+    got = paged_kv_attention_verify_cuda(qt, *pool, table, cur)
+    for t in range(3):
+        want = paged_kv_attention_cuda(qt[:, t].contiguous(), *pool, table, cur + t + 1)
+        assert torch.equal(got[:, t], want)
+    one = paged_kv_attention_verify_cuda(qt[:, :1].contiguous(), *pool, table, cur)
+    assert torch.equal(one[:, 0], paged_kv_attention_cuda(qt[:, 0].contiguous(), *pool, table, cur + 1))
