@@ -4,12 +4,14 @@
 
 Phases, each printing one line (and failing the run with a traceback):
   1. device  -- the card's name and power limit (exits non-zero without CUDA);
-  2. build   -- nvcc builds the kernels from the four src/repro_torch/csrc/*.cu;
-  3. kernels -- each of the five kernels against its plain PyTorch version on
-                the card at the full-width llama3_2_3b shapes, with times, and
-                the bit-identities the serving invariants rest on: K1's rows
-                across batch sizes, K4 == K3 on a contiguous page table, K5's
-                query t == K4 at cur_len + t + 1;
+  2. build   -- nvcc builds the kernels from the five src/repro_torch/csrc/*.cu;
+  3. kernels -- each of the six kernels against its plain PyTorch version on
+                the card, K1-K5 at the full-width llama3_2_3b shapes and the
+                grouped GEMM K6 at the full-width dbrx_132b expert banks, with
+                times, and the bit-identities the serving invariants rest on:
+                K1's rows across batch sizes, K4 == K3 on a contiguous page
+                table, K5's query t == K4 at cur_len + t + 1, K6's expert e ==
+                K1 on bank entry e, K6's rows across batch sizes;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
@@ -23,8 +25,17 @@ Phases, each printing one line (and failing the run with a traceback):
                 tokens/s, TTFT, decode ms per step, the pool and cache stats,
                 the accept rate, the share of requests whose tokens equal
                 generate's (and vanilla serve's), and the device idle share;
-  5. parity  -- the reduced config on the card (kernels) against the CPU
-                (plain versions) from the same weights.
+  4d. dbrx   -- dbrx_132b at full width (d_model 6144, 48/8 heads, 16
+                experts top-4, expert d_ff 10752, capacity factor 1.25, vocab
+                100352; the one cut: 2 of 40 layers), random weights packed on
+                the card under both policies, through Engine.generate and
+                vanilla Engine.serve with exact launch counts (K6 3 per MoE
+                layer per forward), tokens/s, prefill and decode times, TTFT,
+                peak memory, the serve == generate share (reported: capacity
+                drops depend on which tokens share a dispatch group) and the
+                device idle share of one generate;
+  5. parity  -- the reduced llama3_2_3b and dbrx_132b on the card (kernels)
+                against the CPU (plain versions) from the same weights.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -75,13 +86,15 @@ def _bound_ms(nbytes: float, flops: float):
 
 def _counters():
     from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+    from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
     from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 
     return {"razer_matmul": razer_matmul_cuda, "razer_act_qdq": razer_act_qdq_cuda,
             "razer_kv_attention": razer_kv_attention_cuda, "paged_kv_attention": paged_kv_attention_cuda,
-            "paged_kv_attention_verify": paged_kv_attention_verify_cuda}
+            "paged_kv_attention_verify": paged_kv_attention_verify_cuda,
+            "razer_grouped_matmul": razer_grouped_matmul_cuda}
 
 
 def _reset_counts():
@@ -94,6 +107,21 @@ def _read_counts():
 
 
 MAIN_PATH_LAUNCHES = {}  # kernel -> launches summed over every main-path run
+
+
+def _per_forward(cfg):
+    """(K1, K6) launches of one forward pass: K1 for the 4 attention linears
+    of every layer, the 3 MLP linears of a dense layer and the shared
+    experts' 3 of an MoE layer; K6 for an MoE layer's 3 expert banks.  K2
+    runs once before every K1 under W4A4."""
+    from repro_torch.models.transformer import layer_groups
+
+    k1 = k6 = 0
+    for ltype, count in layer_groups(cfg):
+        moe = ltype == "m"
+        k1 += count * (4 + (3 if not moe or cfg.n_shared_experts else 0))
+        k6 += count * (3 if moe else 0)
+    return k1, k6
 
 
 def _main_path_counts():
@@ -349,6 +377,91 @@ def _check_paged_attention(cfg, dev, gen, detail):
     return out
 
 
+def _check_grouped_matmul(dev, gen, detail):
+    """K6 at the full-width dbrx_132b expert banks (E 16; gate/up K 6144
+    N 10752, down K 10752 N 6144) against its plain version at M = 4 (a
+    batch-4 decode: 4 dispatch groups x capacity 1) and 48 (a 4 x 32 prefill:
+    16 groups x capacity 3), tolerance K1's; bit-identity (a) K6's expert e ==
+    K1 on bank entry e for experts 0, 7, 15, and (b) each expert's row 0
+    across M in {1, 4, 8, 24, 48}; times of one MoE layer's 3 calls at M = 4
+    and 48."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import pack_stacked_weights
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
+    from repro_torch.kernels.razer_matmul import razer_matmul_cuda
+
+    cfg = get_config("dbrx_132b")
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    shapes = [("gate", d, f), ("up", d, f), ("down", f, d)]
+    t0 = time.perf_counter()
+    banks = {}
+    for name, k, n in shapes:
+        w = torch.randn((e, k, n), generator=gen, device=dev).mul_(k**-0.5)
+        banks[name] = pack_stacked_weights(w)
+        del w
+    torch.cuda.synchronize()
+    detail["razer_grouped_matmul_pack_s_3_banks"] = time.perf_counter() - t0
+
+    def k6(x, pst):
+        return razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=pst.sv_magnitudes[0],
+                                         m1=pst.sv_magnitudes[1])
+
+    max_err = 0.0
+    for name in ("gate", "down"):  # the two (K, N) kinds
+        pst = banks[name]
+        k = pst.shape[1]
+        dense_abs = pst.dequantize().abs_()
+        for m in (4, 48):
+            x = torch.randn((e, m, k), generator=gen, device=dev).to(torch.bfloat16)
+            raw = k6(x, pst)
+            got = raw * pst.tensor_scale[:, None, None]
+            want = ref.razer_grouped_matmul_ref(x, pst)
+            bound = 1e-5 * torch.einsum("emk,ekn->emn", x.float().abs(), dense_abs) + 1e-6
+            err = (got - want).abs()
+            assert bool((err <= bound).all()), f"razer_grouped_matmul {name} M={m}: {float(err.max())}"
+            max_err = max(max_err, float(err.max()))
+            for ex in (0, 7, 15):  # (a) one tile body, K1's (N, K) splits, the same split sum
+                pw = pst[ex]
+                one = razer_matmul_cuda(x[ex], pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                                        m1=pw.sv_magnitudes[1])
+                assert torch.equal(raw[ex], one), f"K6 expert {ex} differs from K1 ({name}, M={m})"
+        del dense_abs
+        x = torch.randn((e, 48, k), generator=gen, device=dev).to(torch.bfloat16)
+        rows = [k6(x[:, :m].contiguous(), pst)[:, :1] for m in (1, 4, 8, 24, 48)]  # (b)
+        assert all(torch.equal(r, rows[0]) for r in rows[1:]), f"razer_grouped_matmul {name}: row 0 moves with M"
+    detail["razer_grouped_matmul_expert_equals_K1"] = [0, 7, 15]
+    detail["razer_grouped_matmul_row_invariant_M"] = [1, 4, 8, 24, 48]
+
+    out = {}
+    for m in (4, 48):
+        xs = {k: torch.randn((e, m, k), generator=gen, device=dev).to(torch.bfloat16) for k in (d, f)}
+
+        def kernel_layer():
+            for name, k, _ in shapes:
+                k6(xs[k], banks[name])
+
+        def plain_layer():
+            for name, k, _ in shapes:
+                ref.razer_grouped_matmul_ref(xs[k], banks[name])
+
+        nbytes = sum(e * (m * k * 2 + k * n // 2 + k * n // 16 + m * n * 4) for _, k, n in shapes)
+        flops = sum(2 * e * m * k * n for _, k, n in shapes)
+        bound, by = _bound_ms(nbytes, flops)
+        row = {"ms": _cuda_ms(kernel_layer, reps=10), "plain_ms": _cuda_ms(plain_layer, reps=2, warmup=1)}
+        # the library yardstick: torch.bmm on the dequantized bf16 banks,
+        # one bank at a time (three at once would not fit beside the rest)
+        lib = 0.0
+        for name, k, _ in shapes:
+            dense = banks[name].dequantize().to(torch.bfloat16)
+            lib += _cuda_ms(lambda: torch.bmm(xs[k], dense), reps=10)
+            del dense
+        row.update({"library_ms": lib, "bound_ms": bound, "bound_by": by})
+        out[m] = row
+        detail[f"razer_grouped_matmul_moe_layer_M{m}"] = row
+    return max_err, out[4]
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
@@ -360,31 +473,32 @@ def _policies():
     return {"w4_kv": w4, "w4a4_kv": w4a4}
 
 
-def _engines(dev, detail):
-    """Random full-width llama3_2_3b weights (seed 0) on the card and one
-    Engine per policy, each packing them; the engines keep the dense tree
-    for the speculative bf16 draft."""
-    from repro_torch.configs import get_config
+def _engines(cfg, dev):
+    """Random full-width weights (seed 0) on the card and one Engine per
+    policy, each packing them; the engines keep the dense tree for the
+    speculative bf16 draft.  Returns (engines, seconds spent packing)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
-    cfg = get_config("llama3_2_3b")
     torch.cuda.reset_peak_memory_stats()
     raw = init_params(cfg, seed=0, device=dev)
     t0 = time.perf_counter()
     engines = {name: Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=policy), device=dev)
                for name, policy in _policies().items()}
     torch.cuda.synchronize()
-    detail["pack_s_two_engines"] = time.perf_counter() - t0
-    return cfg, engines
+    return engines, time.perf_counter() - t0
 
 
-def _full_width(cfg, engines, detail):
+def _full_width(cfg, engines, detail, pack_s, key="e2e"):
+    """Engine.generate at full width under each policy: 4 prompts of 8, 15,
+    23 and 32 tokens (seed 0), max_len 128, 16 new tokens, a warm-up run and
+    a timed one, with exact launch counts; then a profile of one short
+    W4A4 generate."""
     max_len, n_new = 128, 16
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
-    results = {"pack_s_two_engines": detail["pack_s_two_engines"]}
-    layers, per_fwd = cfg.num_layers, 7 * cfg.num_layers
+    results = {"pack_s_two_engines": pack_s}
+    layers, (per_fwd, k6_fwd) = cfg.num_layers, _per_forward(cfg)
     for name, eng in engines.items():
         policy = eng.policy
         toks = np.zeros((len(prompts), 32), np.int64)
@@ -400,7 +514,7 @@ def _full_width(cfg, engines, detail):
             want = {"razer_matmul": per_fwd * (1 + steps),
                     "razer_act_qdq": per_fwd * (1 + steps) if policy.act is not None else 0,
                     "razer_kv_attention": layers * steps, "paged_kv_attention": 0,
-                    "paged_kv_attention_verify": 0}
+                    "paged_kv_attention_verify": 0, "razer_grouped_matmul": k6_fwd * (1 + steps)}
             assert counts == want, (name, counts, want)
             assert steps == n_new - 1 and all(len(o) == len(p) + n_new for o, p in zip(out, prompts))
             assert all(0 <= t < cfg.vocab_size for o in out for t in o)
@@ -411,7 +525,7 @@ def _full_width(cfg, engines, detail):
             "launches": counts, "batch": len(prompts), "bucket": st["bucket"], "new_tokens": n_new}
     results["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     results["profile_w4a4_kv"] = _profile(lambda: eng.generate(prompts, max_new_tokens=4))
-    detail["e2e"] = results
+    detail[key] = results
     return results
 
 
@@ -518,18 +632,19 @@ def _agreement(eng, reqs, ref_outputs):
     return (len(reqs) - len(diffs)) / len(reqs), diffs
 
 
-def _serve_full_width(cfg, engines, detail):
+def _serve_full_width(cfg, engines, detail, key="serve", ks=(0, 2)):
     """Engine.serve at full width: 8 requests over 4 slots, max_len 256,
     pages of 16, 16 new tokens, prefix cache on; under each policy vanilla,
-    then speculate_k=2 with a bf16 draft.  Launch counts are checked exactly:
-    K4 = 28 x (decode + draft steps), K5 = 28 x verify steps, K3 = 0, K1 (and
-    K2 under W4A4) = 196 x (prefill passes + target decode/verify passes)."""
+    then (``ks``) speculate_k=2 with a bf16 draft.  Launch counts are checked
+    exactly: K4 = layers x (decode + draft steps), K5 = layers x verify
+    steps, K3 = 0, K1 (and K2 under W4A4) and K6 = their per-forward counts
+    x (prefill passes + target decode/verify passes)."""
     from repro_torch.obs import Tracer
     from repro_torch.serving.pagepool import PagePoolConfig
     from repro_torch.serving.scheduler import SchedulerConfig
 
     n_new, slots, max_len, ps = 16, 4, 256, 16
-    layers, per_fwd = cfg.num_layers, 7 * cfg.num_layers
+    layers, (per_fwd, k6_fwd) = cfg.num_layers, _per_forward(cfg)
     pool_cfg = PagePoolConfig(num_pages=slots * (max_len // ps), page_size=ps, max_len=max_len)
     sched_cfg = SchedulerConfig(max_slots=slots)
     out = {}
@@ -537,7 +652,7 @@ def _serve_full_width(cfg, engines, detail):
         eng.serve(_serve_requests(cfg, 2)[:2], sched_cfg=sched_cfg, pool_cfg=pool_cfg)  # warm-up
         ref = eng.generate([r.prompt for r in _serve_requests(cfg, n_new)], max_new_tokens=n_new)
         vanilla = None
-        for k in (0, 2):
+        for k in ks:
             reqs = _serve_requests(cfg, n_new)
             tracer = Tracer()
             _reset_counts()
@@ -553,7 +668,8 @@ def _serve_full_width(cfg, engines, detail):
                     "razer_act_qdq": per_fwd * target_passes if eng.policy.act is not None else 0,
                     "razer_kv_attention": 0,
                     "paged_kv_attention": layers * ((0 if k else rep.decode_steps) + rep.draft_steps),
-                    "paged_kv_attention_verify": layers * rep.decode_steps if k else 0}
+                    "paged_kv_attention_verify": layers * rep.decode_steps if k else 0,
+                    "razer_grouped_matmul": k6_fwd * target_passes}
             assert counts == want, (name, k, counts, want)
             assert rep.cache_hits >= 1 and rep.requests[6].cached_tokens == 40, \
                 (rep.cache_hits, rep.requests[6].cached_tokens)
@@ -579,7 +695,7 @@ def _serve_full_width(cfg, engines, detail):
     eng = engines["w4a4_kv"]
     out["profile_w4a4_kv_serve"] = _profile(lambda: eng.serve(
         _serve_requests(cfg, 4)[:4], sched_cfg=sched_cfg, pool_cfg=pool_cfg))
-    detail["serve"] = out
+    detail[key] = out
     return out
 
 
@@ -604,14 +720,44 @@ def _profile(run):
             "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top]}
 
 
+def _dbrx_full_width(dev, detail):
+    """Phase 4d: dbrx_132b at its published widths, cut to 2 of its 40
+    layers (the dense f32 tree the engines keep for the draft is 13 GB per
+    MoE layer), through generate and vanilla serve under both policies."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("dbrx_132b"), num_layers=2)
+    engines, pack_s = _engines(cfg, dev)
+    cut = {"num_layers": [40, 2]}
+    e2e = _full_width(cfg, engines, detail, pack_s, key="e2e_dbrx")
+    e2e["cut"] = cut
+    print("e2e dbrx_132b full width, cut num_layers 40 -> 2: " + json.dumps(e2e))
+    serve = _serve_full_width(cfg, engines, detail, key="serve_dbrx", ks=(0,))
+    serve["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    serve["cut"] = cut
+    print("serve dbrx_132b full width, cut num_layers 40 -> 2: " + json.dumps(serve))
+
+
 def _card_vs_cpu(dev, detail):
+    """The reduced llama3_2_3b (KVH 2) and dbrx_132b in bf16, on the card
+    with the kernels and on the CPU with the plain versions, from the same
+    weights: prefill and 5 teacher-forced decode steps fed the CPU run's
+    greedy tokens."""
+    out = {}
+    for arch, kw in (("llama3_2_3b", dict(num_kv_heads=2)), ("dbrx_132b", {})):
+        out[arch] = _card_vs_cpu_one(dev, arch, kw)
+    detail["card_vs_cpu"] = out
+    return out
+
+
+def _card_vs_cpu_one(dev, arch, kw):
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
     # logit tolerances of the bf16 slice tests (tests/test_torch_engine_bf16.py)
     tolerances = {"w4_kv": 0.06, "w4a4_kv": 0.25}
-    cfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), num_kv_heads=2)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     params = init_params(cfg, seed=1, device="cpu")
     prompts = [[1, 2, 3], [7, 8, 9, 10, 11, 12], [20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30]]
     lens = np.array([len(p) for p in prompts])
@@ -639,10 +785,10 @@ def _card_vs_cpu(dev, detail):
             counts = _read_counts()
             assert (eng is card) == (counts["razer_matmul"] > 0 and counts["razer_kv_attention"] > 0), counts
             assert (eng is card and policy.act is not None) == (counts["razer_act_qdq"] > 0), counts
-        diff = max(float((a - b).abs().max()) for a, b in zip(*results))
-        assert diff <= tolerances[name], (name, diff)
-        out[name] = {"max_abs_logit_diff": diff, "tolerance": tolerances[name]}
-    detail["card_vs_cpu"] = out
+            assert (eng is card and cfg.moe) == (counts["razer_grouped_matmul"] > 0), counts
+        diffs = [float((a - b).abs().max()) for a, b in zip(*results)]
+        assert max(diffs) <= tolerances[name], (arch, name, diffs)
+        out[name] = {"max_abs_logit_diff": max(diffs), "per_step": diffs, "tolerance": tolerances[name]}
     return out
 
 
@@ -676,12 +822,14 @@ def main() -> int:
     checks = {"razer_matmul": _check_matmul(cfg, dev, gen, detail),
               "razer_act_qdq": _check_act_qdq(cfg, dev, gen, detail),
               "razer_kv_attention": _check_kv_attention(cfg, dev, gen, detail),
-              **_check_paged_attention(cfg, dev, gen, detail)}
+              **_check_paged_attention(cfg, dev, gen, detail),
+              "razer_grouped_matmul": _check_grouped_matmul(dev, gen, detail)}
+    torch.cuda.empty_cache()
     print("kernels vs plain: " + json.dumps({k: {"max_abs_err": v[0], **v[1]} for k, v in checks.items()}))
     print("K1 split-K from (N, K) vs one split at M=128: " + json.dumps(_split_k_cost(cfg, dev, gen, detail)))
 
-    cfg, engines = _engines(dev, detail)
-    e2e = _full_width(cfg, engines, detail)
+    engines, pack_s = _engines(cfg, dev)
+    e2e = _full_width(cfg, engines, detail, pack_s)
     print("e2e llama3_2_3b full width: " + json.dumps(e2e))
     paged = _paged_vs_contiguous(cfg, engines["w4_kv"], detail)
     print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
@@ -689,8 +837,10 @@ def main() -> int:
     print("serve llama3_2_3b full width: " + json.dumps(serve))
     del engines
     torch.cuda.empty_cache()
+    _dbrx_full_width(dev, detail)
+    torch.cuda.empty_cache()
     parity = _card_vs_cpu(dev, detail)
-    print("card vs cpu (reduced): " + json.dumps(parity))
+    print("card vs cpu (reduced llama3_2_3b and dbrx_132b): " + json.dumps(parity))
 
     meta = {
         "razer_matmul": ("src/repro_torch/csrc/razer_matmul.cu", "src/repro/kernels/razer_matmul.py:112",
@@ -706,6 +856,9 @@ def main() -> int:
         "paged_kv_attention_verify": ("src/repro_torch/csrc/paged_kv_attention.cu",
                                       "src/repro/kernels/paged_kv_attention.py:170",
                                       "B=4 T=3 H=24 KVH=8 hd=128 ps=16, committed 9/40/97/125"),
+        "razer_grouped_matmul": ("src/repro_torch/csrc/razer_grouped_matmul.cu",
+                                 "src/repro/kernels/razer_grouped_matmul.py:62",
+                                 "one dbrx_132b MoE layer's 3 expert banks (E=16, 6144 x 10752) at decode M=4"),
     }
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": MAIN_PATH_LAUNCHES[name], "max_abs_err": checks[name][0],

@@ -11,10 +11,10 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.packing import PackedRazerWeight
+from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "packed_from_numpy"]
+__all__ = ["params_from_numpy", "packed_from_numpy", "packed_stacked_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -60,6 +60,20 @@ def packed_from_numpy(codes, scale_meta, tensor_scale, sv_magnitudes: Tuple[floa
     """Wire arrays of a JAX ``PackedRazerWeight`` -> the port's container."""
     device = resolve_device(device)
     return PackedRazerWeight(
+        codes=_tensor(codes, device),
+        scale_meta=_tensor(scale_meta, device),
+        tensor_scale=_tensor(np.asarray(tensor_scale, np.float32), device),
+        sv_magnitudes=tuple(float(m) for m in sv_magnitudes),
+        shape=tuple(int(s) for s in shape),
+    )
+
+
+def packed_stacked_from_numpy(codes, scale_meta, tensor_scale, sv_magnitudes: Tuple[float, float],
+                              shape: Tuple[int, int, int], device="cuda") -> PackedStackedTensor:
+    """Wire arrays of a JAX ``PackedStackedTensor`` (one expert bank) -> the
+    port's container."""
+    device = resolve_device(device)
+    return PackedStackedTensor(
         codes=_tensor(codes, device),
         scale_meta=_tensor(scale_meta, device),
         tensor_scale=_tensor(np.asarray(tensor_scale, np.float32), device),

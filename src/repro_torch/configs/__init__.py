@@ -3,7 +3,7 @@ import importlib
 
 from repro_torch.models.config import ArchConfig
 
-ARCHS = ("llama3_2_3b",)
+ARCHS = ("llama3_2_3b", "dbrx_132b")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -26,7 +26,9 @@ __all__ = [
     "pack_scale_meta",
     "unpack_scale_meta",
     "PackedRazerWeight",
+    "PackedStackedTensor",
     "pack_weight",
+    "pack_stacked_weights",
 ]
 
 
@@ -114,6 +116,39 @@ class PackedRazerWeight:
                                  self.tensor_scale.to(device), self.sv_magnitudes, self.shape)
 
 
+@dataclass
+class PackedStackedTensor:
+    """A stacked bank of E independent RaZeR-packed (K, N) weights: the MoE
+    expert-bank container, consumed whole by the grouped matmul kernel.
+
+    codes        : (E, K//2, N) uint8 -- two FP4 codes per byte along K
+    scale_meta   : (E, K//16, N) uint8 -- E3M3 scale + 2-bit SV metadata
+    tensor_scale : (E,) float32 -- each entry's own tensor scale
+    sv_magnitudes: (m0, m1), shared by the bank
+    shape        : logical (E, K, N)
+    """
+
+    codes: torch.Tensor
+    scale_meta: torch.Tensor
+    tensor_scale: torch.Tensor
+    sv_magnitudes: Tuple[float, float]
+    shape: Tuple[int, int, int]
+
+    def __getitem__(self, e: int) -> PackedRazerWeight:
+        """Bank entry ``e`` as a plain 2-D packed weight."""
+        _, k, n = self.shape
+        return PackedRazerWeight(self.codes[e], self.scale_meta[e], self.tensor_scale[e],
+                                 self.sv_magnitudes, (k, n))
+
+    def dequantize(self) -> torch.Tensor:
+        """(E, K, N) float32, each entry's tensor scale included."""
+        return torch.stack([self[e].dequantize() for e in range(self.shape[0])])
+
+    def to(self, device) -> "PackedStackedTensor":
+        return PackedStackedTensor(self.codes.to(device), self.scale_meta.to(device),
+                                   self.tensor_scale.to(device), self.sv_magnitudes, self.shape)
+
+
 def pack_weight(w: torch.Tensor, *, sv_magnitudes: Tuple[float, float] = (5.0, 8.0),
                 block_size: int = 16) -> PackedRazerWeight:
     """RaZeR-quantize a float32 (K, N) weight along K and bit-pack it."""
@@ -137,3 +172,23 @@ def pack_weight(w: torch.Tensor, *, sv_magnitudes: Tuple[float, float] = (5.0, 8
         shape=(k, n),
     )
 
+
+def pack_stacked_weights(w: torch.Tensor, *, sv_magnitudes: Tuple[float, float] = (5.0, 8.0),
+                         block_size: int = 16) -> PackedStackedTensor:
+    """RaZeR-quantize a stacked (E, K, N) bank entry by entry and bit-pack it.
+
+    Each entry is packed by ``pack_weight`` on its own (its own tensor
+    scale), so ``pack_stacked_weights(w)[e]`` holds the bytes of
+    ``pack_weight(w[e])``; one entry at a time also keeps the quantizer's
+    temporaries to one (K, N) slice of the bank."""
+    if w.ndim != 3:
+        raise ValueError("pack_stacked_weights expects a 3-D (E, K, N) bank")
+    e, k, n = w.shape
+    parts = [pack_weight(w[i], sv_magnitudes=sv_magnitudes, block_size=block_size) for i in range(e)]
+    return PackedStackedTensor(
+        codes=torch.stack([p.codes for p in parts]),
+        scale_meta=torch.stack([p.scale_meta for p in parts]),
+        tensor_scale=torch.stack([p.tensor_scale for p in parts]).reshape(e),
+        sv_magnitudes=tuple(float(m) for m in sv_magnitudes),
+        shape=(e, k, n),
+    )

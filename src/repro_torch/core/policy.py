@@ -3,15 +3,14 @@
 ``TensorSpec`` says how one tensor role (weights, activations, KV cache) is
 quantized; ``LayerRule`` maps param-tree paths (fnmatch globs, or regexes with
 a ``re:`` prefix) to a spec or to dense; ``QuantPolicy`` bundles the role
-specs with an ordered rule list where the first match wins.  The JAX
-package's field-override rules are not ported.
+specs with an ordered rule list where the first match wins.
 """
 from __future__ import annotations
 
 import fnmatch
 import re
-from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass, field, replace
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +29,10 @@ class TensorSpec:
     block_size: int = 16
     scale_fmt: Optional[str] = "e3m3"
     special_values: Optional[Tuple[float, ...]] = WEIGHT_SPECIAL_VALUES
+    # the tensor is a stacked bank of independent (K, N) matrices (a leading
+    # E dim: MoE expert weights); packed mode packs it into the format's
+    # stacked container, one operand of the grouped matmul kernel
+    stacked: bool = False
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -73,6 +76,12 @@ class TensorSpec:
         return registry.get_format(self.format)
 
     @property
+    def effective_block_size(self) -> int:
+        """The block size the quantize fn will use: the spec's, floored at
+        the format's minimum."""
+        return max(self.block_size, self.entry.min_block_size)
+
+    @property
     def sv_magnitudes(self) -> Tuple[float, float]:
         """The (m0, m1) magnitudes the packed wire format encodes; one pair
         is duplicated, more than two pairs do not fit the 2 meta bits."""
@@ -101,20 +110,42 @@ class TensorSpec:
             raise ValueError(f"format {self.format!r} has no pack_fn registered")
         return entry.pack_fn(w, self)
 
+    def pack_stacked(self, w: torch.Tensor):
+        """Bit-pack a stacked (E, K, N) bank into the format's grouped
+        container."""
+        entry = self.entry
+        if entry.pack_stacked_fn is None:
+            raise ValueError(f"format {self.format!r} has no pack_stacked_fn registered")
+        return entry.pack_stacked_fn(w, self)
+
 
 @dataclass(frozen=True)
 class LayerRule:
-    """``pattern`` -> ``spec`` (None keeps the matched tensors dense).
+    """``pattern`` -> ``spec`` (None keeps the matched tensors dense), or
+    ``overrides``: fields replaced in the policy's weight spec.
 
     ``pattern`` is a glob matched against the '/'-joined param path, or a
     regex searched in it when prefixed with ``re:``."""
 
     pattern: str
     spec: Optional[TensorSpec] = None
+    overrides: Tuple[Tuple[str, Any], ...] = ()
 
     @staticmethod
     def dense(pattern: str) -> "LayerRule":
         return LayerRule(pattern)
+
+    @staticmethod
+    def override(pattern: str, **fields) -> "LayerRule":
+        return LayerRule(pattern, overrides=tuple(sorted(fields.items())))
+
+    def resolve(self, base: Optional[TensorSpec]) -> Optional[TensorSpec]:
+        if self.overrides:
+            src = self.spec if self.spec is not None else base
+            if src is None:
+                raise ValueError(f"rule {self.pattern!r} overrides fields but there is no base spec")
+            return replace(src, **dict(self.overrides))
+        return self.spec
 
     def matches(self, path: str) -> bool:
         if self.pattern.startswith("re:"):
@@ -123,9 +154,10 @@ class LayerRule:
 
 
 # Embeddings, lm_head, router, norms, biases and SSM parameters stay high
-# precision; the patterns are the JAX package's, so paths resolve alike.  Its
-# ``*experts*`` rule only marks stacked MoE banks, which this slice does not
-# port, and leaves every dense/packed decision unchanged.
+# precision; the patterns are the JAX package's, so paths resolve alike.
+# Stacked (E, d, f) MoE expert banks quantize like any weight but carry the
+# ``stacked`` marker: packed mode packs the whole bank into the format's
+# stacked container, which ``moe_forward`` sends to the grouped kernel.
 DEFAULT_DENSE_RULES: Tuple[LayerRule, ...] = (
     LayerRule.dense("*embed*"),
     LayerRule.dense("*lm_head*"),
@@ -133,6 +165,7 @@ DEFAULT_DENSE_RULES: Tuple[LayerRule, ...] = (
     LayerRule.dense("*norm*"),
     LayerRule.dense("*ln*"),
     LayerRule.dense("*conv*"),
+    LayerRule.override("*experts*", stacked=True),
     LayerRule.dense("re:(^|/)a_param$"),
     LayerRule.dense("re:(^|/)A_log$"),
     LayerRule.dense("re:(^|/)D$"),
@@ -192,7 +225,7 @@ class QuantPolicy:
         spec: Optional[TensorSpec] = self.weight
         for rule in self.rules:
             if rule.matches(path):
-                spec = rule.spec
+                spec = rule.resolve(self.weight)
                 break
         if spec is None or not spec.quantizes:
             return None

@@ -2,9 +2,11 @@
 
 A format names its quantize function and, optionally, how a weight is packed
 into a wire container, the matmul kernel that consumes that container and the
-fused activation fake-quant kernel.  ``qlinear`` dispatches a packed weight by
-its container type.  The port registers ``razer`` (packed, with kernels) and
-``nvfp4`` (quantize only: the default draft format of speculative serving).
+fused activation fake-quant kernel, and for stacked MoE banks the stacked
+container and its grouped kernel.  ``qlinear`` dispatches a packed weight by
+its container type, ``moe_forward`` a packed bank by its stacked type.  The
+port registers ``razer`` (packed, with kernels) and ``nvfp4`` (quantize only:
+the default draft format of speculative serving).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
-__all__ = ["FormatEntry", "register_format", "get_format", "packed_entry", "spec_kwargs"]
+__all__ = ["FormatEntry", "register_format", "get_format", "packed_entry", "grouped_entry", "spec_kwargs"]
 
 
 @dataclass(frozen=True)
@@ -23,15 +25,26 @@ class FormatEntry:
     matmul_kernel: Optional[Callable] = None  # (x, packed) -> y
     act_kernel: Optional[Callable] = None  # (x, spec) -> fake-quantized x
     packed_type: Optional[type] = None  # container class for type dispatch
+    # stacked-bank (E, K, N) hooks: an MoE expert bank packs into ONE grouped
+    # container that a grouped kernel consumes whole (moe_forward)
+    pack_stacked_fn: Optional[Callable] = None  # (w, spec) -> stacked container
+    grouped_matmul_kernel: Optional[Callable] = None  # (x (E, M, K), packed) -> y
+    packed_stacked_type: Optional[type] = None  # stacked container class
+    # the smallest block the format quantizes (the JAX package's OCP MXFP4
+    # has 32; razer and nvfp4 take any)
+    min_block_size: int = 1
 
 
 _REGISTRY: Dict[str, FormatEntry] = {}
 
 
 def register_format(name: str, quantize_fn: Callable, pack_fn=None, matmul_kernel=None,
-                    act_kernel=None, *, packed_type=None) -> FormatEntry:
+                    act_kernel=None, *, packed_type=None, pack_stacked_fn=None,
+                    grouped_matmul_kernel=None, packed_stacked_type=None) -> FormatEntry:
     entry = FormatEntry(name=name, quantize=quantize_fn, pack_fn=pack_fn,
-                        matmul_kernel=matmul_kernel, act_kernel=act_kernel, packed_type=packed_type)
+                        matmul_kernel=matmul_kernel, act_kernel=act_kernel, packed_type=packed_type,
+                        pack_stacked_fn=pack_stacked_fn, grouped_matmul_kernel=grouped_matmul_kernel,
+                        packed_stacked_type=packed_stacked_type)
     _REGISTRY[name] = entry
     return entry
 
@@ -47,6 +60,15 @@ def packed_entry(obj) -> Optional[FormatEntry]:
     """The entry whose packed container type matches ``obj`` (or None)."""
     for entry in _REGISTRY.values():
         if entry.packed_type is not None and isinstance(obj, entry.packed_type):
+            return entry
+    return None
+
+
+def grouped_entry(obj) -> Optional[FormatEntry]:
+    """The entry whose STACKED container type matches ``obj`` (or None):
+    how ``moe_forward`` routes an expert bank to its grouped kernel."""
+    for entry in _REGISTRY.values():
+        if entry.packed_stacked_type is not None and isinstance(obj, entry.packed_stacked_type):
             return entry
     return None
 
@@ -76,6 +98,18 @@ def _razer_matmul(x, pw):
     return ops.razer_matmul(x, pw)
 
 
+def _razer_pack_stacked(w, spec):
+    from .packing import pack_stacked_weights
+
+    return pack_stacked_weights(w, sv_magnitudes=spec.sv_magnitudes, block_size=spec.block_size)
+
+
+def _razer_grouped_matmul(x, pst):
+    from repro_torch.kernels import ops
+
+    return ops.razer_grouped_matmul(x, pst)
+
+
 def _razer_act_qdq(x, spec):
     if spec.scale_fmt not in (None, "e4m3"):
         # the fused act kernel hardcodes the E4M3 block scale
@@ -87,12 +121,14 @@ def _razer_act_qdq(x, spec):
 
 def _register_builtins() -> None:
     from .nvfp4 import nvfp4_quantize
-    from .packing import PackedRazerWeight
+    from .packing import PackedRazerWeight, PackedStackedTensor
     from .razer import razer_quantize
 
     register_format("nvfp4", nvfp4_quantize)
     register_format("razer", razer_quantize, pack_fn=_razer_pack, matmul_kernel=_razer_matmul,
-                    act_kernel=_razer_act_qdq, packed_type=PackedRazerWeight)
+                    act_kernel=_razer_act_qdq, packed_type=PackedRazerWeight,
+                    pack_stacked_fn=_razer_pack_stacked, grouped_matmul_kernel=_razer_grouped_matmul,
+                    packed_stacked_type=PackedStackedTensor)
 
 
 _register_builtins()

@@ -12,16 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.packing import PackedRazerWeight
+from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 
 from . import ref
 from .paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+from .razer_grouped_matmul import razer_grouped_matmul_cuda
 from .razer_kv_attention import razer_kv_attention_cuda
 from .razer_matmul import razer_matmul_cuda
 from .razer_quantize import razer_act_qdq_cuda
 
-__all__ = ["razer_matmul", "razer_act_qdq", "razer_kv_attention", "razer_paged_kv_attention",
-           "razer_paged_kv_attention_verify"]
+__all__ = ["razer_matmul", "razer_grouped_matmul", "razer_act_qdq", "razer_kv_attention",
+           "razer_paged_kv_attention", "razer_paged_kv_attention_verify"]
 
 
 def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
@@ -38,6 +39,21 @@ def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
     else:
         y = ref.razer_matmul_ref(xf, pw)  # the tensor scale is inside the f32 weight
     return y.reshape(*lead, n).to(x.dtype)
+
+
+def razer_grouped_matmul(x: torch.Tensor, pst: PackedStackedTensor) -> torch.Tensor:
+    """y[e] = x[e] @ dequant(pst[e]) for x (E, M, K) -> (E, M, N) in x's
+    dtype; on the card the per-expert tensor scale is applied here."""
+    e, k, n = pst.shape
+    if x.dim() != 3 or x.shape[0] != e or x.shape[-1] != k:
+        raise ValueError(f"x {tuple(x.shape)} does not match packed bank {pst.shape}")
+    if x.is_cuda:
+        y = razer_grouped_matmul_cuda(x.contiguous(), pst.codes, pst.scale_meta,
+                                      m0=pst.sv_magnitudes[0], m1=pst.sv_magnitudes[1])
+        y = y * pst.tensor_scale[:, None, None]
+    else:
+        y = ref.razer_grouped_matmul_ref(x, pst)  # the tensor scales are inside the f32 bank
+    return y.to(x.dtype)
 
 
 def razer_act_qdq(x: torch.Tensor, *, svs=(5.0, -5.0), block: int = 16) -> torch.Tensor:

@@ -7,17 +7,23 @@ import numpy as np
 import torch
 
 from repro_torch.core.formats import device_constant
-from repro_torch.core.packing import PackedRazerWeight
+from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 from repro_torch.core.razer import razer_quantize
 
-__all__ = ["razer_matmul_ref", "razer_act_qdq_ref", "razer_kv_attention_ref", "paged_kv_attention_ref",
-           "paged_kv_attention_verify_ref"]
+__all__ = ["razer_matmul_ref", "razer_grouped_matmul_ref", "razer_act_qdq_ref", "razer_kv_attention_ref",
+           "paged_kv_attention_ref", "paged_kv_attention_verify_ref"]
 
 
 def razer_matmul_ref(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
     """(M, K) @ dequant(pw) -> (M, N) f32; the f32 weight includes the tensor
     scale."""
     return x.to(torch.float32) @ pw.dequantize()
+
+
+def razer_grouped_matmul_ref(x: torch.Tensor, pst: PackedStackedTensor) -> torch.Tensor:
+    """y[e] = x[e] @ dequant(pst[e]): (E, M, K) -> (E, M, N) f32; the f32
+    bank includes each entry's tensor scale."""
+    return torch.einsum("emk,ekn->emn", x.to(torch.float32), pst.dequantize())
 
 
 def razer_act_qdq_ref(x: torch.Tensor, svs=(5.0, -5.0), block: int = 16) -> torch.Tensor:

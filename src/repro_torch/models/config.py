@@ -1,5 +1,5 @@
-"""ArchConfig for the port's dense decoder (counterpart of
-``repro.models.config``): the fields the dense GQA path reads."""
+"""ArchConfig for the port's decoders (counterpart of
+``repro.models.config``): the fields the dense GQA and MoE paths read."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -11,7 +11,7 @@ import torch
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # this slice runs "dense"
+    family: str  # the port runs "dense" and "moe"
     num_layers: int
     d_model: int
     num_heads: int
@@ -24,6 +24,16 @@ class ArchConfig:
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    topk: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    capacity_factor: float = 1.25
+
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
@@ -46,6 +56,13 @@ class ArchConfig:
         kvh = max(1, min(heads, self.num_kv_heads if self.num_kv_heads else heads))
         if kvh > 1 and heads % kvh:
             kvh = 1
-        return replace(self, num_layers=min(self.num_layers, 3), d_model=heads * hd,
-                       num_heads=heads, num_kv_heads=kvh, head_dim=hd, d_ff=4 * heads * hd,
-                       vocab_size=256)
+        kw = dict(num_layers=min(self.num_layers, 3), d_model=heads * hd, num_heads=heads,
+                  num_kv_heads=kvh, head_dim=hd, d_ff=4 * heads * hd, vocab_size=256)
+        if self.moe:
+            # capacity_factor high enough that the reduced config never drops
+            # a slot (drops depend on which tokens share a group, and would
+            # break the serving invariants); full configs keep theirs
+            kw.update(n_experts=4, topk=min(self.topk, 2), moe_d_ff=2 * heads * hd,
+                      n_shared_experts=min(self.n_shared_experts, 1),
+                      first_dense_layers=min(self.first_dense_layers, 1), capacity_factor=8.0)
+        return replace(self, **kw)

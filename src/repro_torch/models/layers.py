@@ -21,6 +21,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device, dtype=tor
     return w.mul_(1.0 / math.sqrt(d_in))
 
 
+def swiglu_init(gen: torch.Generator, d: int, f: int, *, device, dtype=torch.float32):
+    return {"gate": dense_init(gen, d, f, device=device, dtype=dtype),
+            "up": dense_init(gen, d, f, device=device, dtype=dtype),
+            "down": dense_init(gen, f, d, device=device, dtype=dtype)}
+
+
 def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *, device, dtype=torch.float32) -> torch.Tensor:
     return torch.randn((vocab, d_model), generator=gen, device=device, dtype=dtype).mul_(0.02)
 

@@ -1,15 +1,21 @@
-"""Dense GQA decoder stack (PyTorch port of the dense path of
+"""Decoder stacks of GQA attention layers with a dense SwiGLU or an MoE
+feed-forward (PyTorch port of the dense and MoE paths of
 ``repro.models.transformer``).
 
 Parameters are a dict: ``embed``, ``final_norm``, optionally ``lm_head``, and
-``layers_0``, a list of per-layer dicts (``ln1``, ``mixer`` {wq, wk, wv, wo},
-``ln2``, ``mlp`` {gate, up, down}).  The key keeps the JAX package's name for
-its scan-stacked group, so the policy rules resolve the same '/'-joined paths
-(``layers_0/mixer/wq``); the JAX ``lax.scan`` over the stack is a loop here.
+one ``layers_<g>`` list of per-layer dicts per layer group (``layer_groups``:
+runs of consecutive layers of one type).  An ``"a"`` layer holds ``ln1``,
+``mixer`` {wq, wk, wv, wo}, ``ln2`` and ``mlp`` {gate, up, down}; an ``"m"``
+layer holds ``moe`` (router, expert banks, optional shared experts) in place
+of ``mlp``.  The keys keep the JAX package's names for its scan-stacked
+groups, so the policy rules resolve the same '/'-joined paths
+(``layers_0/mixer/wq``, ``layers_1/moe/experts/gate``); the JAX ``lax.scan``
+over a group is a loop here.  Caches are one per layer, in layer order
+across the groups.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -18,13 +24,49 @@ from repro_torch.core.qlinear import qlinear
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
 from .config import ArchConfig
-from .layers import dense_init, embed, embedding_init, rms_norm, swiglu, unembed
+from .layers import dense_init, embed, embedding_init, rms_norm, swiglu, swiglu_init, unembed
 
-__all__ = ["init_params", "prefill", "prefill_paged_suffix", "decode_step", "decode_verify"]
+__all__ = ["layer_groups", "init_params", "prefill", "prefill_paged_suffix", "decode_step",
+           "decode_verify"]
 
 
-def _layer_init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
+def layer_groups(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """[(block_type, count)] for runs of consecutive same-type layers: "a"
+    attention + dense MLP, "m" attention + MoE (after ``first_dense_layers``
+    dense ones)."""
+    if cfg.moe:
+        nd = cfg.first_dense_layers
+        types = ["a"] * nd + ["m"] * (cfg.num_layers - nd)
+    else:
+        types = ["a"] * cfg.num_layers
+    groups: List[Tuple[str, int]] = []
+    for t in types:
+        if groups and groups[-1][0] == t:
+            groups[-1] = (t, groups[-1][1] + 1)
+        else:
+            groups.append((t, 1))
+    return groups
+
+
+def _layers(params, cfg: ArchConfig) -> Iterator[Tuple[str, Dict[str, Any]]]:
+    """(block type, layer params) of every layer, in order across groups."""
+    for gi, (ltype, _) in enumerate(layer_groups(cfg)):
+        for lp in params[f"layers_{gi}"]:
+            yield ltype, lp
+
+
+def _ffn(x: torch.Tensor, lp, ltype: str, cfg: ArchConfig, quant: QuantPolicy) -> torch.Tensor:
+    """The residual feed-forward half of a layer: SwiGLU or MoE."""
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if ltype == "m":
+        y, _ = moe_mod.moe_forward(h2, lp["moe"], cfg, quant=quant)
+        return x + y
+    return x + swiglu(h2, lp["mlp"], quant)
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Dict[str, Any]:
     d, hd, dt = cfg.d_model, cfg.hd, cfg.pdtype
     w = lambda i, o: dense_init(gen, i, o, device=device, dtype=dt)
     mixer = {"wq": w(d, cfg.num_heads * hd), "wk": w(d, cfg.num_kv_heads * hd),
@@ -35,20 +77,21 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]
     if cfg.qk_norm:
         mixer["q_norm"] = torch.zeros(hd, dtype=dt, device=device)
         mixer["k_norm"] = torch.zeros(hd, dtype=dt, device=device)
-    return {
-        "ln1": torch.zeros(d, dtype=dt, device=device),
-        "mixer": mixer,
-        "ln2": torch.zeros(d, dtype=dt, device=device),
-        "mlp": {"gate": w(d, cfg.d_ff), "up": w(d, cfg.d_ff), "down": w(cfg.d_ff, d)},
-    }
+    p = {"ln1": torch.zeros(d, dtype=dt, device=device), "mixer": mixer,
+         "ln2": torch.zeros(d, dtype=dt, device=device)}
+    if ltype == "m":
+        p["moe"] = moe_mod.moe_init(gen, cfg, device=device, dtype=dt)
+    else:
+        p["mlp"] = swiglu_init(gen, d, cfg.d_ff, device=device, dtype=dt)
+    return p
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random full-precision parameters drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.  (The JAX package draws other
     numbers from its keys; tests carry its weights over with ``bridge``.)"""
-    if cfg.family != "dense":
-        raise ValueError(f"the port runs dense decoders only, got family {cfg.family!r}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port runs dense and MoE decoders only, got family {cfg.family!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -58,7 +101,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, A
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.pdtype)
-    p["layers_0"] = [_layer_init(gen, cfg, device) for _ in range(cfg.num_layers)]
+    for gi, (ltype, count) in enumerate(layer_groups(cfg)):
+        p[f"layers_{gi}"] = [_layer_init(gen, cfg, ltype, device) for _ in range(count)]
     return p
 
 
@@ -86,7 +130,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
     x = embed(tokens, params["embed"], cfg.cdtype)
     positions = torch.arange(s, device=dev).expand(b, s)
     caches: List[Dict[str, torch.Tensor]] = []
-    for lp in params["layers_0"]:
+    for ltype, lp in _layers(params, cfg):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn._qkv(h, lp["mixer"], cfg, quant, positions)
         k = k.to(cfg.cdtype)
@@ -102,7 +146,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
         caches.append(cache)
-        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
+        x = _ffn(x, lp, ltype, cfg, quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_positions is not None:
         idx = torch.as_tensor(last_positions, device=dev).long() - 1
@@ -140,7 +184,7 @@ def prefill_paged_suffix(params, tokens: torch.Tensor, pool_caches, page_row: to
     x = embed(tokens, params["embed"], cfg.cdtype)
     positions = pre_len + torch.arange(s, device=dev).expand(b, s)
     caches: List[Dict[str, torch.Tensor]] = []
-    for lp, pool in zip(params["layers_0"], pool_caches):
+    for (ltype, lp), pool in zip(_layers(params, cfg), pool_caches):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn._qkv(h, lp["mixer"], cfg, quant, positions)
         k = k.to(cfg.cdtype)
@@ -156,7 +200,7 @@ def prefill_paged_suffix(params, tokens: torch.Tensor, pool_caches, page_row: to
         v_all = kv_buffer(_qdq_kv(v, hd), pool["v_codes"], pool["v_meta"])
         mix = attn.chunked_attention(q, k_all, v_all, causal=True, q_offset=pre_len)
         x = x + qlinear(mix.reshape(b, s, -1), lp["mixer"]["wo"], quant)
-        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
+        x = _ffn(x, lp, ltype, cfg, quant)
         caches.append({"k": k, "v": v})
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x[:, sfx_len - 1:sfx_len], _head(params))[:, 0], caches
@@ -168,11 +212,10 @@ def decode_step(params, token: torch.Tensor, caches, cur_len: torch.Tensor, cfg:
     the caches are updated in place.  With ``pages`` (B, NP) the caches are
     the paged pool's per-layer views and every layer shares the table."""
     x = embed(token[:, None], params["embed"], cfg.cdtype)
-    for i, lp in enumerate(params["layers_0"]):
+    for i, (ltype, lp) in enumerate(_layers(params, cfg)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         mix, caches[i] = attn.gqa_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant, pages=pages)
-        x = x + mix
-        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
+        x = _ffn(x + mix, lp, ltype, cfg, quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, _head(params))[:, 0], caches
 
@@ -184,11 +227,10 @@ def decode_verify(params, tokens: torch.Tensor, caches, cur_len: torch.Tensor, c
     caches).  Position t's logits predict the token at ``cur_len + t + 1``;
     each layer goes through ``attn.gqa_decode_verify``."""
     x = embed(tokens, params["embed"], cfg.cdtype)  # (B, T, d)
-    for i, lp in enumerate(params["layers_0"]):
+    for i, (ltype, lp) in enumerate(_layers(params, cfg)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         mix, caches[i] = attn.gqa_decode_verify(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant,
                                                 pages=pages)
-        x = x + mix
-        x = x + swiglu(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"], quant)
+        x = _ffn(x + mix, lp, ltype, cfg, quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, _head(params)), caches

@@ -43,16 +43,32 @@ class ServeConfig:
 _MIN_PACK = 16 * 16  # weights smaller than this stay dense
 
 
-def _packable(spec: TensorSpec, leaf) -> bool:
-    return (isinstance(leaf, torch.Tensor) and leaf.ndim == 2
-            and leaf.shape[0] % spec.block_size == 0 and leaf.numel() >= _MIN_PACK)
+def _packable(spec: TensorSpec, leaf, ndim: int) -> bool:
+    """A tensor of ``ndim`` dims whose reduction dim (the second last) splits
+    into whole blocks and that is big enough to matter."""
+    return (isinstance(leaf, torch.Tensor) and leaf.ndim == ndim
+            and leaf.shape[-2] % spec.effective_block_size == 0 and leaf.numel() >= _MIN_PACK)
 
 
 def pack_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
-    """Replace every eligible 2-D weight with its format's wire container,
-    per the policy's rules on the '/'-joined path.  Each layer of the
-    ``layers_0`` list packs on its own, under the group's path, so the rules
-    see the paths the JAX package's stacked tree has."""
+    """Replace every eligible weight with its format's wire container, per
+    the policy's rules on the '/'-joined path.  Each layer of a
+    ``layers_<g>`` list packs on its own, under the group's path, so the
+    rules see the paths the JAX package's stacked tree has.
+
+    A spec with the ``stacked`` marker (MoE expert banks, the default
+    ``*experts*`` rule) packs a whole (E, d_in, d_out) bank into the
+    format's stacked container, and only when BOTH trailing dims are block
+    multiples: gate/up (E, d, f) and down (E, f, d) reduce over d and f, so
+    the symmetric condition packs the trio all or none, as ``moe_forward``
+    needs."""
+
+    def pack_leaf(spec: TensorSpec, leaf):
+        if spec.stacked:
+            if _packable(spec, leaf, 3) and leaf.shape[2] % spec.effective_block_size == 0:
+                return spec.pack_stacked(leaf.to(torch.float32))
+            return leaf
+        return spec.pack(leaf.to(torch.float32)) if _packable(spec, leaf, 2) else leaf
 
     def walk(tree, path):
         if isinstance(tree, dict):
@@ -60,9 +76,9 @@ def pack_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
         if isinstance(tree, list):
             return [walk(v, path) for v in tree]
         spec = quant.resolve(path)
-        if spec is None or spec.mode != "packed" or not _packable(spec, tree):
+        if spec is None or spec.mode != "packed":
             return tree
-        return spec.pack(tree.to(torch.float32))
+        return pack_leaf(spec, tree)
 
     return walk(params, "")
 

@@ -17,8 +17,9 @@ decode step writes their garbage somewhere harmless.
 
 The buffers keep the JAX package's layout: ``caches`` is one dict of
 ``(count, P, ps, KVH, ...)`` uint8 arrays per layer group (a dense decoder
-has one group), and ``layers`` holds each layer's ``(P, ps, KVH, ...)``
-views of them, which the decode step updates in place.  Allocation
+has one group; an MoE decoder with leading dense layers two), and ``layers``
+holds each layer's ``(P, ps, KVH, ...)`` views of them, in layer order,
+which the decode step updates in place.  Allocation
 (free list, refcounts, page lists) is host-side Python.
 
 Not ported yet: ``export_pages`` / ``import_pages`` / ``PageShipment`` /
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import layer_groups
 
 __all__ = ["NULL_PAGE", "PagePoolConfig", "KVPagePool"]
 
@@ -68,9 +70,10 @@ class PagePoolConfig:
 
 
 def _check_paged_arch(cfg: ArchConfig) -> None:
-    """The pool stores the GQA wire format of the port's dense decoder."""
-    if cfg.family != "dense":
-        raise ValueError(f"paged KV serving supports the dense GQA decoder; arch {cfg.name!r} is {cfg.family!r}")
+    """The pool stores the GQA wire format of the port's dense and MoE decoders."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged KV serving supports GQA attention stacks (dense or MoE); arch {cfg.name!r} "
+                         f"is {cfg.family!r}")
     if cfg.hd % 16 != 0:
         raise ValueError(f"quantized KV pages need head_dim % 16 == 0, got hd={cfg.hd}")
 
@@ -89,13 +92,13 @@ class KVPagePool:
         self.device = resolve_device(device)
         hd, kvh, ps = cfg.hd, cfg.num_kv_heads, pool_cfg.page_size
         p = pool_cfg.num_pages + 1  # + reserved null page 0
-        count = cfg.num_layers
         widths = {"k_codes": hd // 2, "k_meta": hd // 16, "v_codes": hd // 2, "v_meta": hd // 16}
         self.caches: List[Dict[str, torch.Tensor]] = [
             {name: torch.zeros((count, p, ps, kvh, widths[name]), dtype=torch.uint8, device=self.device)
-             for name in _KV_NAMES}]
+             for name in _KV_NAMES} for _, count in layer_groups(cfg)]
         self.layers: List[Dict[str, torch.Tensor]] = [
-            {name: buf[i] for name, buf in self.caches[0].items()} for i in range(count)]
+            {name: buf[i] for name, buf in group.items()}
+            for group in self.caches for i in range(group["k_codes"].shape[0])]
         self._free: List[int] = list(range(p - 1, NULL_PAGE, -1))  # pop() -> lowest first
         self._seq_pages: Dict[int, List[int]] = {}
         self._pending_forks: Dict[int, tuple] = {}  # seq -> (dst, src), see flush_forks
@@ -308,8 +311,9 @@ class KVPagePool:
         cached length, and never touches the shared prefix pages); positions
         ``[start, length)`` go to ``(page_of(start + j), (start + j) %
         page_size)`` and the padded tail to the null page.  All layers
-        quantize in one ``kv_quantize`` call per K and V, as the JAX package
-        quantizes a whole layer group, and scatter in one write per array."""
+        quantize in one ``kv_quantize`` call per K and V (the quantizer works
+        along hd, so this gives the bytes of the JAX package's call per layer
+        group) and scatter in one write per array and group."""
         from repro_torch.serving.kvcache import kv_quantize
 
         ps = self.pool_cfg.page_size
@@ -321,6 +325,9 @@ class KVPagePool:
         sids = torch.from_numpy((pos % ps).astype(np.int64)).to(self.device)
         kc, km = kv_quantize(torch.stack([c["k"][0] for c in caches]))  # (count, S, KVH, .)
         vc, vm = kv_quantize(torch.stack([c["v"][0] for c in caches]))
-        group = self.caches[0]
-        for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
-            group[name][:, pids, sids] = val
+        first = 0
+        for group in self.caches:
+            count = group["k_codes"].shape[0]
+            for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
+                group[name][:, pids, sids] = val[first:first + count]
+            first += count

@@ -83,14 +83,15 @@ class SpecStats:
 
 
 def _dense_in(tree, dtype: torch.dtype):
-    """The tree with every 2-D float weight cast to ``dtype`` once: the bf16
-    draft multiplies ``x @ w.to(x.dtype)`` at every step, so casting ahead
-    gives the same products without converting the weights each pass."""
+    """The tree with every 2-D float weight and 3-D expert bank cast to
+    ``dtype`` once: the bf16 draft multiplies ``x @ w.to(x.dtype)`` at every
+    step, so casting ahead gives the same products without converting the
+    weights each pass.  The MoE router stays as it is: it runs in f32."""
     if isinstance(tree, dict):
-        return {k: _dense_in(v, dtype) for k, v in tree.items()}
+        return {k: v if k == "router" else _dense_in(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_dense_in(v, dtype) for v in tree]
-    if isinstance(tree, torch.Tensor) and tree.dim() == 2 and tree.is_floating_point():
+    if isinstance(tree, torch.Tensor) and tree.dim() in (2, 3) and tree.is_floating_point():
         return tree.to(dtype)
     return tree
 

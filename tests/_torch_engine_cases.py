@@ -1,5 +1,6 @@
-"""Shared setup for the engine tests: one reduced ``llama3_2_3b`` served by
-the JAX ``Engine`` and by the port's ``Engine`` from the same weights.
+"""Shared setup for the engine tests: one reduced config (``llama3_2_3b`` by
+default) served by the JAX ``Engine`` and by the port's ``Engine`` from the
+same weights.
 
 ``run_case`` returns what the tests compare: the prefill's last logits, the
 logits of every decode step (both engines fed the JAX engine's greedy tokens,
@@ -41,29 +42,37 @@ def _np(a):
     return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
 
 
-def run_case(policy: str, kv_heads: int, dtype: str):
+def run_case(policy: str, kv_heads: int, dtype: str, arch: str = "llama3_2_3b", **overrides):
     torch.set_num_threads(2)
-    jcfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), num_kv_heads=kv_heads,
-                               compute_dtype=dtype)
-    tcfg = dataclasses.replace(torch_get_config("llama3_2_3b").reduced(), num_kv_heads=kv_heads,
-                               compute_dtype=dtype)
+    jcfg = dataclasses.replace(get_config(arch).reduced(), num_kv_heads=kv_heads, compute_dtype=dtype,
+                               **overrides)
+    tcfg = dataclasses.replace(torch_get_config(arch).reduced(), num_kv_heads=kv_heads, compute_dtype=dtype,
+                               **overrides)
     jparams = jax_tf.init_params(jax.random.PRNGKey(0), jcfg)
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     jpol, tpol = _policies(policy)
     je = JaxEngine(jparams, jcfg, JaxServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW, quant=jpol))
     te = Engine(tparams, tcfg, ServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW, quant=tpol),
                 device="cpu")
+    return compare_engines(je, te)
 
+
+def compare_engines(je, te):
+    """The comparison of ``run_case`` on two engines already built on the
+    same weights; ``max_len`` is the engines' own."""
+    max_len = te.scfg.max_len
     lens = np.array([len(p) for p in PROMPTS], np.int32)
-    toks = np.zeros((len(PROMPTS), te._bucket(int(lens.max()), MAX_LEN)), np.int32)
+    toks = np.zeros((len(PROMPTS), te._bucket(int(lens.max()), max_len)), np.int32)
     for i, p in enumerate(PROMPTS):
         toks[i, : len(p)] = p
-    jlast, jcache = je._bucketed_prefill(toks, lens, max_len=MAX_LEN, qdq_kv=True)
+    jlast, jcache = je._bucketed_prefill(toks, lens, max_len=max_len, qdq_kv=True)
     jcache = je._quantize_caches(jcache)
-    tlast, tcache = te._bucketed_prefill(toks, lens, max_len=MAX_LEN, qdq_kv=True)
+    tlast, tcache = te._bucketed_prefill(toks, lens, max_len=max_len, qdq_kv=True)
     tcache = te._quantize_caches(tcache)
-    kv = [(np.asarray(jcache[0][n][li]), tcache[li][n].numpy().copy())
-          for li in range(jcfg.num_layers) for n in KV_NAMES]
+    # the JAX caches are stacked per layer group, the port's one per layer
+    jlayers = [{n: group[n][i] for n in KV_NAMES} for group in jcache for i in range(group["k_codes"].shape[0])]
+    kv = [(np.asarray(jlayers[li][n]), tcache[li][n].numpy().copy())
+          for li in range(te.cfg.num_layers) for n in KV_NAMES]
 
     jax_logits, port_logits = [_np(jlast)], [_np(tlast)]
     tok = np.asarray(jax.numpy.argmax(jlast, axis=-1)).astype(np.int32)
@@ -80,8 +89,8 @@ def run_case(policy: str, kv_heads: int, dtype: str):
         "jax_logits": jax_logits,
         "port_logits": port_logits,
         "kv": kv,
-        "jax_tokens": je.generate(PROMPTS),
-        "port_tokens": te.generate(PROMPTS),
+        "jax_tokens": je.generate(PROMPTS, max_new_tokens=N_NEW),
+        "port_tokens": te.generate(PROMPTS, max_new_tokens=N_NEW),
     }
 
 

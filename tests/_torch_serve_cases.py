@@ -1,14 +1,15 @@
-"""Shared setup for the serve tests: one reduced ``llama3_2_3b``
-(``num_kv_heads=2``, float32 compute) served by the JAX package's ``Engine``
-and by the port's, from the same weights (``init_params(PRNGKey(0))``
-carried over by ``bridge``), under the packed W4 + RaZeR-KV policy or the
-W4A4 + KV policy.
+"""Shared setup for the serve tests: one reduced config (``ARCHS``: by
+default ``llama3_2_3b`` with ``num_kv_heads=2``; reduced ``dbrx_132b``, and a
+variant of it with a leading dense layer and a shared expert; float32
+compute) served by the JAX package's ``Engine`` and by the port's, from the
+same weights (``init_params(PRNGKey(0))`` carried over by ``bridge``), under
+the packed W4 + RaZeR-KV policy or the W4A4 + KV policy.
 
 In float32 the two packages do the same arithmetic up to summation order
 (the engine tests find logits within 3e-7 and identical KV bytes), so their greedy
 tokens, their ``ServeReport`` counters and, under a ``FakeClock``, their
-latency lists must be identical.  The engines are cached per policy, so a
-test file compiles the JAX engine's shapes once.
+latency lists must be identical.  The engines are cached per policy and
+config, so a test file compiles the JAX engine's shapes once.
 """
 import dataclasses
 import functools
@@ -43,10 +44,21 @@ COUNTERS = ("decode_steps", "prefill_tokens", "cached_tokens", "peak_pages", "pe
             "cache_evictions", "new_tokens")
 
 
-def configs():
-    jcfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), num_kv_heads=2, compute_dtype="float32")
-    tcfg = dataclasses.replace(torch_get_config("llama3_2_3b").reduced(), num_kv_heads=2,
-                               compute_dtype="float32")
+# name -> (config module, fields replaced in both packages' reduced config)
+ARCHS = {
+    "llama3_2_3b": ("llama3_2_3b", dict(num_kv_heads=2)),
+    "dbrx": ("dbrx_132b", {}),
+    # two layer groups: a dense layer, then an MoE layer with a shared
+    # expert; the dense MLP gets the shared expert's width, so that the JAX
+    # package's eager packing compiles for fewer weight shapes
+    "dbrx_fd1s1": ("dbrx_132b", dict(num_layers=2, first_dense_layers=1, n_shared_experts=1, d_ff=128)),
+}
+
+
+def configs(arch: str = "llama3_2_3b"):
+    name, kw = ARCHS[arch]
+    jcfg = dataclasses.replace(get_config(name).reduced(), compute_dtype="float32", **kw)
+    tcfg = dataclasses.replace(torch_get_config(name).reduced(), compute_dtype="float32", **kw)
     return jcfg, tcfg
 
 
@@ -59,28 +71,28 @@ def policies(name: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_params():
-    jcfg, _ = configs()
+def _jax_params(arch: str = "llama3_2_3b"):
+    jcfg, _ = configs(arch)
     return jax_tf.init_params(jax.random.PRNGKey(0), jcfg)
 
 
 @functools.lru_cache(maxsize=None)
-def port_engine(policy: str = "w4_kv") -> Engine:
-    """The port's engine on the JAX package's weights; cached per policy."""
+def port_engine(policy: str = "w4_kv", arch: str = "llama3_2_3b") -> Engine:
+    """The port's engine on the JAX package's weights; cached per policy and config."""
     torch.set_num_threads(2)
-    _, tcfg = configs()
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, _jax_params()), device="cpu")
+    _, tcfg = configs(arch)
+    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, _jax_params(arch)), device="cpu")
     return Engine(tparams, tcfg, ServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW, quant=policies(policy)[1]),
                   device="cpu")
 
 
 @functools.lru_cache(maxsize=None)
-def engines(policy: str = "w4_kv"):
-    """(JAX engine, port engine) on the same weights; cached per policy."""
-    jcfg, _ = configs()
-    je = JaxEngine(_jax_params(), jcfg, JaxServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW,
-                                                       quant=policies(policy)[0]))
-    return je, port_engine(policy)
+def engines(policy: str = "w4_kv", arch: str = "llama3_2_3b"):
+    """(JAX engine, port engine) on the same weights; cached per policy and config."""
+    jcfg, _ = configs(arch)
+    je = JaxEngine(_jax_params(arch), jcfg, JaxServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW,
+                                                           quant=policies(policy)[0]))
+    return je, port_engine(policy, arch)
 
 
 def prompts(sizes, seed=0):
@@ -96,12 +108,12 @@ def requests(specs, port: bool):
             for i, (p, n, a, e) in enumerate(specs)]
 
 
-def serve_both(specs, *, policy="w4_kv", ps=None, num_pages=None, slots=None, budget=None, tick=None,
-               **kw):
+def serve_both(specs, *, policy="w4_kv", arch="llama3_2_3b", ps=None, num_pages=None, slots=None,
+               budget=None, tick=None, **kw):
     """Serve the same request stream through both engines; ``ps`` /
     ``num_pages`` size the pool (default: the engine's), ``slots`` /
     ``budget`` the scheduler, and ``tick`` runs both on a FakeClock."""
-    je, te = engines(policy)
+    je, te = engines(policy, arch)
     out = []
     for eng, port in ((je, False), (te, True)):
         args = dict(kw)

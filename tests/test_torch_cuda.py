@@ -1,4 +1,5 @@
-"""Each hand-written CUDA kernel against its plain PyTorch version, on a card.
+"""Each hand-written CUDA kernel against its plain PyTorch version, on a card,
+and the bit-identities the serving invariants rest on.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file imports
 no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
@@ -10,9 +11,10 @@ no JAX, so it runs on a machine that has only PyTorch and the CUDA toolkit:
 import pytest
 import torch
 
-from repro_torch.core.packing import pack_weight
+from repro_torch.core.packing import pack_stacked_weights, pack_weight
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
 from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
 from repro_torch.kernels.razer_matmul import razer_matmul_cuda
 from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
@@ -138,3 +140,47 @@ def test_cuda_verify_queries_equal_decode_bitwise(cuda_device):
         assert torch.equal(got[:, t], want)
     one = paged_kv_attention_verify_cuda(qt[:, :1].contiguous(), *pool, table, cur)
     assert torch.equal(one[:, 0], paged_kv_attention_cuda(qt[:, 0].contiguous(), *pool, table, cur + 1))
+
+
+def _bank(device, e, k, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return pack_stacked_weights(torch.randn((e, k, n), generator=g, device=device) / k**0.5), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 13, 48])
+def test_cuda_grouped_matmul_matches_plain(cuda_device, m):
+    """K6 within 1e-5 * (|x| @ |w|) + 1e-6 of its plain version, per expert
+    (bf16 x: only the f32 summation order differs), ragged M included."""
+    pst, g = _bank(cuda_device, 4, 512, 192, seed=m)
+    x = torch.randn((4, m, 512), generator=g, device=cuda_device).to(torch.bfloat16)
+    got = ops.razer_grouped_matmul(x.float(), pst)
+    want = ref.razer_grouped_matmul_ref(x, pst)
+    bound = 1e-5 * torch.einsum("emk,ekn->emn", x.float().abs(), pst.dequantize().abs()) + 1e-6
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(512, 192), (3072, 1024), (1024, 3072)])
+def test_cuda_grouped_expert_equals_dense_kernel_bitwise(cuda_device, k, n):
+    """(a) expert e of K6 returns K1's bits on bank entry e: one tile body,
+    the same (N, K) split count, the same ordered split sum."""
+    pst, g = _bank(cuda_device, 3, k, n, seed=k + n)
+    x = torch.randn((3, 8, k), generator=g, device=cuda_device).to(torch.bfloat16)
+    m0, m1 = pst.sv_magnitudes
+    got = razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1)
+    for e in range(3):
+        pw = pst[e]
+        assert torch.equal(got[e], razer_matmul_cuda(x[e], pw.codes, pw.scale_meta, m0=m0, m1=m1))
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_row_bit_identical_across_m(cuda_device):
+    """(b) each expert's first row is bit for bit the same at every M."""
+    pst, g = _bank(cuda_device, 4, 1024, 3072, seed=9)
+    x = torch.randn((4, 48, 1024), generator=g, device=cuda_device).to(torch.bfloat16)
+    m0, m1 = pst.sv_magnitudes
+    outs = [razer_grouped_matmul_cuda(x[:, :m].contiguous(), pst.codes, pst.scale_meta, m0=m0, m1=m1)[:, :1]
+            for m in (1, 4, 8, 24, 48)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])

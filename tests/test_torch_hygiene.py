@@ -65,6 +65,7 @@ def test_entry_points_refuse_to_run_silently_on_cpu(no_cuda):
 def test_cuda_wrappers_reject_cpu_tensors():
     """A kernel wrapper handed CPU tensors raises; only ``ops`` routes CPU
     tensors to the plain versions."""
+    from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
     from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
@@ -72,6 +73,8 @@ def test_cuda_wrappers_reject_cpu_tensors():
     u8 = lambda *s: torch.zeros(s, dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         razer_matmul_cuda(torch.zeros(4, 64), u8(32, 64), u8(4, 64), m0=5.0, m1=8.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        razer_grouped_matmul_cuda(torch.zeros(2, 4, 64), u8(2, 32, 64), u8(2, 4, 64), m0=5.0, m1=8.0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         razer_act_qdq_cuda(torch.zeros(4, 64))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -83,4 +86,12 @@ def test_ops_has_no_fallback_from_kernel_to_plain():
     """For a CUDA tensor, ops calls the kernel wrapper with no try/except
     around it, so a failed build or launch raises."""
     src = (REPO / "src" / "repro_torch" / "kernels" / "ops.py").read_text()
+    assert "try:" not in src and "except" not in src
+
+
+@pytest.mark.parametrize("module", ["models/moe.py", "kernels/razer_grouped_matmul.py"])
+def test_moe_path_has_no_fallback_from_kernel_to_plain(module):
+    """The MoE layer reaches the grouped kernel through the registry and ops,
+    and the kernel's wrapper launches it, with no try/except on the way."""
+    src = (REPO / "src" / "repro_torch" / module).read_text()
     assert "try:" not in src and "except" not in src
