@@ -29,11 +29,17 @@ Phases, each printing one line (and failing the run with a traceback):
                 experts top-4, expert d_ff 10752, capacity factor 1.25, vocab
                 100352; the one cut: 2 of 40 layers), random weights packed on
                 the card under both policies, through Engine.generate and
-                vanilla Engine.serve with exact launch counts (K6 3 per MoE
-                layer per forward), tokens/s, prefill and decode times, TTFT,
-                peak memory, the serve == generate share (reported: capacity
-                drops depend on which tokens share a dispatch group) and the
-                device idle share of one generate;
+                vanilla Engine.serve, and under W4 + KV serve with
+                speculate_k=2 and a bf16 draft and the default nvfp4 draft,
+                with exact launch counts (K6 3 per MoE layer per target
+                forward), tokens/s, prefill and decode times, TTFT, peak
+                memory per run, the serve == generate share (reported, not
+                asserted) and the device idle share of one generate; then a
+                control at capacity factor n_experts / topk, where no slot can
+                be dropped, through generate, vanilla serve and serve with
+                speculate_k=2 and a bf16 draft: its serve == generate and
+                speculative == vanilla shares say whether capacity drops are
+                what moves them;
   5. parity  -- the reduced llama3_2_3b and dbrx_132b on the card (kernels)
                 against the CPU (plain versions) from the same weights.
 The line before the last is the kernels JSON; the last line is
@@ -632,13 +638,15 @@ def _agreement(eng, reqs, ref_outputs):
     return (len(reqs) - len(diffs)) / len(reqs), diffs
 
 
-def _serve_full_width(cfg, engines, detail, key="serve", ks=(0, 2)):
+def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
     """Engine.serve at full width: 8 requests over 4 slots, max_len 256,
-    pages of 16, 16 new tokens, prefix cache on; under each policy vanilla,
-    then (``ks``) speculate_k=2 with a bf16 draft.  Launch counts are checked
-    exactly: K4 = layers x (decode + draft steps), K5 = layers x verify
-    steps, K3 = 0, K1 (and K2 under W4A4) and K6 = their per-forward counts
-    x (prefill passes + target decode/verify passes)."""
+    pages of 16, 16 new tokens, prefix cache on.  ``runs`` maps an engine's
+    name to its (speculate_k, draft_policy) runs, by default vanilla, then
+    speculate_k=2 with a bf16 draft (draft None: the default nvfp4
+    fakequant draft).  Launch counts are checked exactly: K4 = layers x
+    (decode + draft steps), K5 = layers x verify steps, K3 = 0, K1 (and K2
+    under W4A4) and K6 = their per-forward counts x (prefill passes + target
+    decode/verify passes).  Each run records its peak device memory."""
     from repro_torch.obs import Tracer
     from repro_torch.serving.pagepool import PagePoolConfig
     from repro_torch.serving.scheduler import SchedulerConfig
@@ -648,16 +656,19 @@ def _serve_full_width(cfg, engines, detail, key="serve", ks=(0, 2)):
     pool_cfg = PagePoolConfig(num_pages=slots * (max_len // ps), page_size=ps, max_len=max_len)
     sched_cfg = SchedulerConfig(max_slots=slots)
     out = {}
+    peak = torch.cuda.max_memory_allocated()  # since the caller's reset: engines and generate
     for name, eng in engines.items():
         eng.serve(_serve_requests(cfg, 2)[:2], sched_cfg=sched_cfg, pool_cfg=pool_cfg)  # warm-up
         ref = eng.generate([r.prompt for r in _serve_requests(cfg, n_new)], max_new_tokens=n_new)
         vanilla = None
-        for k in ks:
+        for k, draft in (runs or {}).get(name, ((0, None), (2, "bf16"))):
             reqs = _serve_requests(cfg, n_new)
             tracer = Tracer()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             rep = eng.serve(reqs, sched_cfg=sched_cfg, pool_cfg=pool_cfg, speculate_k=k,
-                            draft_policy="bf16" if k else None, trace=tracer)
+                            draft_policy=draft, trace=tracer)
             torch.cuda.synchronize()
             counts = _main_path_counts()
             assert all(r.state == "finished" and len(r.out_tokens) == n_new for r in rep.requests)
@@ -680,7 +691,7 @@ def _serve_full_width(cfg, engines, detail, key="serve", ks=(0, 2)):
                    "cached_tokens": rep.cached_tokens, "peak_pages": rep.peak_pages, "peak_slots": rep.peak_slots,
                    "cache_hit_rate": rep.cache_hit_rate, "accept_rate": rep.accept_rate,
                    "share_equal_to_generate": same_gen, "differs_from_generate": gen_diffs,
-                   "launches": counts}
+                   "launches": counts, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
             if k:
                 row["draft_ms_per_iteration"] = _span_ms(tracer, "draft")
                 row["verify_ms_per_iteration"] = _span_ms(tracer, "verify")
@@ -690,11 +701,13 @@ def _serve_full_width(cfg, engines, detail, key="serve", ks=(0, 2)):
             else:
                 row["decode_ms_per_step"] = _span_ms(tracer, "decode_step")
                 vanilla = rep.outputs
-            out[f"{name}_k{k}"] = row
-        eng._spec_cache.clear()  # free the bf16 draft tree before the next engine
-    eng = engines["w4a4_kv"]
-    out["profile_w4a4_kv_serve"] = _profile(lambda: eng.serve(
-        _serve_requests(cfg, 4)[:4], sched_cfg=sched_cfg, pool_cfg=pool_cfg))
+            out[f"{name}_k{k}" + ("_nvfp4_draft" if k and draft is None else "")] = row
+            eng._spec_cache.clear()  # free the draft tree before the next run
+    out["max_memory_allocated_bytes"] = max(peak, torch.cuda.max_memory_allocated())
+    if "w4a4_kv" in engines:
+        eng = engines["w4a4_kv"]
+        out["profile_w4a4_kv_serve"] = _profile(lambda: eng.serve(
+            _serve_requests(cfg, 4)[:4], sched_cfg=sched_cfg, pool_cfg=pool_cfg))
     detail[key] = out
     return out
 
@@ -717,14 +730,21 @@ def _profile(run):
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
             "kernel_launches": sum(e.count for e in events),
-            "top": [{"name": e.key[:60], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top]}
+            "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top]}
 
 
 def _dbrx_full_width(dev, detail):
     """Phase 4d: dbrx_132b at its published widths, cut to 2 of its 40
     layers (the dense f32 tree the engines keep for the draft is 13 GB per
-    MoE layer), through generate and vanilla serve under both policies."""
+    MoE layer), through generate and vanilla serve under both policies, and
+    under W4 + KV serve with speculate_k=2 and a bf16 draft and the default
+    nvfp4 fakequant draft (which re-quantizes every expert bank at every
+    draft forward).  Then a control: the same weights at capacity factor
+    n_experts / topk, where an expert's capacity is its whole dispatch
+    group, so no slot is dropped, through generate, vanilla serve and serve
+    with speculate_k=2 and a bf16 draft."""
     from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine, ServeConfig
 
     cfg = dataclasses.replace(get_config("dbrx_132b"), num_layers=2)
     engines, pack_s = _engines(cfg, dev)
@@ -732,10 +752,21 @@ def _dbrx_full_width(dev, detail):
     e2e = _full_width(cfg, engines, detail, pack_s, key="e2e_dbrx")
     e2e["cut"] = cut
     print("e2e dbrx_132b full width, cut num_layers 40 -> 2: " + json.dumps(e2e))
-    serve = _serve_full_width(cfg, engines, detail, key="serve_dbrx", ks=(0,))
-    serve["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    serve = _serve_full_width(cfg, engines, detail, key="serve_dbrx", runs={
+        "w4_kv": ((0, None), (2, "bf16"), (2, None)), "w4a4_kv": ((0, None),)})
     serve["cut"] = cut
     print("serve dbrx_132b full width, cut num_layers 40 -> 2: " + json.dumps(serve))
+
+    raw = engines["w4_kv"]._raw_params
+    del engines
+    torch.cuda.empty_cache()
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.topk)
+    eng = Engine(raw, no_drop, ServeConfig(max_len=128, max_new_tokens=16, quant=_policies()["w4_kv"]), device=dev)
+    control = _serve_full_width(no_drop, {"w4_kv": eng}, detail, key="serve_dbrx_no_drop",
+                                runs={"w4_kv": ((0, None), (2, "bf16"))})
+    control["cut"], control["capacity_factor"] = cut, no_drop.capacity_factor
+    print("serve dbrx_132b full width, no capacity drops (capacity factor "
+          f"{no_drop.capacity_factor}), cut num_layers 40 -> 2: " + json.dumps(control))
 
 
 def _card_vs_cpu(dev, detail):
@@ -755,8 +786,11 @@ def _card_vs_cpu_one(dev, arch, kw):
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
-    # logit tolerances of the bf16 slice tests (tests/test_torch_engine_bf16.py)
-    tolerances = {"w4_kv": 0.06, "w4a4_kv": 0.25}
+    # llama: the logit tolerances of the bf16 slice tests
+    # (tests/test_torch_engine_bf16.py); dbrx: set from its readings on the
+    # H100 (0.0068 under W4 + KV, 0.0020 under W4A4 + KV), with room
+    tolerances = {"llama3_2_3b": {"w4_kv": 0.06, "w4a4_kv": 0.25},
+                  "dbrx_132b": {"w4_kv": 0.03, "w4a4_kv": 0.02}}[arch]
     cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     params = init_params(cfg, seed=1, device="cpu")
     prompts = [[1, 2, 3], [7, 8, 9, 10, 11, 12], [20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30]]

@@ -76,12 +76,6 @@ class TensorSpec:
         return registry.get_format(self.format)
 
     @property
-    def effective_block_size(self) -> int:
-        """The block size the quantize fn will use: the spec's, floored at
-        the format's minimum."""
-        return max(self.block_size, self.entry.min_block_size)
-
-    @property
     def sv_magnitudes(self) -> Tuple[float, float]:
         """The (m0, m1) magnitudes the packed wire format encodes; one pair
         is duplicated, more than two pairs do not fit the 2 meta bits."""

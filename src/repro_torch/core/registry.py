@@ -30,9 +30,6 @@ class FormatEntry:
     pack_stacked_fn: Optional[Callable] = None  # (w, spec) -> stacked container
     grouped_matmul_kernel: Optional[Callable] = None  # (x (E, M, K), packed) -> y
     packed_stacked_type: Optional[type] = None  # stacked container class
-    # the smallest block the format quantizes (the JAX package's OCP MXFP4
-    # has 32; razer and nvfp4 take any)
-    min_block_size: int = 1
 
 
 _REGISTRY: Dict[str, FormatEntry] = {}

@@ -19,7 +19,7 @@
 // tile's sum across the K steps in VMEM.  Here the grid is
 // (N/BN, ceil(M/BM), E * splits): blockIdx.z names the expert and its K
 // split, each expert's x, codes and scale_meta are reached by expert
-// strides, and the tile itself is K1's (razer_matmul_tile.cuh), with the
+// strides, and kernel and tile are K1's (razer_matmul_tile.cuh), with the
 // split count the Python wrapper takes from K1's (N, K) rule.  Partials
 // (splits, E, M, N) are summed in a fixed order, with no atomics.  So:
 //  (a) expert e returns K1's bits on bank entry e;
@@ -30,26 +30,7 @@
 
 #include "razer_matmul_tile.cuh"
 
-namespace {
-
-using namespace razer_tile;
-
-template <typename T, int ROWS>
-__global__ void __launch_bounds__(THREADS)
-razer_grouped_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
-                            const uint8_t* __restrict__ scale_meta, float* __restrict__ out, int E,
-                            int M, int K, int N, int splits, int k_tiles_per_split, float m0,
-                            float m1) {
-  const int e = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int kt_begin = split * k_tiles_per_split;
-  const int kt_end = min(kt_begin + k_tiles_per_split, K / BK);
-  matmul_tile<T, ROWS>(x + (size_t)e * M * K, codes + (size_t)e * (K / 2) * N,
-                       scale_meta + (size_t)e * (K / 16) * N,
-                       out + ((size_t)split * E + e) * M * N, M, K, N, kt_begin, kt_end, m0, m1);
-}
-
-}  // namespace
+struct K6;  // names the grouped GEMM's kernel in a profile
 
 // x: (E, M, K) bf16 (x_is_bf16 = 1) or f32, contiguous; codes (E, K/2, N)
 // and scale_meta (E, K/16, N) uint8; out (E, M, N) f32.  With splits > 1,
@@ -60,25 +41,7 @@ extern "C" int razer_grouped_matmul_launch(const void* x, int x_is_bf16, const v
                                            const void* scale_meta, void* partial, void* out, int E,
                                            int M, int K, int N, int splits, int k_tiles_per_split,
                                            float m0, float m1, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = splits > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
-  const int bm = M <= ROW_GROUPS ? ROW_GROUPS : 4 * ROW_GROUPS;
-  dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, E * splits);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const uint8_t* s = static_cast<const uint8_t*>(scale_meta);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const float* xf = static_cast<const float*>(x);
-  if (x_is_bf16 && bm == ROW_GROUPS) {
-    razer_grouped_matmul_kernel<__nv_bfloat16, 1><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
-  } else if (x_is_bf16) {
-    razer_grouped_matmul_kernel<__nv_bfloat16, 4><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
-  } else if (bm == ROW_GROUPS) {
-    razer_grouped_matmul_kernel<float, 1><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
-  } else {
-    razer_grouped_matmul_kernel<float, 4><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits <= 1) return static_cast<int>(err);
-  return static_cast<int>(sum_splits(static_cast<const float*>(partial), static_cast<float*>(out),
-                                     (long long)E * M * N, splits, st));
+  return static_cast<int>(razer_tile::launch_grouped<K6>(
+      x, x_is_bf16, codes, scale_meta, partial, out, E, M, K, N, splits, k_tiles_per_split, m0, m1,
+      static_cast<cudaStream_t>(stream)));
 }

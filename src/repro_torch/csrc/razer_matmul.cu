@@ -11,59 +11,27 @@
 // bytes it streams from HBM.  At prefill (M = batch x bucket) it does
 // 2*M*K*N operations on SIMT FMA units.
 //
-// Design: the tile decode and FMA loop are in razer_matmul_tile.cuh, shared
-// with the grouped GEMM (K6).  Decode-sized M gives too few output tiles to
+// Design: the tile decode and FMA loop, the kernel and its launch are in
+// razer_matmul_tile.cuh, shared with the grouped GEMM (K6): this is its
+// one-expert case.  Decode-sized M gives too few output tiles to
 // fill 132 SMs, so K is split over gridDim.z; each split writes its partial
 // tile and a second kernel sums the splits in a fixed order (deterministic,
 // no atomics).  wgmma, TMA and a pipelined ring of tiles are later work.
 
 #include "razer_matmul_tile.cuh"
 
-namespace {
-
-using namespace razer_tile;
-
-template <typename T, int ROWS>
-__global__ void __launch_bounds__(THREADS)
-razer_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
-                    const uint8_t* __restrict__ scale_meta, float* __restrict__ out,
-                    int M, int K, int N, int k_tiles_per_split, float m0, float m1) {
-  const int kt_begin = blockIdx.z * k_tiles_per_split;
-  const int kt_end = min(kt_begin + k_tiles_per_split, K / BK);
-  matmul_tile<T, ROWS>(x, codes, scale_meta, out + (size_t)blockIdx.z * M * N, M, K, N, kt_begin,
-                       kt_end, m0, m1);
-}
-
-}  // namespace
+struct K1;  // names the dense GEMM's kernel in a profile
 
 // x: (M, K) bf16 (x_is_bf16 = 1) or f32, row-major; codes (K/2, N) and
 // scale_meta (K/16, N) uint8; out (M, N) f32.  With splits > 1, partial
-// holds (splits, M, N) f32 scratch.  K must be a multiple of 64.  Row tiles
-// are 4 rows when M <= 4, else 16.
+// holds (splits, M, N) f32 scratch.  K must be a multiple of 64.  The
+// grouped launch with one expert.
 // Returns cudaGetLastError() after the launches.
 extern "C" int razer_matmul_launch(const void* x, int x_is_bf16, const void* codes,
                                    const void* scale_meta, void* partial, void* out, int M,
                                    int K, int N, int splits, int k_tiles_per_split, float m0,
                                    float m1, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = splits > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
-  const int bm = M <= ROW_GROUPS ? ROW_GROUPS : 4 * ROW_GROUPS;
-  dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, splits);
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const uint8_t* s = static_cast<const uint8_t*>(scale_meta);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  const float* xf = static_cast<const float*>(x);
-  if (x_is_bf16 && bm == ROW_GROUPS) {
-    razer_matmul_kernel<__nv_bfloat16, 1><<<grid, THREADS, 0, st>>>(xb, c, s, dst, M, K, N, k_tiles_per_split, m0, m1);
-  } else if (x_is_bf16) {
-    razer_matmul_kernel<__nv_bfloat16, 4><<<grid, THREADS, 0, st>>>(xb, c, s, dst, M, K, N, k_tiles_per_split, m0, m1);
-  } else if (bm == ROW_GROUPS) {
-    razer_matmul_kernel<float, 1><<<grid, THREADS, 0, st>>>(xf, c, s, dst, M, K, N, k_tiles_per_split, m0, m1);
-  } else {
-    razer_matmul_kernel<float, 4><<<grid, THREADS, 0, st>>>(xf, c, s, dst, M, K, N, k_tiles_per_split, m0, m1);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits <= 1) return static_cast<int>(err);
-  return static_cast<int>(sum_splits(static_cast<const float*>(partial), static_cast<float*>(out),
-                                     (long long)M * N, splits, st));
+  return static_cast<int>(razer_tile::launch_grouped<K1>(
+      x, x_is_bf16, codes, scale_meta, partial, out, 1, M, K, N, splits, k_tiles_per_split, m0, m1,
+      static_cast<cudaStream_t>(stream)));
 }

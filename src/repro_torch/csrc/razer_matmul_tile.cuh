@@ -1,7 +1,8 @@
-// One output tile of the RaZeR packed-weight GEMM, shared by the dense GEMM
-// (razer_matmul.cu, K1) and the grouped GEMM over stacked expert banks
-// (razer_grouped_matmul.cu, K6), so that both run the same instructions: an
-// expert of the grouped GEMM returns the dense GEMM's bits on that entry.
+// The RaZeR packed-weight GEMM's output tile, kernel and launch, shared by
+// the dense GEMM (razer_matmul.cu, K1, one expert) and the grouped GEMM over
+// stacked expert banks (razer_grouped_matmul.cu, K6), so that both run the
+// same instructions: an expert of the grouped GEMM returns the dense GEMM's
+// bits on that entry.
 //
 //   dst[M, N] (f32) = x[M, K] @ dequant(codes[K/2, N], scale_meta[K/16, N])
 //                     over the K tiles [kt_begin, kt_end)
@@ -150,6 +151,58 @@ inline cudaError_t sum_splits(const float* partial, float* out, long long count,
   const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
   sum_splits_kernel<<<blocks, 256, 0, st>>>(partial, out, count, splits);
   return cudaGetLastError();
+}
+
+// y[e] = x[e] @ dequant(bank entry e) for e < E, K split over splits:
+// blockIdx.z names the expert and its K split, and each expert's x, codes,
+// scale_meta and partial output are reached by expert strides.  The dense
+// GEMM is the case E = 1, so it runs these very instructions.  Tag only
+// names the instantiation (K1 or K6), so a profile tells the two apart.
+template <typename Tag, typename T, int ROWS>
+__global__ void __launch_bounds__(THREADS)
+grouped_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
+                      const uint8_t* __restrict__ scale_meta, float* __restrict__ out, int E, int M,
+                      int K, int N, int splits, int k_tiles_per_split, float m0, float m1) {
+  const int e = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int kt_begin = split * k_tiles_per_split;
+  const int kt_end = min(kt_begin + k_tiles_per_split, K / BK);
+  matmul_tile<T, ROWS>(x + (size_t)e * M * K, codes + (size_t)e * (K / 2) * N,
+                       scale_meta + (size_t)e * (K / 16) * N,
+                       out + ((size_t)split * E + e) * M * N, M, K, N, kt_begin, kt_end, m0, m1);
+}
+
+// x: (E, M, K) bf16 (x_is_bf16) or f32, contiguous; codes (E, K/2, N) and
+// scale_meta (E, K/16, N) uint8; out (E, M, N) f32.  With splits > 1,
+// partial holds (splits, E, M, N) f32 scratch, summed into out in a fixed
+// order.  K must be a multiple of BK and E * splits at most 65535.  Row
+// tiles are 4 rows when M <= 4, else 16.  Returns cudaGetLastError() after
+// the launches.
+template <typename Tag>
+cudaError_t launch_grouped(const void* x, int x_is_bf16, const void* codes,
+                                  const void* scale_meta, void* partial, void* out, int E, int M,
+                                  int K, int N, int splits, int k_tiles_per_split, float m0,
+                                  float m1, cudaStream_t st) {
+  float* dst = splits > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
+  const int bm = M <= ROW_GROUPS ? ROW_GROUPS : 4 * ROW_GROUPS;
+  dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, E * splits);
+  const uint8_t* c = static_cast<const uint8_t*>(codes);
+  const uint8_t* s = static_cast<const uint8_t*>(scale_meta);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const float* xf = static_cast<const float*>(x);
+  if (x_is_bf16 && bm == ROW_GROUPS) {
+    grouped_matmul_kernel<Tag, __nv_bfloat16, 1><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+  } else if (x_is_bf16) {
+    grouped_matmul_kernel<Tag, __nv_bfloat16, 4><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+  } else if (bm == ROW_GROUPS) {
+    grouped_matmul_kernel<Tag, float, 1><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+  } else {
+    grouped_matmul_kernel<Tag, float, 4><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits <= 1) return err;
+  return sum_splits(static_cast<const float*>(partial), static_cast<float*>(out), (long long)E * M * N,
+                    splits, st);
 }
 
 }  // namespace razer_tile

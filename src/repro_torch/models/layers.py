@@ -61,7 +61,7 @@ def swiglu(x: torch.Tensor, p, quant: QuantPolicy = BF16) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return table.to(compute_dtype)[tokens]
+    return table[tokens].to(compute_dtype)  # gather first: the same values, without casting the whole table
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -47,7 +47,7 @@ def _packable(spec: TensorSpec, leaf, ndim: int) -> bool:
     """A tensor of ``ndim`` dims whose reduction dim (the second last) splits
     into whole blocks and that is big enough to matter."""
     return (isinstance(leaf, torch.Tensor) and leaf.ndim == ndim
-            and leaf.shape[-2] % spec.effective_block_size == 0 and leaf.numel() >= _MIN_PACK)
+            and leaf.shape[-2] % spec.block_size == 0 and leaf.numel() >= _MIN_PACK)
 
 
 def pack_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
@@ -65,7 +65,7 @@ def pack_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
 
     def pack_leaf(spec: TensorSpec, leaf):
         if spec.stacked:
-            if _packable(spec, leaf, 3) and leaf.shape[2] % spec.effective_block_size == 0:
+            if _packable(spec, leaf, 3) and leaf.shape[2] % spec.block_size == 0:
                 return spec.pack_stacked(leaf.to(torch.float32))
             return leaf
         return spec.pack(leaf.to(torch.float32)) if _packable(spec, leaf, 2) else leaf

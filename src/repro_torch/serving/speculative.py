@@ -82,16 +82,20 @@ class SpecStats:
         return self.accepted / self.drafted if self.drafted else 0.0
 
 
-def _dense_in(tree, dtype: torch.dtype):
-    """The tree with every 2-D float weight and 3-D expert bank cast to
-    ``dtype`` once: the bf16 draft multiplies ``x @ w.to(x.dtype)`` at every
-    step, so casting ahead gives the same products without converting the
-    weights each pass.  The MoE router stays as it is: it runs in f32."""
+def _dense_in(tree, quant: QuantPolicy, dtype: torch.dtype, path: str = ""):
+    """The tree with every weight that ``quant`` (the target's policy)
+    quantizes -- the linears and the expert banks -- cast to ``dtype`` once:
+    the bf16 draft multiplies ``x @ w.to(x.dtype)`` at every step, so casting
+    ahead gives the same products without converting the weights each pass.
+    What the policy's dense rules keep at high precision (embeddings, the
+    MoE router, norms) stays as it is; its consumers cast it as the
+    reference does (the router runs in f32)."""
     if isinstance(tree, dict):
-        return {k: v if k == "router" else _dense_in(v, dtype) for k, v in tree.items()}
+        return {k: _dense_in(v, quant, dtype, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_dense_in(v, dtype) for v in tree]
-    if isinstance(tree, torch.Tensor) and tree.dim() in (2, 3) and tree.is_floating_point():
+        return [_dense_in(v, quant, dtype, path) for v in tree]
+    if (isinstance(tree, torch.Tensor) and tree.dim() in (2, 3) and tree.is_floating_point()
+            and quant.resolve(path) is not None):
         return tree.to(dtype)
     return tree
 
@@ -119,7 +123,7 @@ class SpeculativeDecoder:
             if resolved.mode == "packed":
                 draft = pack_model_weights(raw, engine.cfg, resolved)
             elif resolved.mode == "bf16":
-                draft = _dense_in(raw, engine.cfg.cdtype)
+                draft = _dense_in(raw, engine.policy, engine.cfg.cdtype)
             else:
                 draft = raw  # fakequant applies per forward through the policy
             self.draft_params = draft

@@ -218,3 +218,23 @@ def test_bridge_carries_a_two_group_moe_tree():
             np.testing.assert_array_equal(layer["moe"]["experts"][r].numpy(), jmoe["experts"][r][i])
             assert layer["moe"]["experts"][r].shape == own["layers_1"][i]["moe"]["experts"][r].shape
         np.testing.assert_array_equal(layer["moe"]["shared"]["down"].numpy(), jmoe["shared"]["down"][i])
+
+
+def test_bf16_draft_casts_only_what_the_policy_quantizes():
+    """The bf16 draft casts the weights the target's packed policy quantizes
+    (linears, expert banks, shared experts) once; what its dense rules keep
+    at high precision (embedding, head, router, norms) stays f32, so the
+    draft's router runs on the f32 weights as the reference's does."""
+    from repro_torch.serving.speculative import _dense_in
+
+    cfg = dataclasses.replace(torch_get_config("dbrx_132b").reduced(), first_dense_layers=1, n_shared_experts=1)
+    tree = init_params(cfg, device="cpu")
+    draft = _dense_in(tree, QuantPolicy.packed(kv_quant=True), torch.bfloat16)
+    dense, moe_layer = draft["layers_0"][0], draft["layers_1"][0]
+    for w in (draft["embed"], draft["lm_head"], draft["final_norm"], dense["ln1"], moe_layer["moe"]["router"]):
+        assert w.dtype == torch.float32
+    for w in (dense["mixer"]["wq"], dense["mlp"]["down"], moe_layer["mixer"]["wo"],
+              *moe_layer["moe"]["experts"].values(), moe_layer["moe"]["shared"]["gate"]):
+        assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(moe_layer["moe"]["experts"]["up"].float().numpy(),
+                                  tree["layers_1"][0]["moe"]["experts"]["up"].to(torch.bfloat16).float().numpy())
