@@ -5,7 +5,7 @@
 Phases, each printing one line (and failing the run with a traceback):
   1. device  -- the card's name and power limit (exits non-zero without CUDA);
   2. build   -- nvcc builds the kernels from the five src/repro_torch/csrc/*.cu;
-  3. kernels -- each of the six kernels against its plain PyTorch version on
+  3. kernels -- each of the eight kernels against its plain PyTorch version on
                 the card, K1-K5 at the full-width llama3_2_3b shapes and the
                 grouped GEMM K6 at the full-width dbrx_132b expert banks, with
                 times, and the bit-identities the serving invariants rest on:
@@ -41,7 +41,23 @@ Phases, each printing one line (and failing the run with a traceback):
                 speculative == vanilla shares say whether capacity drops are
                 what moves them;
   5. parity  -- the reduced llama3_2_3b and dbrx_132b on the card (kernels)
-                against the CPU (plain versions) from the same weights.
+                against the CPU (plain versions) from the same weights;
+  6. mesh    -- serving on a torch.distributed mesh: (a) a world of one rank
+                over NCCL, Engine(mesh=(1, 1)), equal to the meshless engine
+                bit for bit; (b) full-width llama3_2_3b on the (1, 2) mesh,
+                two ranks sharing the card over gloo (NCCL takes one rank
+                per card), through generate, vanilla serve under both
+                policies and serve(speculate_k=2) with a bf16 draft, every
+                linear K-sharded (K7): tokens identical on both ranks,
+                exact launch counts, logit differences and token shares
+                against the meshless engine; (c) full-width dbrx_132b cut to
+                1 layer on the (1, 2) mesh (K7, K8) and the (2, 1) mesh (K6
+                on E/2, all-to-all and replicated tokens), W4 + KV, against
+                the meshless engine at capacity factor 1.25 (reported) and
+                at the no-drop n_experts / topk (logits asserted).
+Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
+(dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
+shard, permuted, bit for bit; rows bit-identical across M.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -50,6 +66,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -92,15 +109,17 @@ def _bound_ms(nbytes: float, flops: float):
 
 def _counters():
     from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
-    from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
+    from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
     from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
-    from repro_torch.kernels.razer_matmul import razer_matmul_cuda
+    from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 
     return {"razer_matmul": razer_matmul_cuda, "razer_act_qdq": razer_act_qdq_cuda,
             "razer_kv_attention": razer_kv_attention_cuda, "paged_kv_attention": paged_kv_attention_cuda,
             "paged_kv_attention_verify": paged_kv_attention_verify_cuda,
-            "razer_grouped_matmul": razer_grouped_matmul_cuda}
+            "razer_grouped_matmul": razer_grouped_matmul_cuda,
+            "razer_matmul_kshard": razer_matmul_kshard_cuda,
+            "razer_grouped_matmul_kshard": razer_grouped_matmul_kshard_cuda}
 
 
 def _reset_counts():
@@ -115,28 +134,53 @@ def _read_counts():
 MAIN_PATH_LAUNCHES = {}  # kernel -> launches summed over every main-path run
 
 
-def _per_forward(cfg):
-    """(K1, K6) launches of one forward pass: K1 for the 4 attention linears
-    of every layer, the 3 MLP linears of a dense layer and the shared
-    experts' 3 of an MoE layer; K6 for an MoE layer's 3 expert banks.  K2
-    runs once before every K1 under W4A4."""
-    from repro_torch.models.transformer import layer_groups
-
-    k1 = k6 = 0
-    for ltype, count in layer_groups(cfg):
-        moe = ltype == "m"
-        k1 += count * (4 + (3 if not moe or cfg.n_shared_experts else 0))
-        k6 += count * (3 if moe else 0)
-    return k1, k6
-
-
-def _main_path_counts():
+def _main_path_counts(counts=None):
     """Counts of a main-path run (reset just before it), added to the
-    totals the kernels line reports."""
-    counts = _read_counts()
+    totals the kernels line reports; ``counts`` are a rank's of phase 6."""
+    counts = _read_counts() if counts is None else counts
     for name, n in counts.items():
         MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
     return counts
+
+
+def _per_forward(cfg, tp: int = 1):
+    """Packed-GEMM launches of one forward pass, meshless (tp 1) or on a
+    (*, tp) mesh: {kernel: count} for K7 (linears that K-shard: K % (tp *
+    16) == 0 and N % tp == 0), K1 (the rest: the 4 attention linears of
+    every layer, the 3 MLP linears of a dense layer, the shared experts' 3
+    of an MoE layer), K8 (an MoE layer's 3 banks when the trio K-shards: d
+    and f % (tp * 16) == 0) and K6 (a trio that does not).  K2 runs once
+    before every K1 and K7 under W4A4."""
+    from repro_torch.models.transformer import layer_groups
+
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    attn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd), (d, cfg.num_kv_heads * hd), (cfg.num_heads * hd, d)]
+    mlp = [(d, f), (d, f), (f, d)]
+    split = lambda k, n: tp > 1 and k % (tp * 16) == 0 and n % tp == 0  # noqa: E731
+    out = dict.fromkeys(("razer_matmul_kshard", "razer_matmul", "razer_grouped_matmul_kshard",
+                         "razer_grouped_matmul"), 0)
+    for ltype, count in layer_groups(cfg):
+        shared = [(d, cfg.n_shared_experts * cfg.moe_d_ff)] * 2 + [(cfg.n_shared_experts * cfg.moe_d_ff, d)]
+        linears = attn + (mlp if ltype == "a" else (shared if cfg.n_shared_experts else []))
+        for k, n in linears:
+            out["razer_matmul_kshard" if split(k, n) else "razer_matmul"] += count
+        if ltype == "m":
+            trio = tp > 1 and d % (tp * 16) == 0 and cfg.moe_d_ff % (tp * 16) == 0
+            out["razer_grouped_matmul_kshard" if trio else "razer_grouped_matmul"] += 3 * count
+    return out
+
+
+def _want_counts(cfg, tp, policy, target_passes, decode_steps=0, paged=0, verify=0):
+    """Exact launch counts of a run of ``target_passes`` target forwards."""
+    per = _per_forward(cfg, tp)
+    want = {name: n * target_passes for name, n in per.items()}
+    want["razer_act_qdq"] = (want["razer_matmul"] + want["razer_matmul_kshard"]) if policy.act is not None else 0
+    want.update(razer_kv_attention=cfg.num_layers * decode_steps, paged_kv_attention=cfg.num_layers * paged,
+                paged_kv_attention_verify=cfg.num_layers * verify)
+    return want
+
+
+MESHLESS = {}  # (arch, policy, what) -> a meshless run's output, for phase 6
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +427,26 @@ def _check_paged_attention(cfg, dev, gen, detail):
     return out
 
 
-def _check_grouped_matmul(dev, gen, detail):
+def _dbrx_banks(dev, gen, detail):
+    """The full-width dbrx_132b expert banks of one MoE layer, packed on the
+    card: E 16; gate/up K 6144 N 10752, down K 10752 N 6144."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import pack_stacked_weights
+
+    cfg = get_config("dbrx_132b")
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    t0 = time.perf_counter()
+    banks = {}
+    for name, k, n in (("gate", d, f), ("up", d, f), ("down", f, d)):
+        w = torch.randn((e, k, n), generator=gen, device=dev).mul_(k**-0.5)
+        banks[name] = pack_stacked_weights(w)
+        del w
+    torch.cuda.synchronize()
+    detail["razer_grouped_matmul_pack_s_3_banks"] = time.perf_counter() - t0
+    return banks
+
+
+def _check_grouped_matmul(dev, gen, detail, banks):
     """K6 at the full-width dbrx_132b expert banks (E 16; gate/up K 6144
     N 10752, down K 10752 N 6144) against its plain version at M = 4 (a
     batch-4 decode: 4 dispatch groups x capacity 1) and 48 (a 4 x 32 prefill:
@@ -391,23 +454,13 @@ def _check_grouped_matmul(dev, gen, detail):
     K1 on bank entry e for experts 0, 7, 15, and (b) each expert's row 0
     across M in {1, 4, 8, 24, 48}; times of one MoE layer's 3 calls at M = 4
     and 48."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.packing import pack_stacked_weights
     from repro_torch.kernels import ref
     from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda
 
-    cfg = get_config("dbrx_132b")
-    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    e = banks["gate"].shape[0]
+    d, f = banks["gate"].shape[1], banks["gate"].shape[2]
     shapes = [("gate", d, f), ("up", d, f), ("down", f, d)]
-    t0 = time.perf_counter()
-    banks = {}
-    for name, k, n in shapes:
-        w = torch.randn((e, k, n), generator=gen, device=dev).mul_(k**-0.5)
-        banks[name] = pack_stacked_weights(w)
-        del w
-    torch.cuda.synchronize()
-    detail["razer_grouped_matmul_pack_s_3_banks"] = time.perf_counter() - t0
 
     def k6(x, pst):
         return razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=pst.sv_magnitudes[0],
@@ -468,6 +521,155 @@ def _check_grouped_matmul(dev, gen, detail):
     return max_err, out[4]
 
 
+def _unchunk(y):
+    """A K-shard kernel's (c, ..., N/c) chunk-major output -> (..., N)."""
+    return y.movedim(0, -2).reshape(*y.shape[1:-1], -1)
+
+
+def _check_kshard_matmul(cfg, dev, gen, detail, tp: int = 2):
+    """K7 at the full-width llama3_2_3b linears split over tp = 2 (local K
+    1536 and 4096), on both ranks' shards, at M = 4 and 128: within K1's
+    tolerance of its plain version; its chunked output is K1's output on the
+    same local shard, permuted, bit for bit, and at out_chunks = 1 it is K1's
+    output; row 0 bit-identical across M in {1, 4, 8, 24}.  Times (rank 0's
+    shards of one layer's 7 linears, over 4 layers' distinct weights as in
+    K1's check): K7, the plain version, torch.matmul on the dequantized bf16
+    local shard, and the bound: the local wire bytes, the bf16 activations
+    in and the f32 full-N partial out over 3.35 TB/s (the per-device terms
+    of docs/parallelism.md's cost table that the kernel moves)."""
+    from repro_torch.core.packing import pack_weight, take_shard
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
+
+    shapes = _linear_shapes(cfg)
+    wholes = [{name: pack_weight(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
+               for name, k, n in shapes} for _ in range(4)]
+
+    def k7(x, pw, chunks=tp):
+        return razer_matmul_kshard_cuda(x, pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                                        m1=pw.sv_magnitudes[1], out_chunks=chunks)
+
+    max_err = 0.0
+    for name, k, n in shapes[:1] + shapes[1:2] + shapes[4:5] + shapes[6:]:  # (K, N) kinds
+        for j in range(tp):
+            pw = take_shard(wholes[0][name], tp=tp, tp_index=j)
+            for m in (4, 128):
+                x = torch.randn((m, k // tp), generator=gen, device=dev).to(torch.bfloat16)
+                got = k7(x, pw)
+                one = razer_matmul_cuda(x, pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1])
+                assert torch.equal(_unchunk(got), one), f"K7 {name} rank {j} M={m}: not K1 permuted"
+                assert torch.equal(k7(x, pw, 1)[0], one), f"K7 {name} rank {j} M={m}: out_chunks=1 is not K1"
+                want = ref.razer_matmul_ref(x, pw)
+                bound = 1e-5 * (x.float().abs() @ pw.dequantize().abs()) + 1e-6
+                err = (_unchunk(got) * pw.tensor_scale - want).abs()
+                assert bool((err <= bound).all()), f"razer_matmul_kshard {name} rank {j} M={m}: {float(err.max())}"
+                max_err = max(max_err, float(err.max()))
+            x = torch.randn((24, k // tp), generator=gen, device=dev).to(torch.bfloat16)
+            rows = [k7(x[:m].contiguous(), pw)[:, :1] for m in (1, 4, 8, 24)]
+            assert all(torch.equal(r, rows[0]) for r in rows[1:]), f"K7 {name} rank {j}: row 0 moves with M"
+    detail["razer_matmul_kshard_row_invariant_M"] = [1, 4, 8, 24]
+    layers = [{name: take_shard(w[name], tp=tp, tp_index=0) for name, _, _ in shapes} for w in wholes]
+    del wholes
+    dense = [{name: layer[name].dequantize().to(torch.bfloat16) for name, _, _ in shapes} for layer in layers]
+    out = {}
+    for m in (4, 4 * 32):
+        xs = {k: torch.randn((m, k // tp), generator=gen, device=dev).to(torch.bfloat16) for _, k, _ in shapes}
+
+        def kernel_all():
+            for layer in layers:
+                for name, k, _ in shapes:
+                    k7(xs[k], layer[name])
+
+        def plain_layer():
+            for name, k, _ in shapes:
+                ref.razer_matmul_ref(xs[k], layers[0][name])
+
+        def library_all():
+            for layer in dense:
+                for name, k, _ in shapes:
+                    torch.matmul(xs[k], layer[name])
+
+        kls = [(k // tp, n) for _, k, n in shapes]
+        nbytes = sum(m * kl * 2 + kl * n // 2 + kl * n // 16 + m * n * 4 for kl, n in kls)
+        flops = sum(2 * m * kl * n for kl, n in kls)
+        bound, by = _bound_ms(nbytes, flops)
+        out[m] = {"ms": _cuda_ms(kernel_all, reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
+                  "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by,
+                  "tp": tp}
+        detail[f"razer_matmul_kshard_layer_tp{tp}_M{m}"] = out[m]
+    return max_err, out[4]
+
+
+def _check_kshard_grouped(dev, gen, detail, banks):
+    """K8 at one full-width dbrx_132b MoE layer's banks, on the tiles of a
+    (1, 2) mesh (E 16, local K 3072 for gate/up, 5376 for down) and of a
+    (2, 2) mesh (E 8), at M = 4 and 48: within K6's tolerance of its plain
+    version; its chunked output is K6's on the same tile, permuted, bit for
+    bit, and at out_chunks = 1 it is K6's; row 0 bit-identical across M in
+    {1, 4, 8, 24}.  Times of one layer's 3 calls on rank (0, 0)'s tiles:
+    K8, the plain version, torch.bmm on the dequantized bf16 tiles, and the
+    bound (local wire bytes + bf16 activations in + the f32 full-N partial
+    out over 3.35 TB/s)."""
+    from repro_torch.core.packing import take_shard
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
+
+    tp = 2
+
+    def k8(x, pst, chunks=tp):
+        return razer_grouped_matmul_kshard_cuda(x, pst.codes, pst.scale_meta, m0=pst.sv_magnitudes[0],
+                                                m1=pst.sv_magnitudes[1], out_chunks=chunks)
+
+    max_err = 0.0
+    for ep in (1, 2):
+        for i, j in ((0, 0), (ep - 1, 1)):
+            for name in ("gate", "down"):
+                tile = take_shard(banks[name], ep=ep, ep_index=i, tp=tp, tp_index=j)
+                le, kl, n = tile.shape
+                dense_abs = tile.dequantize().abs_()
+                for m in (4, 48):
+                    x = torch.randn((le, m, kl), generator=gen, device=dev).to(torch.bfloat16)
+                    got = k8(x, tile)
+                    six = razer_grouped_matmul_cuda(x, tile.codes, tile.scale_meta, m0=tile.sv_magnitudes[0],
+                                                    m1=tile.sv_magnitudes[1])
+                    assert torch.equal(_unchunk(got), six), f"K8 {name} ({ep}, {tp}) rank ({i}, {j}): not K6 permuted"
+                    assert torch.equal(k8(x, tile, 1)[0], six), f"K8 {name}: out_chunks=1 is not K6"
+                    want = ref.razer_grouped_matmul_ref(x, tile)
+                    bound = 1e-5 * torch.einsum("emk,ekn->emn", x.float().abs(), dense_abs) + 1e-6
+                    err = (_unchunk(got) * tile.tensor_scale[:, None, None] - want).abs()
+                    assert bool((err <= bound).all()), f"razer_grouped_matmul_kshard {name}: {float(err.max())}"
+                    max_err = max(max_err, float(err.max()))
+                del dense_abs, want
+                x = torch.randn((le, 24, kl), generator=gen, device=dev).to(torch.bfloat16)
+                rows = [k8(x[:, :m].contiguous(), tile)[:, :, :1] for m in (1, 4, 8, 24)]
+                assert all(torch.equal(r, rows[0]) for r in rows[1:]), f"K8 {name}: row 0 moves with M"
+    detail["razer_grouped_matmul_kshard_row_invariant_M"] = [1, 4, 8, 24]
+
+    out = {}
+    for ep, m in ((1, 4), (1, 48), (2, 4)):
+        tiles = {name: take_shard(banks[name], ep=ep, ep_index=0, tp=tp, tp_index=0) for name in banks}
+        le, kd, _ = tiles["gate"].shape
+        kf = tiles["down"].shape[1]
+        xs = {kd: torch.randn((le, m, kd), generator=gen, device=dev).to(torch.bfloat16),
+              kf: torch.randn((le, m, kf), generator=gen, device=dev).to(torch.bfloat16)}
+        calls = [(xs[t.shape[1]], t) for t in (tiles["gate"], tiles["up"], tiles["down"])]
+        row = {"ms": _cuda_ms(lambda: [k8(x, t) for x, t in calls], reps=10),
+               "plain_ms": _cuda_ms(lambda: [ref.razer_grouped_matmul_ref(x, t) for x, t in calls], reps=2, warmup=1)}
+        lib = 0.0
+        for x, t in calls:  # one dequantized bank tile at a time
+            dense = t.dequantize().to(torch.bfloat16)
+            lib += _cuda_ms(lambda: torch.bmm(x, dense), reps=10)
+            del dense
+        nbytes = sum(le * (m * t.shape[1] * 2 + t.shape[1] * t.shape[2] // 2 + t.shape[1] * t.shape[2] // 16
+                           + m * t.shape[2] * 4) for _, t in calls)
+        flops = sum(2 * le * m * t.shape[1] * t.shape[2] for _, t in calls)
+        bound, by = _bound_ms(nbytes, flops)
+        row.update({"library_ms": lib, "bound_ms": bound, "bound_by": by, "mesh": [ep, tp], "local_experts": le})
+        out[(ep, m)] = row
+        detail[f"razer_grouped_matmul_kshard_moe_layer_ep{ep}_tp{tp}_M{m}"] = row
+    return max_err, out[(1, 4)]
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
@@ -504,7 +706,6 @@ def _full_width(cfg, engines, detail, pack_s, key="e2e"):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
     results = {"pack_s_two_engines": pack_s}
-    layers, (per_fwd, k6_fwd) = cfg.num_layers, _per_forward(cfg)
     for name, eng in engines.items():
         policy = eng.policy
         toks = np.zeros((len(prompts), 32), np.int64)
@@ -512,17 +713,16 @@ def _full_width(cfg, engines, detail, pack_s, key="e2e"):
             toks[i, : len(p)] = p
         last, _ = eng._bucketed_prefill(toks, np.array([len(p) for p in prompts]), max_len=max_len, qdq_kv=True)
         assert last.shape == (len(prompts), cfg.vocab_size) and bool(torch.isfinite(last.float()).all())
+        MESHLESS[(cfg.name, name, "prefill_logits")] = last.float().cpu()
         for rep in range(2):  # the first run warms up, the second is timed
             _reset_counts()
             out = eng.generate(prompts)
             counts = _main_path_counts() if rep else _read_counts()
             steps = eng.stats["decode_steps"]
-            want = {"razer_matmul": per_fwd * (1 + steps),
-                    "razer_act_qdq": per_fwd * (1 + steps) if policy.act is not None else 0,
-                    "razer_kv_attention": layers * steps, "paged_kv_attention": 0,
-                    "paged_kv_attention_verify": 0, "razer_grouped_matmul": k6_fwd * (1 + steps)}
+            want = _want_counts(cfg, 1, policy, 1 + steps, decode_steps=steps)
             assert counts == want, (name, counts, want)
             assert steps == n_new - 1 and all(len(o) == len(p) + n_new for o, p in zip(out, prompts))
+            MESHLESS[(cfg.name, name, "generate")] = out
             assert all(0 <= t < cfg.vocab_size for o in out for t in o)
         st = eng.stats
         results[name] = {
@@ -652,7 +852,6 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
     from repro_torch.serving.scheduler import SchedulerConfig
 
     n_new, slots, max_len, ps = 16, 4, 256, 16
-    layers, (per_fwd, k6_fwd) = cfg.num_layers, _per_forward(cfg)
     pool_cfg = PagePoolConfig(num_pages=slots * (max_len // ps), page_size=ps, max_len=max_len)
     sched_cfg = SchedulerConfig(max_slots=slots)
     out = {}
@@ -660,6 +859,7 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
     for name, eng in engines.items():
         eng.serve(_serve_requests(cfg, 2)[:2], sched_cfg=sched_cfg, pool_cfg=pool_cfg)  # warm-up
         ref = eng.generate([r.prompt for r in _serve_requests(cfg, n_new)], max_new_tokens=n_new)
+        MESHLESS[(cfg.name, name, "generate_serve_prompts")] = ref
         vanilla = None
         for k, draft in (runs or {}).get(name, ((0, None), (2, "bf16"))):
             reqs = _serve_requests(cfg, n_new)
@@ -675,12 +875,9 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
             assert all(0 <= t < cfg.vocab_size for o in rep.outputs for t in o)
             prefills = sum(1 for r in rep.requests if r.dedup_of is None)
             target_passes = prefills + rep.decode_steps  # a verify pass is the target's decode pass
-            want = {"razer_matmul": per_fwd * target_passes,
-                    "razer_act_qdq": per_fwd * target_passes if eng.policy.act is not None else 0,
-                    "razer_kv_attention": 0,
-                    "paged_kv_attention": layers * ((0 if k else rep.decode_steps) + rep.draft_steps),
-                    "paged_kv_attention_verify": layers * rep.decode_steps if k else 0,
-                    "razer_grouped_matmul": k6_fwd * target_passes}
+            want = _want_counts(cfg, 1, eng.policy, target_passes,
+                                paged=(0 if k else rep.decode_steps) + rep.draft_steps,
+                                verify=rep.decode_steps if k else 0)
             assert counts == want, (name, k, counts, want)
             assert rep.cache_hits >= 1 and rep.requests[6].cached_tokens == 40, \
                 (rep.cache_hits, rep.requests[6].cached_tokens)
@@ -701,6 +898,7 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
             else:
                 row["decode_ms_per_step"] = _span_ms(tracer, "decode_step")
                 vanilla = rep.outputs
+                MESHLESS[(cfg.name, name, "serve")] = rep.outputs
             out[f"{name}_k{k}" + ("_nvfp4_draft" if k and draft is None else "")] = row
             eng._spec_cache.clear()  # free the draft tree before the next run
     out["max_memory_allocated_bytes"] = max(peak, torch.cuda.max_memory_allocated())
@@ -826,6 +1024,430 @@ def _card_vs_cpu_one(dev, arch, kw):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving on a mesh (two ranks share the one card over gloo)
+# ---------------------------------------------------------------------------
+RANK_TIMEOUT_S = 480  # per spawned world, joined by the parent
+
+
+def _generate_prompts(cfg):
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
+
+
+def _prefill_logits(eng, prompts):
+    toks = np.zeros((len(prompts), 32), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    last, _ = eng._bucketed_prefill(toks, np.array([len(p) for p in prompts]), max_len=eng.scfg.max_len,
+                                    qdq_kv=eng.kv_quant)
+    return last.float().cpu()
+
+
+# The float32 checks of phase 6: the same weights and packed bytes under W4
+# (no KV quantization, whose codes an ulp can flip) in float32 compute, on
+# the mesh and meshless.  One linear differs only in the order of its f32
+# partial sums: held to K1's bound.  A whole model also rounds x to bf16
+# inside every kernel, where a sum-order ulp can cross a rounding boundary,
+# and the model carries such steps forward: its logits are held to 1 % of
+# their largest magnitude, which a wrong shard, slice or layout exceeds by
+# far.  In bf16 the reference's semantics sum bf16-rounded partials, which
+# moves logits more and flips MoE routing: those differences are reported.
+F32_LOGIT_RTOL = 1e-2
+
+
+def _f32_prefill_logits(raw, cfg, prompts, **engine_kw):
+    """Prefill logits of ``prompts`` under W4 in float32 compute."""
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    eng = Engine(raw, cfg32, ServeConfig(max_len=128, max_new_tokens=16, quant=QuantPolicy.packed()), **engine_kw)
+    logits = _prefill_logits(eng, prompts)
+    del eng
+    torch.cuda.empty_cache()
+    return logits
+
+
+def _run_generate(eng, prompts):
+    """A warm-up generate, then a timed one with counts, collective time and
+    peak memory."""
+    from repro_torch.parallel import collectives
+
+    eng.generate(prompts, max_new_tokens=2)
+    torch.cuda.synchronize()
+    _reset_counts()
+    collectives.stats.update(calls=0, seconds=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    out = eng.generate(prompts)
+    torch.cuda.synchronize()
+    st = eng.stats
+    return {"outputs": out, "counts": _read_counts(), "collectives": dict(collectives.stats),
+            "prefill_ms": st["prefill_s"] * 1e3, "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
+            "decode_steps": st["decode_steps"],
+            "tokens_per_s": len(prompts) * 16 / (st["prefill_s"] + st["decode_s"]),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _serve_cfgs():
+    """Phase 4c's scheduler and pool: 4 slots, pages of 16, max_len 256."""
+    from repro_torch.serving.pagepool import PagePoolConfig
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    return SchedulerConfig(max_slots=4), PagePoolConfig(num_pages=4 * (256 // 16), page_size=16, max_len=256)
+
+
+def _run_serve(eng, cfg, k=0, draft=None):
+    """Phase 4c's traffic (8 requests, 4 slots, pages of 16, 16 new tokens)
+    with counts, collective time and peak memory."""
+    from repro_torch.obs import Tracer
+    from repro_torch.parallel import collectives
+
+    sched_cfg, pool_cfg = _serve_cfgs()
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    _reset_counts()
+    collectives.stats.update(calls=0, seconds=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    rep = eng.serve(_serve_requests(cfg, 16), sched_cfg=sched_cfg, pool_cfg=pool_cfg, speculate_k=k,
+                    draft_policy=draft, trace=tracer)
+    torch.cuda.synchronize()
+    row = {"outputs": rep.outputs, "counts": _read_counts(), "collectives": dict(collectives.stats),
+           "decode_steps": rep.decode_steps, "draft_steps": rep.draft_steps,
+           "prefills": sum(1 for r in rep.requests if r.dedup_of is None),
+           "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time, "ttft_p50_s": rep.ttft_p50,
+           "ttft_p95_s": rep.ttft_p95, "accept_rate": rep.accept_rate,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if k:
+        row["draft_ms_per_iteration"] = _span_ms(tracer, "draft")
+        row["verify_ms_per_iteration"] = _span_ms(tracer, "verify")
+    else:
+        row["decode_ms_per_step"] = _span_ms(tracer, "decode_step")
+    eng._spec_cache.clear()
+    return row
+
+
+def _rank_llama(mesh):
+    """Rank side of 6b: full-width llama3_2_3b on the (1, 2) mesh under both
+    policies: prefill logits, generate, vanilla serve, and under W4 + KV
+    serve(speculate_k=2) with the bf16 draft."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    cfg = get_config("llama3_2_3b")
+    raw = init_params(cfg, seed=0, device=mesh.device)
+    out = {}
+    for name, policy in _policies().items():
+        eng = Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=policy), mesh=mesh)
+        prompts = _generate_prompts(cfg)
+        res = {"prefill_logits": _prefill_logits(eng, prompts), "generate": _run_generate(eng, prompts)}
+        sched_cfg, pool_cfg = _serve_cfgs()
+        eng.serve(_serve_requests(cfg, 2)[:2], sched_cfg=sched_cfg, pool_cfg=pool_cfg)  # warm-up
+        for k, draft in ((0, None), (2, "bf16")) if name == "w4_kv" else ((0, None),):
+            res[f"serve_k{k}"] = _run_serve(eng, cfg, k, draft)
+        out[name] = res
+        del eng
+        torch.cuda.empty_cache()
+    out["f32_prefill_logits"] = _f32_prefill_logits(raw, cfg, _generate_prompts(cfg), mesh=mesh)
+    out["linear_check"] = _mesh_linear_check(mesh, cfg)
+    return out
+
+
+def _mesh_linear_check(mesh, cfg):
+    """Each of the model's 7 packed linear kinds at full width, K-sharded on
+    ``mesh`` (K7, the reduce-scatter and the gather over gloo), on float32
+    x at M = 4 and 128, against K1 on the whole weight: the largest
+    |difference| / (1e-5 (|x| @ |W|) + 1e-6), K1's bound against its plain
+    version (only the order of the f32 sums differs)."""
+    from repro_torch.core.packing import pack_weight
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.core.qlinear import qlinear
+    from repro_torch.parallel.sharding import shard_params, sharding_ctx
+
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(7)  # the same weights and inputs on every rank
+    policy, worst = QuantPolicy.packed(), 0.0
+    for _, k, n in _linear_shapes(cfg):
+        whole = pack_weight(torch.randn((k, n), generator=gen, device=mesh.device) / k**0.5)
+        local = shard_params({"w": whole}, mesh)["w"]
+        assert local.k_shards == mesh.tp
+        w_abs = whole.dequantize().abs_()
+        for m in (4, 128):
+            x = torch.randn((m, k), generator=gen, device=mesh.device)
+            with sharding_ctx(mesh):
+                got = qlinear(x, local, policy)
+            want = qlinear(x, whole, policy)
+            worst = max(worst, float(((got - want).abs() / (1e-5 * (x.abs() @ w_abs) + 1e-6)).max()))
+    return {"worst_err_over_bound": worst, "M": [4, 128]}
+
+
+def _dbrx_one_layer(capacity_factor):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("dbrx_132b"), num_layers=1, capacity_factor=capacity_factor)
+
+
+def _rank_dbrx(mesh_of):
+    """Rank side of 6c: full-width dbrx_132b cut to 1 layer, W4 + KV, on
+    the (1, 2) and the (2, 1) mesh, at capacity factor 1.25 and at the
+    no-drop n_experts / topk: prefill logits, generate, vanilla serve."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    out = {}
+    raw = None
+    for layout in ((1, 2), (2, 1)):
+        mesh = mesh_of(*layout)
+        if raw is None:
+            raw = init_params(_dbrx_one_layer(1.25), seed=0, device=mesh.device)
+        for cf in (1.25, 4.0):
+            cfg = _dbrx_one_layer(cf)
+            eng = Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=_policies()["w4_kv"]),
+                         mesh=mesh)
+            prompts = _generate_prompts(cfg)
+            out[(layout, cf)] = {"prefill_logits": _prefill_logits(eng, prompts),
+                                 "generate": _run_generate(eng, prompts), "serve_k0": _run_serve(eng, cfg)}
+            del eng
+            torch.cuda.empty_cache()
+            if cf == 4.0:
+                out[(layout, cf)]["f32_prefill_logits"] = _f32_prefill_logits(raw, cfg, prompts, mesh=mesh)
+    return out
+
+
+def _rank_entry(rank, world, init, out_dir, kind):
+    """One spawned rank of phase 6: joins the gloo group, runs its part on
+    cuda:0 (shared with the other rank) and pickles what it measured."""
+    import pickle
+    import traceback
+
+    try:
+        sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_serving_mesh
+
+        def mesh_of(ep, tp):
+            return make_serving_mesh(ep=ep, tp=tp, backend="gloo", device="cuda", init_method=f"file://{init}",
+                                     rank=rank, world_size=world)
+
+        with torch.no_grad():
+            result = _rank_llama(mesh_of(1, 2)) if kind == "llama" else _rank_dbrx(mesh_of)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _spawn_ranks(kind, world: int = 2):
+    """Start ``world`` ranks of ``kind`` with the spawn method, join each
+    within RANK_TIMEOUT_S (terminating any still running), fail with a
+    rank's traceback if one failed; returns each rank's results."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    init = os.path.join(out_dir, "pg_init")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(r, world, init, out_dir, kind)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.1))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.terminate()
+        p.join(10)
+    errs = [open(os.path.join(out_dir, f"rank{r}.err")).read() for r in range(world)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    if alive or errs or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"phase 6 {kind}: ranks {'timed out' if alive else 'failed'} "
+                           f"(exit codes {[p.exitcode for p in procs]})\n" + "\n".join(errs))
+    results = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def _share_equal(outputs, ref_outputs):
+    return sum(list(a) == list(b) for a, b in zip(outputs, ref_outputs)) / len(ref_outputs)
+
+
+def _summary(run):
+    return {k: v for k, v in run.items() if k != "outputs"}
+
+
+def _world1_nccl(cfg, engines, detail):
+    """6a: a world of one rank over NCCL, Engine(mesh=(1, 1)) on the dense
+    tree of phase 4's W4 + KV engine: prefill logits, generate tokens and
+    vanilla serve outputs equal the meshless engine's bit for bit (tp = 1
+    takes the unsharded launches)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    init = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"), "pg_init")
+    mesh = make_serving_mesh(ep=1, tp=1, backend="nccl", device="cuda", init_method=f"file://{init}", rank=0,
+                             world_size=1)
+    base = engines["w4_kv"]
+    eng = Engine(base._raw_params, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=base.policy), mesh=mesh)
+    prompts = _generate_prompts(cfg)
+    logits = _prefill_logits(eng, prompts)
+    assert torch.equal(logits, MESHLESS[(cfg.name, "w4_kv", "prefill_logits")]), "world-1 prefill logits differ"
+    gen = _run_generate(eng, prompts)
+    assert gen["outputs"] == MESHLESS[(cfg.name, "w4_kv", "generate")], "world-1 generate tokens differ"
+    steps = gen["decode_steps"]
+    assert gen["counts"] == _want_counts(cfg, 1, eng.policy, 1 + steps, decode_steps=steps), gen["counts"]
+    _main_path_counts(gen["counts"])
+    serve = _run_serve(eng, cfg)
+    assert serve["outputs"] == MESHLESS[(cfg.name, "w4_kv", "serve")], "world-1 serve outputs differ"
+    _main_path_counts(serve["counts"])
+    dist.destroy_process_group()
+    out = {"backend": "nccl", "mesh": [1, 1], "prefill_logits_bit_identical": True,
+           "generate_tokens_identical": True, "serve_outputs_identical": True,
+           "generate": _summary(gen), "serve": _summary(serve)}
+    detail["parallel_world1_nccl"] = out
+    return out
+
+
+def _check_ranks_agree(ranks, key):
+    for r in ranks[1:]:
+        assert r[key]["outputs"] == ranks[0][key]["outputs"], f"{key}: ranks disagree on tokens"
+
+
+def _parallel_llama(cfg, detail, f32_ref):
+    """6b: full-width llama3_2_3b (28 layers) on the (1, 2) mesh, two ranks
+    on one card over gloo, every packed linear K-sharded (K7); each rank's
+    K-sharded linears are held to K1's bound (``_mesh_linear_check``).
+    ``f32_ref``: the meshless W4 float32 prefill logits, against which the
+    mesh's difference is reported with the bf16 ones."""
+    ranks = _spawn_ranks("llama")
+    for r in ranks:
+        assert r["linear_check"]["worst_err_over_bound"] <= 1.0, ("tp2 linear vs K1", r["linear_check"])
+    f32_diff = float((ranks[0]["f32_prefill_logits"] - f32_ref).abs().max())
+    out = {"mesh": [1, 2], "backend": "gloo, both ranks on cuda:0; collectives staged through host memory "
+                                      "(their times are no measure of NCCL)",
+           "linear_check": [r["linear_check"] for r in ranks],
+           "w4_f32_max_abs_logit_diff_vs_meshless": f32_diff,
+           "w4_f32_max_abs_logit_meshless": float(f32_ref.abs().max())}
+    for name, policy in _policies().items():
+        res = {"max_abs_logit_diff_vs_meshless": float((ranks[0][name]["prefill_logits"]
+                                                        - MESHLESS[(cfg.name, name, "prefill_logits")]).abs().max())}
+        for r in ranks[1:]:
+            assert torch.equal(r[name]["prefill_logits"], ranks[0][name]["prefill_logits"]), "ranks' logits differ"
+        _check_ranks_agree([r[name] for r in ranks], "generate")
+        for rank, r in enumerate(ranks):
+            gen = r[name]["generate"]
+            steps = gen["decode_steps"]
+            want = _want_counts(cfg, 2, policy, 1 + steps, decode_steps=steps)
+            assert gen["counts"] == want, (name, rank, gen["counts"], want)
+            assert want["razer_matmul"] == 0  # every llama linear is eligible: no K1 launch
+            _main_path_counts(gen["counts"])
+        gen = ranks[0][name]["generate"]
+        res["generate"] = {**_summary(gen), "share_equal_to_meshless_generate":
+                           _share_equal(gen["outputs"], MESHLESS[(cfg.name, name, "generate")]),
+                           "per_rank_peak_memory_bytes": [r[name]["generate"]["peak_memory_bytes"] for r in ranks],
+                           "per_rank_collective_s": [r[name]["generate"]["collectives"]["seconds"] for r in ranks]}
+        for key in [k for k in ranks[0][name] if k.startswith("serve_k")]:
+            k = int(key[len("serve_k"):])
+            _check_ranks_agree([r[name] for r in ranks], key)
+            for rank, r in enumerate(ranks):
+                run = r[name][key]
+                want = _want_counts(cfg, 2, policy, run["prefills"] + run["decode_steps"],
+                                    paged=(0 if k else run["decode_steps"]) + run["draft_steps"],
+                                    verify=run["decode_steps"] if k else 0)
+                assert run["counts"] == want, (name, key, rank, run["counts"], want)
+                _main_path_counts(run["counts"])
+            run = ranks[0][name][key]
+            res[key] = {**_summary(run),
+                        "share_equal_to_meshless_generate": _share_equal(
+                            run["outputs"], MESHLESS[(cfg.name, name, "generate_serve_prompts")]),
+                        "per_rank_peak_memory_bytes": [r[name][key]["peak_memory_bytes"] for r in ranks],
+                        "per_rank_collective_s": [r[name][key]["collectives"]["seconds"] for r in ranks]}
+        out[name] = res
+    detail["parallel_llama_tp2"] = out
+    return out
+
+
+def _parallel_dbrx(dev, detail):
+    """6c: full-width dbrx_132b cut to 1 of 40 layers (each rank keeps the
+    ~18 GB f32 tree for the draft; two ranks share the card), W4 + KV,
+    two ranks over gloo on the (1, 2) mesh (K7 and K8) and the (2, 1) mesh
+    (K6 on E/2 experts, all-to-all at prefill and replicated tokens at
+    decode), against the meshless engine on the same weights: at the
+    no-drop capacity factor n_experts / topk the float32 W4 prefill logits
+    must agree within F32_LOGIT_RTOL of their largest magnitude; the bf16
+    logits and tokens there, and
+    everything at the published 1.25 (the mesh's dispatch groups change
+    which slots drop), are reported."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    policy = _policies()["w4_kv"]
+    raw = init_params(_dbrx_one_layer(1.25), seed=0, device=dev)
+    ref = {}
+    for cf in (1.25, 4.0):
+        cfg = _dbrx_one_layer(cf)
+        eng = Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=policy), device=dev)
+        prompts = _generate_prompts(cfg)
+        ref[cf] = {"prefill_logits": _prefill_logits(eng, prompts), "generate": eng.generate(prompts),
+                   "serve": _run_serve(eng, cfg)["outputs"]}
+        del eng
+        if cf == 4.0:
+            ref[cf]["f32_prefill_logits"] = _f32_prefill_logits(raw, cfg, prompts, device=dev)
+    del raw
+    torch.cuda.empty_cache()
+    ranks = _spawn_ranks("dbrx")
+    out = {"cut": {"num_layers": [40, 1]}, "backend": "gloo, both ranks on cuda:0; collectives staged through "
+                                                      "host memory (their times are no measure of NCCL)"}
+    for (layout, cf), res0 in ranks[0].items():
+        cfg = _dbrx_one_layer(cf)
+        for r in ranks[1:]:
+            assert torch.equal(r[(layout, cf)]["prefill_logits"], res0["prefill_logits"]), "ranks' logits differ"
+            for key in ("generate", "serve_k0"):
+                assert r[(layout, cf)][key]["outputs"] == res0[key]["outputs"], f"{layout} {cf} {key}: ranks disagree"
+        for rank, r in enumerate(ranks):
+            gen, serve = r[(layout, cf)]["generate"], r[(layout, cf)]["serve_k0"]
+            steps = gen["decode_steps"]
+            want = _want_counts(cfg, layout[1], policy, 1 + steps, decode_steps=steps)
+            assert gen["counts"] == want, (layout, cf, rank, gen["counts"], want)
+            want = _want_counts(cfg, layout[1], policy, serve["prefills"] + serve["decode_steps"],
+                                paged=serve["decode_steps"])
+            assert serve["counts"] == want, (layout, cf, rank, serve["counts"], want)
+            _main_path_counts(gen["counts"])
+            _main_path_counts(serve["counts"])
+        diff = float((res0["prefill_logits"] - ref[cf]["prefill_logits"]).abs().max())
+        row = {}
+        if cf == 4.0:
+            f32_ref = ref[cf]["f32_prefill_logits"]
+            f32_diff = float((res0["f32_prefill_logits"] - f32_ref).abs().max())
+            tol = F32_LOGIT_RTOL * float(f32_ref.abs().max())
+            assert f32_diff <= tol, (layout, "f32 prefill logits", f32_diff, tol)
+            row = {"w4_f32_max_abs_logit_diff_vs_meshless": f32_diff, "f32_logit_tolerance": tol}
+        out[f"mesh_{layout[0]}x{layout[1]}_cf{cf}"] = {
+            **row, "max_abs_logit_diff_vs_meshless": diff,
+            "share_generate_equal_to_meshless": _share_equal(res0["generate"]["outputs"], ref[cf]["generate"]),
+            "share_serve_equal_to_meshless_serve": _share_equal(res0["serve_k0"]["outputs"], ref[cf]["serve"]),
+            "generate": _summary(res0["generate"]), "serve": _summary(res0["serve_k0"]),
+            "per_rank_peak_memory_bytes": [max(r[(layout, cf)]["generate"]["peak_memory_bytes"],
+                                               r[(layout, cf)]["serve_k0"]["peak_memory_bytes"]) for r in ranks]}
+    detail["parallel_dbrx"] = out
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", help="also write every measured number to this JSON file")
@@ -856,8 +1478,13 @@ def main() -> int:
     checks = {"razer_matmul": _check_matmul(cfg, dev, gen, detail),
               "razer_act_qdq": _check_act_qdq(cfg, dev, gen, detail),
               "razer_kv_attention": _check_kv_attention(cfg, dev, gen, detail),
-              **_check_paged_attention(cfg, dev, gen, detail),
-              "razer_grouped_matmul": _check_grouped_matmul(dev, gen, detail)}
+              **_check_paged_attention(cfg, dev, gen, detail)}
+    banks = _dbrx_banks(dev, gen, detail)
+    checks["razer_grouped_matmul"] = _check_grouped_matmul(dev, gen, detail, banks)
+    checks["razer_grouped_matmul_kshard"] = _check_kshard_grouped(dev, gen, detail, banks)
+    del banks
+    torch.cuda.empty_cache()
+    checks["razer_matmul_kshard"] = _check_kshard_matmul(cfg, dev, gen, detail)
     torch.cuda.empty_cache()
     print("kernels vs plain: " + json.dumps({k: {"max_abs_err": v[0], **v[1]} for k, v in checks.items()}))
     print("K1 split-K from (N, K) vs one split at M=128: " + json.dumps(_split_k_cost(cfg, dev, gen, detail)))
@@ -869,9 +1496,17 @@ def main() -> int:
     print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
     serve = _serve_full_width(cfg, engines, detail)
     print("serve llama3_2_3b full width: " + json.dumps(serve))
+    print("parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width: "
+          + json.dumps(_world1_nccl(cfg, engines, detail)))
+    f32_ref = _f32_prefill_logits(engines["w4_kv"]._raw_params, cfg, _generate_prompts(cfg), device=dev)
     del engines
     torch.cuda.empty_cache()
+    print("parallel, llama3_2_3b full width on the (1, 2) mesh, two ranks on one card over gloo: "
+          + json.dumps(_parallel_llama(cfg, detail, f32_ref)))
     _dbrx_full_width(dev, detail)
+    torch.cuda.empty_cache()
+    print("parallel, dbrx_132b full width cut to 1 layer on the (1, 2) and (2, 1) meshes, two ranks on one "
+          "card over gloo: " + json.dumps(_parallel_dbrx(dev, detail)))
     torch.cuda.empty_cache()
     parity = _card_vs_cpu(dev, detail)
     print("card vs cpu (reduced llama3_2_3b and dbrx_132b): " + json.dumps(parity))
@@ -893,6 +1528,13 @@ def main() -> int:
         "razer_grouped_matmul": ("src/repro_torch/csrc/razer_grouped_matmul.cu",
                                  "src/repro/kernels/razer_grouped_matmul.py:62",
                                  "one dbrx_132b MoE layer's 3 expert banks (E=16, 6144 x 10752) at decode M=4"),
+        "razer_matmul_kshard": ("src/repro_torch/csrc/razer_matmul.cu", "src/repro/kernels/razer_matmul.py:158",
+                                "rank 0's K/2 shards of one llama3_2_3b layer's 7 packed linears (tp=2) at "
+                                "decode M=4, kernel only (no exchange)"),
+        "razer_grouped_matmul_kshard": ("src/repro_torch/csrc/razer_grouped_matmul.cu",
+                                        "src/repro/kernels/razer_grouped_matmul.py:109",
+                                        "rank 0's (E=16, K/2) tiles of one dbrx_132b MoE layer's 3 banks (tp=2) "
+                                        "at decode M=4, kernel only (no exchange)"),
     }
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": MAIN_PATH_LAUNCHES[name], "max_abs_err": checks[name][0],

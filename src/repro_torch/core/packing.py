@@ -10,8 +10,8 @@ Wire format of one 16-element block:
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, replace
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ __all__ = [
     "PackedStackedTensor",
     "pack_weight",
     "pack_stacked_weights",
+    "take_shard",
 ]
 
 
@@ -94,6 +95,8 @@ class PackedRazerWeight:
     tensor_scale : () float32
     sv_magnitudes: (m0, m1)
     shape        : logical (K, N)
+    k_shards     : 1 for a whole weight; tp for one rank's K/tp shard of it
+                   (``local_shard``), whose ``shape`` is then the local one
     """
 
     codes: torch.Tensor
@@ -101,6 +104,23 @@ class PackedRazerWeight:
     tensor_scale: torch.Tensor
     sv_magnitudes: Tuple[float, float]
     shape: Tuple[int, int]
+    k_shards: int = 1
+
+    def local_shard(self, k_shards: int) -> "PackedRazerWeight":
+        """Metadata for a K/k_shards tensor-parallel shard of this weight,
+        whose leaves already hold the local wire rows: block scales live
+        along K, so whole 16-element blocks of codes (K/tp/2, N) and
+        scale_meta (K/tp/16, N) are themselves a valid wire tensor, and the
+        per-tensor scale replicates.  Only ``shape`` and ``k_shards``
+        change."""
+        k, n = self.shape
+        if k_shards <= 0 or k % (k_shards * 16):
+            raise ValueError(
+                f"cannot tensor-parallel-shard packed K={k} over tp={k_shards} "
+                f"devices: K must be divisible by tp*quant_block = "
+                f"{k_shards}*16 so every shard holds whole 16-element quant "
+                f"blocks (see docs/parallelism.md)")
+        return replace(self, shape=(k // k_shards, n), k_shards=k_shards)
 
     def dequantize(self) -> torch.Tensor:
         """(K, N) float32, tensor scale included."""
@@ -112,8 +132,8 @@ class PackedRazerWeight:
         return w.reshape(n, k).T
 
     def to(self, device) -> "PackedRazerWeight":
-        return PackedRazerWeight(self.codes.to(device), self.scale_meta.to(device),
-                                 self.tensor_scale.to(device), self.sv_magnitudes, self.shape)
+        return replace(self, codes=self.codes.to(device), scale_meta=self.scale_meta.to(device),
+                       tensor_scale=self.tensor_scale.to(device))
 
 
 @dataclass
@@ -126,6 +146,9 @@ class PackedStackedTensor:
     tensor_scale : (E,) float32 -- each entry's own tensor scale
     sv_magnitudes: (m0, m1), shared by the bank
     shape        : logical (E, K, N)
+    e_shards, k_shards: 1 for a whole bank; ep and tp for one rank's
+                   (E/ep, K/tp) tile of it (``local_shard``), whose ``shape``
+                   is then the local one
     """
 
     codes: torch.Tensor
@@ -133,20 +156,42 @@ class PackedStackedTensor:
     tensor_scale: torch.Tensor
     sv_magnitudes: Tuple[float, float]
     shape: Tuple[int, int, int]
+    e_shards: int = 1
+    k_shards: int = 1
 
     def __getitem__(self, e: int) -> PackedRazerWeight:
         """Bank entry ``e`` as a plain 2-D packed weight."""
         _, k, n = self.shape
         return PackedRazerWeight(self.codes[e], self.scale_meta[e], self.tensor_scale[e],
-                                 self.sv_magnitudes, (k, n))
+                                 self.sv_magnitudes, (k, n), self.k_shards)
+
+    def local_shard(self, n_shards: int, k_shards: int = 1) -> "PackedStackedTensor":
+        """Metadata for an (E/n_shards, K/k_shards) tile of this bank, whose
+        leaves already hold the local expert rows and wire rows: an expert
+        split falls between packed (K, N) entries and a K split between
+        whole 16-element blocks, so every local entry is a valid wire
+        tensor.  Only ``shape``, ``e_shards`` and ``k_shards`` change."""
+        e, k, n = self.shape
+        if n_shards <= 0 or e % n_shards:
+            raise ValueError(
+                f"cannot split a packed bank of E={e} expert rows into "
+                f"{n_shards} equal expert-parallel shards: E must be divisible "
+                f"by the ep axis size")
+        if k_shards <= 0 or k % (k_shards * 16):
+            raise ValueError(
+                f"cannot tensor-parallel-shard packed K={k} over tp={k_shards} "
+                f"devices: K must be divisible by tp*quant_block = "
+                f"{k_shards}*16 so every shard holds whole 16-element quant "
+                f"blocks (see docs/parallelism.md)")
+        return replace(self, shape=(e // n_shards, k // k_shards, n), e_shards=n_shards, k_shards=k_shards)
 
     def dequantize(self) -> torch.Tensor:
         """(E, K, N) float32, each entry's tensor scale included."""
         return torch.stack([self[e].dequantize() for e in range(self.shape[0])])
 
     def to(self, device) -> "PackedStackedTensor":
-        return PackedStackedTensor(self.codes.to(device), self.scale_meta.to(device),
-                                   self.tensor_scale.to(device), self.sv_magnitudes, self.shape)
+        return replace(self, codes=self.codes.to(device), scale_meta=self.scale_meta.to(device),
+                       tensor_scale=self.tensor_scale.to(device))
 
 
 def pack_weight(w: torch.Tensor, *, sv_magnitudes: Tuple[float, float] = (5.0, 8.0),
@@ -192,3 +237,25 @@ def pack_stacked_weights(w: torch.Tensor, *, sv_magnitudes: Tuple[float, float] 
         sv_magnitudes=tuple(float(m) for m in sv_magnitudes),
         shape=(e, k, n),
     )
+
+
+def take_shard(c: Union[PackedRazerWeight, PackedStackedTensor], *, tp: int = 1, tp_index: int = 0,
+               ep: int = 1, ep_index: int = 0):
+    """Rank (ep_index, tp_index)'s tile of a whole container, as its own
+    contiguous tensors: wire rows ``[j K/tp, (j + 1) K/tp)`` of codes and
+    scale_meta (and, for a bank, expert rows ``[i E/ep, (i + 1) E/ep)`` of
+    every leaf), the tensor scales as they are.  The bytes equal packing
+    that sub-tensor directly under the whole tensor's tensor scale."""
+    if c.k_shards != 1 or getattr(c, "e_shards", 1) != 1:
+        raise ValueError("take_shard takes a whole container, not a shard of one")
+    if isinstance(c, PackedStackedTensor):
+        local = c.local_shard(ep, tp)  # validates both splits
+        el, kl, _ = local.shape
+        ex = slice(ep_index * el, (ep_index + 1) * el)
+        return replace(local, codes=c.codes[ex, tp_index * kl // 2:(tp_index + 1) * kl // 2].contiguous(),
+                       scale_meta=c.scale_meta[ex, tp_index * kl // 16:(tp_index + 1) * kl // 16].contiguous(),
+                       tensor_scale=c.tensor_scale[ex].contiguous())
+    local = c.local_shard(tp)
+    kl = local.shape[0]
+    return replace(local, codes=c.codes[tp_index * kl // 2:(tp_index + 1) * kl // 2].contiguous(),
+                   scale_meta=c.scale_meta[tp_index * kl // 16:(tp_index + 1) * kl // 16].contiguous())

@@ -4,6 +4,11 @@ A packed weight container dispatches to its format's matmul kernel, after the
 activation fake-quant kernel when the policy quantizes activations (W4A4).  A
 dense weight runs a plain matmul, fake-quantized first under a ``fakequant``
 weight spec.
+
+On a serving mesh a packed weight may be this rank's K/tp shard
+(``k_shards`` > 1, placed by ``parallel.sharding.shard_params``): then the
+matmul runs on this rank's K slice and reduce-scatters the partial sums over
+the tp group (``_tp_packed_matmul``), leaving N/tp columns per rank.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import torch
 from . import registry
 from .policy import QuantPolicy
 
-__all__ = ["qdq_activation", "qlinear"]
+__all__ = ["qdq_activation", "qlinear", "is_kshard"]
 
 
 def qdq_activation(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
@@ -29,16 +34,58 @@ def qdq_activation(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
     return spec.qdq(x, axis=-1)
 
 
-def qlinear(x: torch.Tensor, w, policy: QuantPolicy, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def is_kshard(w) -> bool:
+    """Whether ``w`` is one rank's K/tp shard of a packed weight."""
+    return getattr(w, "k_shards", 1) > 1
+
+
+def _tp_packed_matmul(x: torch.Tensor, w, entry, b, *, sharded_in: bool, gather: bool):
+    """The K-shard matmul of this rank: x's K slice (unless the caller
+    already holds it, ``sharded_in``) against the local wire rows, the
+    full-N partial reduce-scattered over the tp group into this rank's N/tp
+    columns, all-gathered to the full width when ``gather``.  Returns (y,
+    the bias matching y's columns)."""
+    from repro_torch.parallel.collectives import all_gather_last
+    from repro_torch.parallel.sharding import get_ctx
+
+    mesh = get_ctx()
+    if mesh is None or mesh.tp != w.k_shards:
+        raise ValueError(f"a K/{w.k_shards} weight shard runs only inside sharding_ctx of its "
+                         f"tp={w.k_shards} mesh")
+    if entry.kshard_matmul_kernel is None:
+        raise TypeError(f"format {entry.name!r} shards packed weights but registered no kshard_matmul_kernel")
+    kl = w.shape[0]
+    if not sharded_in:
+        j = mesh.model_index
+        x = x[..., j * kl:(j + 1) * kl]
+    y = entry.kshard_matmul_kernel(x, w, mesh.tp_group)
+    if gather:
+        return all_gather_last(y, mesh.tp_group), b
+    nl = y.shape[-1]
+    return y, None if b is None else b[mesh.model_index * nl:(mesh.model_index + 1) * nl]
+
+
+def qlinear(x: torch.Tensor, w, policy: QuantPolicy, b: Optional[torch.Tensor] = None, *,
+            sharded_in: bool = False, gather: bool = True) -> torch.Tensor:
     """y = quant(x) @ quant(W) + b under ``policy``; W is (d_in, d_out) or a
-    packed container."""
+    packed container.
+
+    For a K/tp weight shard: under W4A4 the activation fake-quant runs on x
+    before its K slice is taken (its 16-element blocks never straddle a
+    shard); ``sharded_in`` says x already is this rank's K slice (a chain's
+    second matmul, whose input is the first's N/tp tile); ``gather=False``
+    returns this rank's N/tp columns, else they are all-gathered over the
+    tp group to the full width.  A replicated weight ignores both."""
     entry = registry.packed_entry(w)
     if entry is not None:
         if entry.matmul_kernel is None:
             raise TypeError(f"format {entry.name!r} has a packed container but no matmul_kernel")
         if policy.act is not None:
             x = qdq_activation(x, policy)
-        y = entry.matmul_kernel(x, w)
+        if is_kshard(w):
+            y, b = _tp_packed_matmul(x, w, entry, b, sharded_in=sharded_in, gather=gather)
+        else:
+            y = entry.matmul_kernel(x, w)
     else:
         spec = policy.weight
         if spec.quantizes and spec.mode == "fakequant":
@@ -49,4 +96,3 @@ def qlinear(x: torch.Tensor, w, policy: QuantPolicy, b: Optional[torch.Tensor] =
     if b is not None:
         y = y + b.to(y.dtype)
     return y
-

@@ -4,8 +4,11 @@ A format names its quantize function and, optionally, how a weight is packed
 into a wire container, the matmul kernel that consumes that container and the
 fused activation fake-quant kernel, and for stacked MoE banks the stacked
 container and its grouped kernel.  ``qlinear`` dispatches a packed weight by
-its container type, ``moe_forward`` a packed bank by its stacked type.  The
-port registers ``razer`` (packed, with kernels) and ``nvfp4`` (quantize only:
+its container type, ``moe_forward`` a packed bank by its stacked type.  A
+format that can be split over a serving mesh names how a rank takes its
+shard of a packed weight (``shard_packed_fn``, a K/tp shard) and of a
+stacked bank (``shard_stacked_fn``, an E/ep x K/tp tile).  The port
+registers ``razer`` (packed, with kernels) and ``nvfp4`` (quantize only:
 the default draft format of speculative serving).
 """
 from __future__ import annotations
@@ -30,6 +33,12 @@ class FormatEntry:
     pack_stacked_fn: Optional[Callable] = None  # (w, spec) -> stacked container
     grouped_matmul_kernel: Optional[Callable] = None  # (x (E, M, K), packed) -> y
     packed_stacked_type: Optional[type] = None  # stacked container class
+    # mesh hooks (parallel/sharding.py): this rank's local container, and
+    # the K-shard matmuls that consume it and reduce-scatter over the group
+    shard_packed_fn: Optional[Callable] = None  # (packed, tp, tp_index) -> K/tp shard
+    shard_stacked_fn: Optional[Callable] = None  # (bank, ep, ep_index, tp, tp_index) -> tile
+    kshard_matmul_kernel: Optional[Callable] = None  # (x (.., K/tp), shard, group) -> (.., N/tp)
+    kshard_grouped_matmul_kernel: Optional[Callable] = None  # (x (E, M, K/tp), tile, group) -> (E, M, N/tp)
 
 
 _REGISTRY: Dict[str, FormatEntry] = {}
@@ -37,11 +46,15 @@ _REGISTRY: Dict[str, FormatEntry] = {}
 
 def register_format(name: str, quantize_fn: Callable, pack_fn=None, matmul_kernel=None,
                     act_kernel=None, *, packed_type=None, pack_stacked_fn=None,
-                    grouped_matmul_kernel=None, packed_stacked_type=None) -> FormatEntry:
+                    grouped_matmul_kernel=None, packed_stacked_type=None, shard_packed_fn=None,
+                    shard_stacked_fn=None, kshard_matmul_kernel=None,
+                    kshard_grouped_matmul_kernel=None) -> FormatEntry:
     entry = FormatEntry(name=name, quantize=quantize_fn, pack_fn=pack_fn,
                         matmul_kernel=matmul_kernel, act_kernel=act_kernel, packed_type=packed_type,
                         pack_stacked_fn=pack_stacked_fn, grouped_matmul_kernel=grouped_matmul_kernel,
-                        packed_stacked_type=packed_stacked_type)
+                        packed_stacked_type=packed_stacked_type, shard_packed_fn=shard_packed_fn,
+                        shard_stacked_fn=shard_stacked_fn, kshard_matmul_kernel=kshard_matmul_kernel,
+                        kshard_grouped_matmul_kernel=kshard_grouped_matmul_kernel)
     _REGISTRY[name] = entry
     return entry
 
@@ -107,6 +120,35 @@ def _razer_grouped_matmul(x, pst):
     return ops.razer_grouped_matmul(x, pst)
 
 
+def _razer_shard_packed(pw, tp: int, tp_index: int):
+    """Rank ``tp_index``'s K/tp wire rows of a ``PackedRazerWeight``; the
+    scalar tensor scale replicates."""
+    from .packing import take_shard
+
+    return take_shard(pw, tp=tp, tp_index=tp_index)
+
+
+def _razer_shard_stacked(bank, ep: int, ep_index: int, tp: int = 1, tp_index: int = 0):
+    """Rank (ep_index, tp_index)'s E/ep expert rows and K/tp wire rows of a
+    ``PackedStackedTensor``; the per-expert tensor scales follow the
+    expert rows."""
+    from .packing import take_shard
+
+    return take_shard(bank, ep=ep, ep_index=ep_index, tp=tp, tp_index=tp_index)
+
+
+def _razer_kshard_matmul(x, pw, group):
+    from repro_torch.kernels import ops
+
+    return ops.razer_matmul_kshard(x, pw, group=group)
+
+
+def _razer_kshard_grouped_matmul(x, pst, group):
+    from repro_torch.kernels import ops
+
+    return ops.razer_grouped_matmul_kshard(x, pst, group=group)
+
+
 def _razer_act_qdq(x, spec):
     if spec.scale_fmt not in (None, "e4m3"):
         # the fused act kernel hardcodes the E4M3 block scale
@@ -125,7 +167,9 @@ def _register_builtins() -> None:
     register_format("razer", razer_quantize, pack_fn=_razer_pack, matmul_kernel=_razer_matmul,
                     act_kernel=_razer_act_qdq, packed_type=PackedRazerWeight,
                     pack_stacked_fn=_razer_pack_stacked, grouped_matmul_kernel=_razer_grouped_matmul,
-                    packed_stacked_type=PackedStackedTensor)
+                    packed_stacked_type=PackedStackedTensor, shard_packed_fn=_razer_shard_packed,
+                    shard_stacked_fn=_razer_shard_stacked, kshard_matmul_kernel=_razer_kshard_matmul,
+                    kshard_grouped_matmul_kernel=_razer_kshard_grouped_matmul)
 
 
 _register_builtins()

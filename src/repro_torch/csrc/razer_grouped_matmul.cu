@@ -1,9 +1,14 @@
-// Grouped RaZeR packed GEMM over a stacked expert bank for Hopper (sm_90a), K6.
+// Grouped RaZeR packed GEMM over a stacked expert bank for Hopper (sm_90a),
+// K6, and its K-shard form K8.
 //
-// Replaces the Pallas TPU kernel `razer_grouped_matmul_pallas`
+// K6 replaces the Pallas TPU kernel `razer_grouped_matmul_pallas`
 // (src/repro/kernels/razer_grouped_matmul.py:62): E independent packed
 // GEMMs in one launch, the MoE expert einsum with the dispatch groups and
-// capacity slots flattened into M, without a dense copy of the bank.
+// capacity slots flattened into M, without a dense copy of the bank.  K8
+// replaces `razer_grouped_matmul_kshard_pallas` (razer_grouped_matmul.py:
+// 109): K6 over this rank's (E/ep, K/tp) bank tile, its full-N partial
+// stored chunk-major, (tp, E, M, N/tp), for reduce_scatter_tensor (which
+// scatters along dim 0) to hand each rank its N/tp columns.
 //
 //   y[e, M, N] (f32) = x[e, M, K] @ dequant(codes[e, K/2, N], scale_meta[e, K/16, N])
 //
@@ -31,6 +36,7 @@
 #include "razer_matmul_tile.cuh"
 
 struct K6;  // names the grouped GEMM's kernel in a profile
+struct K8;  // names its K-shard form
 
 // x: (E, M, K) bf16 (x_is_bf16 = 1) or f32, contiguous; codes (E, K/2, N)
 // and scale_meta (E, K/16, N) uint8; out (E, M, N) f32.  With splits > 1,
@@ -42,6 +48,20 @@ extern "C" int razer_grouped_matmul_launch(const void* x, int x_is_bf16, const v
                                            int M, int K, int N, int splits, int k_tiles_per_split,
                                            float m0, float m1, void* stream) {
   return static_cast<int>(razer_tile::launch_grouped<K6>(
-      x, x_is_bf16, codes, scale_meta, partial, out, E, M, K, N, splits, k_tiles_per_split, m0, m1,
+      x, x_is_bf16, codes, scale_meta, partial, out, E, M, K, N, splits, k_tiles_per_split, 1, m0, m1,
       static_cast<cudaStream_t>(stream)));
+}
+
+// K8: as razer_grouped_matmul_launch on this rank's bank tile, with out (and
+// each split of partial) stored as (out_chunks, E, M, N/out_chunks).  N must
+// be a multiple of out_chunks.  Returns cudaGetLastError() after the
+// launches.
+extern "C" int razer_grouped_matmul_kshard_launch(const void* x, int x_is_bf16, const void* codes,
+                                                  const void* scale_meta, void* partial, void* out,
+                                                  int E, int M, int K, int N, int splits,
+                                                  int k_tiles_per_split, int out_chunks, float m0,
+                                                  float m1, void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K8>(
+      x, x_is_bf16, codes, scale_meta, partial, out, E, M, K, N, splits, k_tiles_per_split,
+      out_chunks, m0, m1, static_cast<cudaStream_t>(stream)));
 }

@@ -1,11 +1,20 @@
 // The RaZeR packed-weight GEMM's output tile, kernel and launch, shared by
-// the dense GEMM (razer_matmul.cu, K1, one expert) and the grouped GEMM over
-// stacked expert banks (razer_grouped_matmul.cu, K6), so that both run the
-// same instructions: an expert of the grouped GEMM returns the dense GEMM's
-// bits on that entry.
+// the dense GEMM (razer_matmul.cu, K1, one expert), the grouped GEMM over
+// stacked expert banks (razer_grouped_matmul.cu, K6) and their K-shard forms
+// (K7, K8), so that all run the same instructions: an expert of the grouped
+// GEMM returns the dense GEMM's bits on that entry.
 //
 //   dst[M, N] (f32) = x[M, K] @ dequant(codes[K/2, N], scale_meta[K/16, N])
 //                     over the K tiles [kt_begin, kt_end)
+//
+// The store takes an out_chunks argument (the K-shard epilogue): element
+// (e, m, n) of an (E, M, N) output goes to [n / (N/c)][e][m][n % (N/c)] for
+// c = out_chunks, so that the N/c columns each rank of a tensor-parallel
+// group owns lie contiguous, as reduce_scatter_tensor wants them (it
+// scatters along dim 0).  At c = 1 that is the plain (E, M, N) layout, the
+// same address as before; the tile loop, the split count and the split sum
+// (elementwise) do not depend on c, so a chunked output holds the unchunked
+// output's bits, permuted.
 //
 // The tensor scale is not applied here: the Python wrappers multiply it in
 // the epilogue, as the JAX wrappers do.
@@ -63,11 +72,13 @@ __device__ __forceinline__ float load_bf16(const float* p) { return bf16_round(*
 // ROWS output rows per thread: 4 (BM = 16) in general, 1 (BM = 4) when M is
 // at most 4, so that decode does not spend three quarters of its FMAs on
 // padding rows.  Called by every thread of a THREADS-thread block.
+// dst is the (E, M, N) output of one K split, stored out_chunks-chunked;
+// this tile belongs to expert e.
 template <typename T, int ROWS>
 __device__ __forceinline__ void matmul_tile(const T* __restrict__ x, const uint8_t* __restrict__ codes,
                                             const uint8_t* __restrict__ scale_meta,
-                                            float* __restrict__ dst, int M, int K, int N, int kt_begin,
-                                            int kt_end, float m0, float m1) {
+                                            float* __restrict__ dst, int e, int E, int out_chunks, int M,
+                                            int K, int N, int kt_begin, int kt_end, float m0, float m1) {
   constexpr int BM = ROW_GROUPS * ROWS;
   __shared__ float w_tile[BK][BN];
   __shared__ float x_tile[BM][BK + 1];
@@ -127,10 +138,14 @@ __device__ __forceinline__ void matmul_tile(const T* __restrict__ x, const uint8
     __syncthreads();
   }
 
+  if (n >= N) return;
+  const int nc = N / out_chunks;  // the wrapper checks N % out_chunks == 0
+  const int chunk = n / nc;
+  const size_t base = ((size_t)chunk * E + e) * M;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int m = m_base + row_group + ROW_GROUPS * i;
-    if (m < M && n < N) dst[(size_t)m * N + n] = acc[i];
+    if (m < M) dst[(base + m) * nc + (n - chunk * nc)] = acc[i];
   }
 }
 
@@ -154,35 +169,37 @@ inline cudaError_t sum_splits(const float* partial, float* out, long long count,
 }
 
 // y[e] = x[e] @ dequant(bank entry e) for e < E, K split over splits:
-// blockIdx.z names the expert and its K split, and each expert's x, codes,
-// scale_meta and partial output are reached by expert strides.  The dense
-// GEMM is the case E = 1, so it runs these very instructions.  Tag only
-// names the instantiation (K1 or K6), so a profile tells the two apart.
+// blockIdx.z names the expert and its K split, and each expert's x, codes
+// and scale_meta are reached by expert strides.  The dense GEMM is the case
+// E = 1, so it runs these very instructions.  Tag only names the
+// instantiation (K1, K6, K7 or K8), so a profile tells them apart.
 template <typename Tag, typename T, int ROWS>
 __global__ void __launch_bounds__(THREADS)
 grouped_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ codes,
                       const uint8_t* __restrict__ scale_meta, float* __restrict__ out, int E, int M,
-                      int K, int N, int splits, int k_tiles_per_split, float m0, float m1) {
+                      int K, int N, int splits, int k_tiles_per_split, int out_chunks, float m0,
+                      float m1) {
   const int e = blockIdx.z / splits;
   const int split = blockIdx.z % splits;
   const int kt_begin = split * k_tiles_per_split;
   const int kt_end = min(kt_begin + k_tiles_per_split, K / BK);
   matmul_tile<T, ROWS>(x + (size_t)e * M * K, codes + (size_t)e * (K / 2) * N,
-                       scale_meta + (size_t)e * (K / 16) * N,
-                       out + ((size_t)split * E + e) * M * N, M, K, N, kt_begin, kt_end, m0, m1);
+                       scale_meta + (size_t)e * (K / 16) * N, out + (size_t)split * E * M * N, e, E,
+                       out_chunks, M, K, N, kt_begin, kt_end, m0, m1);
 }
 
 // x: (E, M, K) bf16 (x_is_bf16) or f32, contiguous; codes (E, K/2, N) and
-// scale_meta (E, K/16, N) uint8; out (E, M, N) f32.  With splits > 1,
-// partial holds (splits, E, M, N) f32 scratch, summed into out in a fixed
-// order.  K must be a multiple of BK and E * splits at most 65535.  Row
-// tiles are 4 rows when M <= 4, else 16.  Returns cudaGetLastError() after
-// the launches.
+// scale_meta (E, K/16, N) uint8; out (E, M, N) f32, stored out_chunks-
+// chunked ((out_chunks, E, M, N/out_chunks)).  With splits > 1, partial
+// holds splits such outputs as f32 scratch, summed into out in a fixed
+// order.  K must be a multiple of BK, N of out_chunks, and E * splits at
+// most 65535.  Row tiles are 4 rows when M <= 4, else 16.  Returns
+// cudaGetLastError() after the launches.
 template <typename Tag>
 cudaError_t launch_grouped(const void* x, int x_is_bf16, const void* codes,
                                   const void* scale_meta, void* partial, void* out, int E, int M,
-                                  int K, int N, int splits, int k_tiles_per_split, float m0,
-                                  float m1, cudaStream_t st) {
+                                  int K, int N, int splits, int k_tiles_per_split, int out_chunks,
+                                  float m0, float m1, cudaStream_t st) {
   float* dst = splits > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
   const int bm = M <= ROW_GROUPS ? ROW_GROUPS : 4 * ROW_GROUPS;
   dim3 grid((N + BN - 1) / BN, (M + bm - 1) / bm, E * splits);
@@ -191,13 +208,13 @@ cudaError_t launch_grouped(const void* x, int x_is_bf16, const void* codes,
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const float* xf = static_cast<const float*>(x);
   if (x_is_bf16 && bm == ROW_GROUPS) {
-    grouped_matmul_kernel<Tag, __nv_bfloat16, 1><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+    grouped_matmul_kernel<Tag, __nv_bfloat16, 1><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, out_chunks, m0, m1);
   } else if (x_is_bf16) {
-    grouped_matmul_kernel<Tag, __nv_bfloat16, 4><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+    grouped_matmul_kernel<Tag, __nv_bfloat16, 4><<<grid, THREADS, 0, st>>>(xb, c, s, dst, E, M, K, N, splits, k_tiles_per_split, out_chunks, m0, m1);
   } else if (bm == ROW_GROUPS) {
-    grouped_matmul_kernel<Tag, float, 1><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+    grouped_matmul_kernel<Tag, float, 1><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, out_chunks, m0, m1);
   } else {
-    grouped_matmul_kernel<Tag, float, 4><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, m0, m1);
+    grouped_matmul_kernel<Tag, float, 4><<<grid, THREADS, 0, st>>>(xf, c, s, dst, E, M, K, N, splits, k_tiles_per_split, out_chunks, m0, m1);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return err;

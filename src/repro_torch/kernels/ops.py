@@ -7,6 +7,12 @@ raises.  The wrappers here also flatten leading batch dims and, for the
 matmul, apply the tensor scale in the epilogue and cast back to x's dtype.
 Rows past M in the matmul's last tile are masked inside the kernel, which
 stands in for the JAX wrapper's M padding.
+
+The K-shard matmuls (``razer_matmul_kshard``, ``razer_grouped_matmul_kshard``)
+run on one rank's K/tp shard and end in ``reduce_scatter_epilogue``: each
+rank's full-N partial, tensor scale applied and cast to x's dtype as the
+reference does before its exchange, is summed over the tp group into this
+rank's N/tp tile.
 """
 from __future__ import annotations
 
@@ -16,13 +22,14 @@ from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 
 from . import ref
 from .paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
-from .razer_grouped_matmul import razer_grouped_matmul_cuda
+from .razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
 from .razer_kv_attention import razer_kv_attention_cuda
-from .razer_matmul import razer_matmul_cuda
+from .razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
 from .razer_quantize import razer_act_qdq_cuda
 
-__all__ = ["razer_matmul", "razer_grouped_matmul", "razer_act_qdq", "razer_kv_attention",
-           "razer_paged_kv_attention", "razer_paged_kv_attention_verify"]
+__all__ = ["razer_matmul", "razer_grouped_matmul", "reduce_scatter_epilogue", "razer_matmul_kshard",
+           "razer_grouped_matmul_kshard", "razer_act_qdq", "razer_kv_attention", "razer_paged_kv_attention",
+           "razer_paged_kv_attention_verify"]
 
 
 def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
@@ -54,6 +61,62 @@ def razer_grouped_matmul(x: torch.Tensor, pst: PackedStackedTensor) -> torch.Ten
     else:
         y = ref.razer_grouped_matmul_ref(x, pst)  # the tensor scales are inside the f32 bank
     return y.to(x.dtype)
+
+
+def reduce_scatter_epilogue(chunks: torch.Tensor, group) -> torch.Tensor:
+    """chunks (tp, ..., N/tp): this rank's partial product laid out
+    chunk-major by the K-shard kernel -> the sum over the tp group of chunk
+    ``rank`` (the reference's last-dim ``psum_scatter``)."""
+    from repro_torch.parallel.collectives import reduce_scatter
+
+    return reduce_scatter(chunks, group)
+
+
+def _chunked(y: torch.Tensor, c: int) -> torch.Tensor:
+    """(..., N) -> (c, ..., N/c), chunk r holding columns [r N/c, (r+1) N/c):
+    what the kernels' out_chunks epilogue writes, for the plain version."""
+    return y.reshape(*y.shape[:-1], c, y.shape[-1] // c).movedim(-2, 0).contiguous()
+
+
+def _kshard_group(container, group):
+    if group is None:
+        raise ValueError(f"a K/{container.k_shards} shard needs its tp group to reduce over")
+    return container.k_shards
+
+
+def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group) -> torch.Tensor:
+    """x (..., K/tp) @ this rank's K/tp shard ``pw`` (``pw.k_shards`` = tp),
+    the partials summed over ``group`` -> (..., N/tp), this rank's columns,
+    in x's dtype.  K7 on the card."""
+    tp = _kshard_group(pw, group)
+    k, n = pw.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x {tuple(x.shape)} does not match this rank's packed shard {pw.shape}")
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, k)
+    if x.is_cuda:
+        y = razer_matmul_kshard_cuda(xf.contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                                     m1=pw.sv_magnitudes[1], out_chunks=tp)
+        y = (y * pw.tensor_scale).to(x.dtype)
+    else:
+        y = _chunked(ref.razer_matmul_ref(xf, pw).to(x.dtype), tp)
+    return reduce_scatter_epilogue(y, group).reshape(*lead, n // tp)
+
+
+def razer_grouped_matmul_kshard(x: torch.Tensor, pst: PackedStackedTensor, *, group) -> torch.Tensor:
+    """x (E_local, M, K/tp) @ this rank's bank tile -> (E_local, M, N/tp),
+    the partials summed over ``group``, in x's dtype.  K8 on the card."""
+    tp = _kshard_group(pst, group)
+    e, k, n = pst.shape
+    if x.dim() != 3 or x.shape[0] != e or x.shape[-1] != k:
+        raise ValueError(f"x {tuple(x.shape)} does not match this rank's bank tile {pst.shape}")
+    if x.is_cuda:
+        y = razer_grouped_matmul_kshard_cuda(x.contiguous(), pst.codes, pst.scale_meta,
+                                             m0=pst.sv_magnitudes[0], m1=pst.sv_magnitudes[1], out_chunks=tp)
+        y = (y * pst.tensor_scale[:, None, None]).to(x.dtype)
+    else:
+        y = _chunked(ref.razer_grouped_matmul_ref(x, pst).to(x.dtype), tp)
+    return reduce_scatter_epilogue(y, group)
 
 
 def razer_act_qdq(x: torch.Tensor, *, svs=(5.0, -5.0), block: int = 16) -> torch.Tensor:

@@ -1,0 +1,131 @@
+"""Serve launcher of the port (counterpart of ``repro.launch.serve``), on one
+rank or on an (ep, tp) serving mesh over ``torch.distributed``.
+
+    python -m repro_torch.launch.serve --arch llama3_2_3b --reduced --packed --kv-quant
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch llama3_2_3b --packed --kv-quant --tp 2 --backend gloo
+
+Random weights from seed 0 (``init_params``) and random prompts from a numpy
+generator seeded 0, the same on every rank; every rank serves all requests
+and rank 0 prints.  ``--ep``/``--tp`` build the mesh (``--ep 0``: no mesh
+unless ``--tp`` > 1); the packed weights' divisibility is checked first, with
+the ``expert_shard_size`` / ``kshard_size`` errors.  ``--backend`` names the
+process group's backend: NCCL with one rank per card, gloo where ranks share
+a card or run on the CPU.  The reference launcher's disaggregated serving,
+metrics, trace, quantization report and checkpoint flags are not ported.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["main"]
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--packed", action="store_true", help="RaZeR 4.5-bit packed weights")
+    ap.add_argument("--kv-quant", action="store_true", help="RaZeR KV cache (App. C.1)")
+    ap.add_argument("--ep", type=int, default=0, help="expert-parallel (data) mesh axis size; 0 = no mesh")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel (model) axis size")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over the paged quantized KV pool")
+    ap.add_argument("--slots", type=int, default=4, help="decode slots (continuous mode)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction, default=True,
+                    help="share prompt-prefix pages between requests (continuous mode)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="self-speculative decoding: draft this many tokens per slot per iteration "
+                         "(continuous mode)")
+    ap.add_argument("--draft-policy", default=None,
+                    help="draft-side quantization: a format name (nvfp4) or 'bf16' (default: nvfp4)")
+    ap.add_argument("--backend", default="nccl", help="torch.distributed backend of the mesh (nccl, gloo)")
+    ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--init-method", default="env://",
+                    help="process-group rendezvous (env:// under torchrun, or file:///path)")
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    if args.speculate_k and not args.continuous:
+        raise SystemExit("--speculate-k applies to --continuous serving")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+
+    mesh, rank, joined = None, 0, False
+    if args.ep or args.tp > 1:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_serving_mesh
+        from repro_torch.parallel.sharding import expert_shard_size, kshard_size
+
+        if cfg.moe and args.packed and args.ep > 1:
+            # fail fast with the divisibility rule instead of replicating a
+            # bank the user asked to shard
+            expert_shard_size(cfg.n_experts, args.ep)
+        if args.packed and args.tp > 1:
+            # every packed reduction dim the K-shard path touches: d_model,
+            # and the ffn width (the expert trio's for an MoE model)
+            kshard_size(cfg.d_model, args.tp)
+            kshard_size(cfg.moe_d_ff if cfg.moe else cfg.d_ff, args.tp)
+        joined = not dist.is_initialized()
+        mesh = make_serving_mesh(ep=args.ep or None, tp=args.tp, backend=args.backend, device=args.device,
+                                 init_method=args.init_method)
+        rank = mesh.rank
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
+
+    params = init_params(cfg, seed=0, device=device)
+    policy = QuantPolicy.packed(kv_quant=args.kv_quant) if args.packed else QuantPolicy.bf16()
+    scfg = ServeConfig(max_len=args.max_len, max_new_tokens=args.max_new, kv_quant=args.kv_quant, quant=policy)
+    eng = Engine(params, cfg, scfg, device=device, mesh=mesh)
+
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 16))).tolist() for _ in range(args.requests)]
+    say = print if rank == 0 else (lambda *a, **k: None)
+    where = f"mesh (ep={mesh.ep}, tp={mesh.tp}, {mesh.backend})" if mesh is not None else "one rank"
+    if args.continuous:
+        from repro_torch.serving.scheduler import Request, SchedulerConfig
+
+        stream = [Request(rid=i, prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(reqs)]
+        rep = eng.serve(stream, sched_cfg=SchedulerConfig(max_slots=args.slots), prefix_cache=args.prefix_cache,
+                        speculate_k=args.speculate_k, draft_policy=args.draft_policy)
+        say(f"{rep.new_tokens} tokens / {rep.wall_time:.2f}s = {rep.tokens_per_s:.1f} tok/s over "
+            f"{rep.decode_steps} decode steps (slots={args.slots}, packed={args.packed}, {where})")
+        if rep.speculate_k:
+            say(f"  speculative k={rep.speculate_k}: accept rate {rep.accept_rate:.0%}")
+        outputs = [r.out_tokens for r in rep.requests]
+    else:
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        dt = time.perf_counter() - t0
+        outputs = [o[len(r):] for o, r in zip(out, reqs)]
+        new = sum(len(o) for o in outputs)
+        say(f"{new} tokens / {dt:.2f}s = {new / dt:.1f} tok/s (packed={args.packed}, "
+            f"kv_quant={args.kv_quant}, {where})")
+    for o, r in zip(outputs[:3], reqs[:3]):
+        say(f"  prompt[{len(r)}] -> {list(o)}")
+    if joined:  # leave a process group the caller set up to the caller
+        dist.destroy_process_group()
+    return outputs
+
+
+if __name__ == "__main__":
+    with torch.no_grad():
+        main()

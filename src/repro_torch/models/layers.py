@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import BF16, QuantPolicy
-from repro_torch.core.qlinear import qlinear
+from repro_torch.core.qlinear import is_kshard, qlinear
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device, dtype=torch.float32) -> torch.Tensor:
@@ -55,9 +55,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 
 def swiglu(x: torch.Tensor, p, quant: QuantPolicy = BF16) -> torch.Tensor:
-    g = qlinear(x, p["gate"], quant)
-    h = g * torch.sigmoid(g) * qlinear(x, p["up"], quant)
-    return qlinear(h, p["down"], quant)
+    """SwiGLU MLP.  When all three weights are K/tp shards on a serving mesh
+    the chain stays sharded: gate and up leave their f/tp columns, which
+    silu * mul keeps and which are exactly down's K slice, and only down's
+    d output is gathered."""
+    chain = all(is_kshard(p[r]) for r in ("gate", "up", "down"))
+    g = qlinear(x, p["gate"], quant, gather=not chain)
+    h = g * torch.sigmoid(g) * qlinear(x, p["up"], quant, gather=not chain)
+    return qlinear(h, p["down"], quant, sharded_in=chain)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Token-choice top-k MoE with grouped, capacity-bounded dispatch (PyTorch
-port of ``repro.models.moe``, without the mesh).
+port of ``repro.models.moe``).
 
 Tokens are split into G dispatch groups; within a group a slot's position at
 its expert comes from a cumsum over a (slots, E) one-hot, and the dispatch
@@ -20,7 +20,10 @@ expert inputs: the grouped kernel is called directly, not through
 ``qlinear``, so only the attention linears and the shared experts see the
 activation fake-quant.
 
-Not ported: the expert-parallel ``shard_map`` path (parallelism slice).
+On a serving mesh (``parallel.sharding``) the dispatch group count follows
+the ep axis, and a packed bank trio that ``shard_params`` split into E/ep x
+K/tp tiles runs them through ``_expert_ffn``'s expert-parallel strategies.
+The router, the dispatch and the combine run replicated on every rank.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import registry
 from repro_torch.core.policy import BF16, QuantPolicy
+from repro_torch.parallel.sharding import get_ctx
 
 from .config import ArchConfig
 from .layers import dense_init, swiglu, swiglu_init
@@ -56,9 +60,12 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, *, device, dtype=torch.float
 
 
 def _pick_groups(t: int) -> int:
-    """Dispatch group count: a small divisor of t (the reference matches a
-    mesh's data axis when one is active; there is none here)."""
-    return max(math.gcd(t, 16), 1)
+    """Dispatch group count: gcd(t, ep) on a serving mesh, so the group dim
+    splits evenly over the ep axis (1 on a tp-only mesh), else gcd(t, 16).
+    The group count sets the capacity, so on a mesh the drops are those of
+    the reference under the same mesh."""
+    mesh = get_ctx()
+    return max(math.gcd(t, mesh.ep if mesh is not None else 16), 1)
 
 
 def _group_dispatch(xg: torch.Tensor, topi: torch.Tensor, e: int, cap: int):
@@ -103,6 +110,62 @@ def _group_combine(h: torch.Tensor, slot_expert, slot_pos, keep, topw: torch.Ten
     return out
 
 
+def _expert_ffn(buf: torch.Tensor, we, gentry) -> torch.Tensor:
+    """The packed expert FFN: buf (G, e, cap, d) -> hout (G, e, cap, d).
+
+    On one rank the banks are whole: one grouped launch per bank over the
+    per-expert (e, G*cap, d) rows.  On a serving mesh ``shard_params`` may
+    have split the trio into this rank's E/ep x K/tp tiles; buf and hout
+    are then replicated on every rank.  Under tp > 1 this rank takes buf's
+    d/tp columns; gate and up reduce-scatter their partials over f (K8),
+    silu * mul runs on the f/tp tile, which is exactly down's K slice, and
+    down reduce-scatters back over d; nothing is gathered inside the chain,
+    and the d/tp tiles are gathered at the end.  Tokens reach the experts
+    by one of:
+      * ep > 1 and G % ep == 0: this rank's G/ep groups go to the experts'
+        ranks by the all-to-all dispatch and come back by the combine (the
+        reference's tiled all-to-alls), then the groups are gathered;
+      * ep > 1 otherwise (decode: fewer groups than ranks): every rank
+        computes its own experts' slots of the replicated buffer and one
+        all-gather over ep rebuilds the expert dim;
+      * ep == 1: every rank computes all experts (on its K slice)."""
+    from repro_torch.parallel.collectives import (all_gather_first, all_gather_last, combine_from_expert_shards,
+                                                  dispatch_to_expert_shards)
+
+    g, e, cap, d = buf.shape
+    ep, tp = we["gate"].e_shards, we["gate"].k_shards
+    mesh = get_ctx()
+    if (ep > 1 or tp > 1) and (mesh is None or (ep > 1 and ep != mesh.ep) or (tp > 1 and tp != mesh.tp)):
+        raise ValueError(f"MoE bank tiles split over ({ep}, {tp}) run only inside sharding_ctx of a mesh "
+                         f"with those axes")
+    le, dl = e // ep, d // tp
+
+    def mm(x, bank):
+        if tp > 1:
+            return gentry.kshard_grouped_matmul_kernel(x, bank, mesh.tp_group)
+        return gentry.grouped_matmul_kernel(x, bank)
+
+    def local_ffn(xe):  # (le, M, dl) -> (le, M, dl)
+        hg = mm(xe, we["gate"])
+        h = hg * torch.sigmoid(hg) * mm(xe, we["up"])
+        return mm(h, we["down"])
+
+    bl = buf[..., mesh.model_index * dl:(mesh.model_index + 1) * dl] if tp > 1 else buf
+    if ep == 1:
+        ho = local_ffn(bl.permute(1, 0, 2, 3).reshape(e, g * cap, dl)).reshape(e, g, cap, dl).permute(1, 0, 2, 3)
+    elif g % ep == 0:
+        gl, i = g // ep, mesh.data_index
+        x = dispatch_to_expert_shards(bl[i * gl:(i + 1) * gl], mesh.ep_group)  # (g, le, cap, dl)
+        ho = local_ffn(x.permute(1, 0, 2, 3).reshape(le, g * cap, dl))
+        ho = combine_from_expert_shards(ho.reshape(le, g, cap, dl).permute(1, 0, 2, 3), mesh.ep_group)
+        ho = all_gather_first(ho, mesh.ep_group)  # (g, e, cap, dl)
+    else:
+        i = mesh.data_index
+        ho = local_ffn(bl[:, i * le:(i + 1) * le].permute(1, 0, 2, 3).reshape(le, g * cap, dl))
+        ho = all_gather_first(ho.reshape(le, g, cap, dl), mesh.ep_group).permute(1, 0, 2, 3)  # (g, e, cap, dl)
+    return all_gather_last(ho, mesh.tp_group) if tp > 1 else ho
+
+
 def moe_forward(x: torch.Tensor, p, cfg: ArchConfig, *,
                 quant: QuantPolicy = BF16) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y, aux_loss).  The router runs in f32 (the ``*router*``
@@ -139,15 +202,10 @@ def moe_forward(x: torch.Tensor, p, cfg: ArchConfig, *,
         raise ValueError(f"MoE expert bank mixes packed and dense weights: {kinds}")
     gentry = gentries["gate"]
     if gentry is not None:
-        grouped_mm = gentry.grouped_matmul_kernel
-        if grouped_mm is None:
+        if gentry.grouped_matmul_kernel is None:
             raise TypeError(f"format {gentry.name!r} packs stacked banks but registered no "
                             f"grouped_matmul_kernel; cannot run the packed expert einsum")
-        # (G, e, cap, d) -> per-expert (e, G*cap, d) rows, one grouped launch each
-        xe = buf.permute(1, 0, 2, 3).reshape(e, g * cap, d)
-        hg = grouped_mm(xe, we["gate"])
-        h = hg * torch.sigmoid(hg) * grouped_mm(xe, we["up"])
-        hout = grouped_mm(h, we["down"]).reshape(e, g, cap, d).permute(1, 0, 2, 3)
+        hout = _expert_ffn(buf, we, gentry)
     else:
         wspec = quant.weight
         if wspec.quantizes and wspec.mode == "fakequant":

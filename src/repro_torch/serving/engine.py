@@ -12,10 +12,18 @@ Two serving modes:
     (``serving.pagepool``), with the prefix cache on by default
     (``serving.prefixcache``) and optional self-speculative decoding
     (``serving.speculative``).
+
+``Engine(..., mesh=)`` serves on an (ep, tp) serving mesh
+(``launch.mesh.make_serving_mesh``): every rank runs the same loop on the
+same requests, holds this rank's shards of the packed weights
+(``parallel.sharding.shard_params``) and runs every forward inside
+``sharding_ctx(mesh)``; activations, the KV cache and the host-side
+scheduling are replicated, so every rank produces the same tokens.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -27,6 +35,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
 from repro_torch.obs import percentile
+from repro_torch.parallel.sharding import shard_params, sharding_ctx
 
 __all__ = ["ServeConfig", "Engine", "ServeReport", "pack_model_weights"]
 
@@ -91,13 +100,29 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _on_mesh(method):
+    """Run an engine method inside ``sharding_ctx`` of the engine's mesh."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with sharding_ctx(self.mesh):
+            return method(self, *args, **kwargs)
+
+    return run
+
+
 class Engine:
     """``Engine(params, cfg, ServeConfig(...))`` packs ``params`` under the
     policy once and serves ``generate`` and ``serve`` on ``device`` (the GPU
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``; on a ``mesh``, the mesh's
+    device).  With ``mesh`` it keeps this rank's shards of the packed
+    weights; the dense tree kept for the speculative draft stays whole."""
 
-    def __init__(self, params, cfg: ArchConfig, serve_cfg: ServeConfig, *, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, params, cfg: ArchConfig, serve_cfg: ServeConfig, *, device=None, mesh=None):
+        if mesh is not None and device is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device or "cuda")
+        self.mesh = mesh
         self.cfg = cfg
         self.scfg = serve_cfg
         self.policy = serve_cfg.quant
@@ -108,6 +133,8 @@ class Engine:
         self._raw_params = params
         if self.policy.mode == "packed":
             params = pack_model_weights(params, cfg, self.policy)
+        if mesh is not None:
+            params = shard_params(params, mesh)
         params = dict(params)
         # the tables are only ever read in the compute dtype (embed casts,
         # unembed casts to x's dtype), so cast them once
@@ -135,6 +162,7 @@ class Engine:
                 raise ValueError(f"prompt {i} ({len(p)} tokens) + max_new_tokens ({n_new}) exceeds "
                                  f"ServeConfig.max_len ({self.scfg.max_len})")
 
+    @_on_mesh
     @torch.no_grad()
     def _bucketed_prefill(self, toks: np.ndarray, lens: np.ndarray, *, max_len: int, qdq_kv: bool):
         """Prefill a batch already padded to its bucket -> (last logits, bf16 caches)."""
@@ -153,10 +181,12 @@ class Engine:
             out.append({"k_codes": kc, "k_meta": km, "v_codes": vc, "v_meta": vm})
         return out
 
+    @_on_mesh
     @torch.no_grad()
     def _decode_step(self, tok: torch.Tensor, caches, cur: torch.Tensor):
         return tf.decode_step(self.params, tok, caches, cur, self.cfg, self.policy)
 
+    @_on_mesh
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens: Optional[int] = None) -> List[List[int]]:
         """Greedy-decode a batch of token prompts; ``stats`` then holds the
@@ -263,6 +293,7 @@ class Engine:
                 next_rid += 1
         return reqs
 
+    @_on_mesh
     def serve(self, requests, *, sched_cfg=None, pool_cfg=None, max_new_tokens: Optional[int] = None,
               prefix_cache: bool = True, speculate_k: int = 0, draft_policy=None, clock=None,
               trace=None) -> "ServeReport":

@@ -24,6 +24,12 @@ One iteration over the running slots::
 
 Rollback never erases wire bytes: positions >= cur_len never attend.  The
 scheduler reserves ``len(prompt) + max_new + k`` tokens of pages per request.
+
+On a serving mesh the draft params are built from the engine's whole dense
+tree and are never sharded, so the draft runs replicated on every rank; the
+verify pass runs the engine's sharded params.  Both run inside the engine's
+``sharding_ctx`` (``Engine.serve``), so an MoE draft picks its dispatch
+groups from the mesh, as the reference's draft does.
 """
 from __future__ import annotations
 

@@ -14,9 +14,9 @@ import torch
 from repro_torch.core.packing import pack_stacked_weights, pack_weight
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
-from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda
+from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
 from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
-from repro_torch.kernels.razer_matmul import razer_matmul_cuda
+from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
 from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 from repro_torch.serving.kvcache import kv_quantize
 
@@ -184,3 +184,59 @@ def test_cuda_grouped_row_bit_identical_across_m(cuda_device):
             for m in (1, 4, 8, 24, 48)]
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+
+
+def _unchunk(y):
+    """(c, ..., N/c) chunk-major -> (..., N)."""
+    return y.movedim(0, -2).reshape(*y.shape[1:-1], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,m", [(1536, 8192, 4), (4096, 3072, 128), (768, 512, 13)])
+@pytest.mark.parametrize("chunks", [1, 2, 4])
+def test_cuda_kshard_matmul_is_k1_permuted_bitwise(cuda_device, k, n, m, chunks):
+    """K7 on a local shard: chunk r holds K1's columns [r N/c, (r+1) N/c)
+    bit for bit (at c = 1, K1 itself), and within K1's tolerance of the
+    plain version."""
+    from repro_torch.core.packing import take_shard
+
+    g = torch.Generator(device=cuda_device).manual_seed(k + n + m)
+    whole = pack_weight(torch.randn((2 * k, n), generator=g, device=cuda_device) / (2 * k) ** 0.5)
+    pw = take_shard(whole, tp=2, tp_index=1)
+    x = torch.randn((m, k), generator=g, device=cuda_device).to(torch.bfloat16)
+    m0, m1 = pw.sv_magnitudes
+    got = razer_matmul_kshard_cuda(x, pw.codes, pw.scale_meta, m0=m0, m1=m1, out_chunks=chunks)
+    one = razer_matmul_cuda(x, pw.codes, pw.scale_meta, m0=m0, m1=m1)
+    assert got.shape == (chunks, m, n // chunks) and torch.equal(_unchunk(got), one)
+    want = ref.razer_matmul_ref(x, pw)
+    bound = 1e-5 * (x.float().abs() @ pw.dequantize().abs()) + 1e-6
+    assert bool(((_unchunk(got) * pw.tensor_scale - want).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_cuda_kshard_matmul_refuses_local_k_off_the_k_step(cuda_device):
+    """K = 96 over tp 2 is eligible by the reference's rule (whole 16-blocks)
+    but leaves a local K of 48, off the kernel's 64-deep K step: a clear
+    error, never the plain version."""
+    from repro_torch.core.packing import take_shard
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    local = take_shard(pack_weight(torch.randn((96, 64), generator=g, device=cuda_device)), tp=2, tp_index=0)
+    x = torch.zeros((2, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="local K of this rank's shard is 48"):
+        razer_matmul_kshard_cuda(x, local.codes, local.scale_meta, m0=5.0, m1=8.0, out_chunks=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k,n,m", [(8, 1536, 2688, 4), (16, 1024, 768, 48)])
+@pytest.mark.parametrize("chunks", [1, 2])
+def test_cuda_kshard_grouped_matmul_is_k6_permuted_bitwise(cuda_device, e, k, n, m, chunks):
+    pst, g = _bank(cuda_device, e, k, n, seed=e + k)
+    x = torch.randn((e, m, k), generator=g, device=cuda_device).to(torch.bfloat16)
+    m0, m1 = pst.sv_magnitudes
+    got = razer_grouped_matmul_kshard_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1, out_chunks=chunks)
+    six = razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1)
+    assert got.shape == (chunks, e, m, n // chunks) and torch.equal(_unchunk(got), six)
+    want = ref.razer_grouped_matmul_ref(x, pst)
+    bound = 1e-5 * torch.einsum("emk,ekn->emn", x.float().abs(), pst.dequantize().abs()) + 1e-6
+    assert bool(((_unchunk(got) * pst.tensor_scale[:, None, None] - want).abs() <= bound).all())
