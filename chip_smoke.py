@@ -57,13 +57,17 @@ Phases, each printing one line (and failing the run with a traceback):
                 at the no-drop n_experts / topk (logits asserted).
 Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
 (dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
-shard, permuted, bit for bit; rows bit-identical across M.
+shard, permuted, bit for bit; rows bit-identical across M.  Each packed-GEMM
+timing row (K1, K6, K7, K8) also carries the kernels' own device time per
+launch from a torch.profiler pass over the same loop, beside the CUDA-event
+time, which at decode sizes is the host's issue rate.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
@@ -77,6 +81,22 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
+
+
+def _ptxas_report(log: str):
+    """nvcc -Xptxas -v output -> {kernel: "registers ..., spill ..."}, one
+    entry per compiled kernel (static shared memory is in the register
+    line when a kernel has any)."""
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            out[name] = f"{line.split(':', 1)[-1].strip()}; {spill}"
+            name, spill = None, ""
+    return out
 
 
 def _require_cuda() -> str:
@@ -100,6 +120,42 @@ def _cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(run, tag: str, reps: int = 3):
+    """Device time of the kernels whose profiler name holds ``tag`` (a
+    packed GEMM's instantiation, e.g. ``gemm_kernel<K1,``) over ``reps``
+    runs of ``run()`` after a warm-up, from torch.profiler: (total ms,
+    launches) per run.  CUDA events around a loop of small launches measure
+    the host's issue rate as much as the kernel; this is the kernels' own
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and tag in e.key]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    launches = sum(e.count for e in events)
+    if not launches:
+        raise RuntimeError(f"the profiler recorded no kernel named like {tag!r}")
+    return total / reps, launches / reps
+
+
+def _with_device_time(row, run, tag, launches_per_unit: int):
+    """Adds the profiler's device time to a timing row: ``device_ms_per_launch``
+    and ``device_ms`` per timed unit (``launches_per_unit`` launches: the
+    per-launch time times that count, so an event the profiler drops does
+    not shrink it); ``profiled_launches_per_run`` says how many it kept."""
+    total, launches = _device_ms(run, tag)
+    per_launch = total / launches
+    row.update({"device_ms": per_launch * launches_per_unit, "device_ms_per_launch": per_launch,
+                "profiled_launches_per_run": launches})
+    return row
 
 
 def _bound_ms(nbytes: float, flops: float):
@@ -245,47 +301,47 @@ def _check_matmul(cfg, dev, gen, detail):
         nbytes = sum(m * k * 2 + k * n // 2 + k * n // 16 + m * n * 4 for _, k, n in shapes)
         flops = sum(2 * m * k * n for _, k, n in shapes)
         bound, by = _bound_ms(nbytes, flops)
-        out[m] = {"ms": _cuda_ms(kernel_all, reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
-                  "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by}
+        out[m] = _with_device_time(
+            {"ms": _cuda_ms(kernel_all, reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
+             "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by},
+            kernel_all, "gemm_kernel<K1,", 7)
         detail[f"razer_matmul_layer_M{m}"] = out[m]
     return max_err, out[4]
 
 
 def _split_k_cost(cfg, dev, gen, detail, m: int = 128):
     """What choosing K1's split-K from (N, K) alone costs at prefill: one
-    layer's 7 linears at M = 128 with the (N, K) splits against one split
-    each (what a choice from M gives at this size, but for wk/wv's 3), same
-    inputs, timed in turns (new, old, old, new) within this call."""
-    import ctypes
-
+    layer's 7 linears at M = 128 with the (N, K) splits (a cluster of blocks
+    summing its partial tiles through distributed shared memory) against one
+    split each (what a choice from M gives at this size), through the same C
+    entry point and token tile, same inputs, timed in turns (new, old, old,
+    new) within this call."""
     from repro_torch.core.packing import pack_weight
     from repro_torch.kernels import build
-    from repro_torch.kernels.razer_matmul import _ARGTYPES, _splits
+    from repro_torch.kernels.razer_matmul import _ARGTYPES, launch_plan
 
     fn = build.function("razer_matmul", "razer_matmul_launch", _ARGTYPES)
     calls = []
     for _, k, n in _linear_shapes(cfg):
         pw = pack_weight(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        splits, per = _splits(n, k)
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
-        partial = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-        calls.append((x, pw, out, partial, splits, per, k, n))
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        calls.append((x, pw, out, launch_plan(1, m, n, k), k, n))
+    stream = torch.cuda.current_stream().cuda_stream
 
     def layer(new: bool):
-        for x, pw, out, partial, splits, per, k, n in calls:
-            sp, pr = (splits, per) if new else (1, k // 64)
-            build.check(fn(x.data_ptr(), 1, pw.codes.data_ptr(), pw.scale_meta.data_ptr(), partial.data_ptr(),
-                           out.data_ptr(), m, k, n, sp, pr, pw.sv_magnitudes[0], pw.sv_magnitudes[1], stream),
-                        "razer_matmul")
+        for x, pw, out, plan, k, n in calls:
+            sp, pr = (plan.splits, plan.k_tiles_per_split) if new else (1, k // 64)
+            build.check(fn(x.data_ptr(), 1, pw.codes.data_ptr(), pw.scale_meta.data_ptr(), out.data_ptr(), m, k, n,
+                           plan.nt, sp, pr, pw.sv_magnitudes[0], pw.sv_magnitudes[1], stream), "razer_matmul")
 
     times = {"nk_splits": [], "one_split": []}
     for new in (True, False, False, True):
         times["nk_splits" if new else "one_split"].append(_cuda_ms(lambda: layer(new), reps=10))
-    extra = sum(2 * c[4] * m * c[7] * 4 for c in calls if c[4] > 1)  # partials written and read
+    # the partial tiles the split sums read through distributed shared memory
+    dsmem = sum(c[3].splits * m * c[5] * 4 for c in calls if c[3].splits > 1)
     out = {"M": m, "ms_nk_splits": times["nk_splits"], "ms_one_split": times["one_split"],
-           "splits": {f"{c[6]}x{c[7]}": c[4] for c in calls}, "extra_partial_bytes": extra}
+           "splits": {f"{c[4]}x{c[5]}": c[3].splits for c in calls}, "dsmem_partial_bytes": dsmem}
     detail["razer_matmul_split_k_cost_M128"] = out
     return out
 
@@ -516,7 +572,7 @@ def _check_grouped_matmul(dev, gen, detail, banks):
             lib += _cuda_ms(lambda: torch.bmm(xs[k], dense), reps=10)
             del dense
         row.update({"library_ms": lib, "bound_ms": bound, "bound_by": by})
-        out[m] = row
+        out[m] = _with_device_time(row, kernel_layer, "gemm_kernel<K6,", 3)
         detail[f"razer_grouped_matmul_moe_layer_M{m}"] = row
     return max_err, out[4]
 
@@ -593,9 +649,10 @@ def _check_kshard_matmul(cfg, dev, gen, detail, tp: int = 2):
         nbytes = sum(m * kl * 2 + kl * n // 2 + kl * n // 16 + m * n * 4 for kl, n in kls)
         flops = sum(2 * m * kl * n for kl, n in kls)
         bound, by = _bound_ms(nbytes, flops)
-        out[m] = {"ms": _cuda_ms(kernel_all, reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
-                  "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by,
-                  "tp": tp}
+        out[m] = _with_device_time(
+            {"ms": _cuda_ms(kernel_all, reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
+             "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by, "tp": tp},
+            kernel_all, "gemm_kernel<K7,", 7)
         detail[f"razer_matmul_kshard_layer_tp{tp}_M{m}"] = out[m]
     return max_err, out[4]
 
@@ -665,7 +722,7 @@ def _check_kshard_grouped(dev, gen, detail, banks):
         flops = sum(2 * le * m * t.shape[1] * t.shape[2] for _, t in calls)
         bound, by = _bound_ms(nbytes, flops)
         row.update({"library_ms": lib, "bound_ms": bound, "bound_by": by, "mesh": [ep, tp], "local_experts": le})
-        out[(ep, m)] = row
+        out[(ep, m)] = _with_device_time(row, lambda: [k8(x, t) for x, t in calls], "gemm_kernel<K8,", 3)
         detail[f"razer_grouped_matmul_kshard_moe_layer_ep{ep}_tp{tp}_M{m}"] = row
     return max_err, out[(1, 4)]
 
@@ -1465,10 +1522,15 @@ def main() -> int:
     detail = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     build_s = build.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for n, log in build.build_log.items()}
+    ptxas = {n: _ptxas_report(log) for n, log in build.build_log.items()}
     detail["build_s"], detail["ptxas"] = build_s, ptxas
     print(f"build: {build_s:.1f} s for {sorted(ptxas)}; ptxas: {json.dumps(ptxas)}")
+    tile_smem = build.function("razer_matmul", "razer_matmul_tile_smem", [ctypes.c_int])
+    from repro_torch.kernels.razer_matmul import TOKEN_TILES
+
+    detail["gemm_tile_dynamic_smem_bytes"] = {nt: tile_smem(nt) for nt in TOKEN_TILES}
+    print("packed GEMM tile (K1/K6/K7/K8), dynamic shared memory by token tile: "
+          + json.dumps(detail["gemm_tile_dynamic_smem_bytes"]))
 
     from repro_torch.configs import get_config
 
@@ -1540,7 +1602,8 @@ def main() -> int:
                 "launches": MAIN_PATH_LAUNCHES[name], "max_abs_err": checks[name][0],
                 "ms": checks[name][1]["ms"], "plain_ms": checks[name][1]["plain_ms"],
                 "bound_ms": checks[name][1]["bound_ms"], "bound_by": checks[name][1]["bound_by"],
-                "library_ms": checks[name][1]["library_ms"], "work": meta[name][2]}
+                "library_ms": checks[name][1]["library_ms"],
+                "device_ms_per_launch": checks[name][1].get("device_ms_per_launch"), "work": meta[name][2]}
                for name in meta]
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

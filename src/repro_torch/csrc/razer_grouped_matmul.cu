@@ -22,16 +22,16 @@
 // Design: a grouped K1, not a copy of the Pallas grid.  The TPU kernel runs
 // an (E, M/bm, N/bn, K/bk) grid in order on one core and carries each
 // tile's sum across the K steps in VMEM.  Here the grid is
-// (N/BN, ceil(M/BM), E * splits): blockIdx.z names the expert and its K
+// (N/BN, ceil(M/NT), E * splits): blockIdx.z names the expert and its K
 // split, each expert's x, codes and scale_meta are reached by expert
-// strides, and kernel and tile are K1's (razer_matmul_tile.cuh), with the
-// split count the Python wrapper takes from K1's (N, K) rule.  Partials
-// (splits, E, M, N) are summed in a fixed order, with no atomics.  So:
+// strides, and kernel and tile are K1's mixed-input wgmma GEMM
+// (razer_matmul_tile.cuh), with the split count the Python wrapper takes
+// from K1's (N, K) rule and the split sum in a fixed order inside the
+// launch.  So:
 //  (a) expert e returns K1's bits on bank entry e;
 //  (b) a row's bits do not move with M, so decode, padded serve slots,
 //      verify passes and prefill give a token the same expert output.
-// Skipping the all-zero capacity rows, mixed-input wgmma and TMA are later
-// work.
+// Skipping the all-zero capacity rows is later work.
 
 #include "razer_matmul_tile.cuh"
 
@@ -39,29 +39,26 @@ struct K6;  // names the grouped GEMM's kernel in a profile
 struct K8;  // names its K-shard form
 
 // x: (E, M, K) bf16 (x_is_bf16 = 1) or f32, contiguous; codes (E, K/2, N)
-// and scale_meta (E, K/16, N) uint8; out (E, M, N) f32.  With splits > 1,
-// partial holds (splits, E, M, N) f32 scratch.  K must be a multiple of 64
+// and scale_meta (E, K/16, N) uint8; out (E, M, N) f32.  nt, splits and
+// k_tiles_per_split as razer_matmul_launch's.  K must be a multiple of 64
 // and E * splits at most 65535.  Returns cudaGetLastError() after the
-// launches.
+// launch.
 extern "C" int razer_grouped_matmul_launch(const void* x, int x_is_bf16, const void* codes,
-                                           const void* scale_meta, void* partial, void* out, int E,
-                                           int M, int K, int N, int splits, int k_tiles_per_split,
-                                           float m0, float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K6>(
-      x, x_is_bf16, codes, scale_meta, partial, out, E, M, K, N, splits, k_tiles_per_split, 1, m0, m1,
-      static_cast<cudaStream_t>(stream)));
+                                           const void* scale_meta, void* out, int E, int M, int K, int N, int nt,
+                                           int splits, int k_tiles_per_split, float m0, float m1, void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K6>(x, x_is_bf16, codes, scale_meta, out, E, M, K, N, nt,
+                                                         splits, k_tiles_per_split, 1, m0, m1,
+                                                         static_cast<cudaStream_t>(stream)));
 }
 
-// K8: as razer_grouped_matmul_launch on this rank's bank tile, with out (and
-// each split of partial) stored as (out_chunks, E, M, N/out_chunks).  N must
-// be a multiple of out_chunks.  Returns cudaGetLastError() after the
-// launches.
+// K8: as razer_grouped_matmul_launch on this rank's bank tile, with out
+// stored as (out_chunks, E, M, N/out_chunks).  N must be a multiple of
+// out_chunks.  Returns cudaGetLastError() after the launch.
 extern "C" int razer_grouped_matmul_kshard_launch(const void* x, int x_is_bf16, const void* codes,
-                                                  const void* scale_meta, void* partial, void* out,
-                                                  int E, int M, int K, int N, int splits,
-                                                  int k_tiles_per_split, int out_chunks, float m0,
-                                                  float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K8>(
-      x, x_is_bf16, codes, scale_meta, partial, out, E, M, K, N, splits, k_tiles_per_split,
-      out_chunks, m0, m1, static_cast<cudaStream_t>(stream)));
+                                                  const void* scale_meta, void* out, int E, int M, int K, int N,
+                                                  int nt, int splits, int k_tiles_per_split, int out_chunks,
+                                                  float m0, float m1, void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K8>(x, x_is_bf16, codes, scale_meta, out, E, M, K, N, nt,
+                                                         splits, k_tiles_per_split, out_chunks, m0, m1,
+                                                         static_cast<cudaStream_t>(stream)));
 }

@@ -13,15 +13,17 @@
 // What bounds it on this card: at decode (M = batch, a handful of rows) every
 // weight byte is used M times, far below the ~295 operations per byte where
 // the H100 turns compute bound, so the kernel is bound by the 4.5-bit weight
-// bytes it streams from HBM.  At prefill (M = batch x bucket) it does
-// 2*M*K*N operations on SIMT FMA units.
+// bytes it streams from HBM, and by the integer work of decoding them.  At
+// prefill (M = batch x bucket) it does 2*M*K*N operations, on the tensor
+// cores, and each block re-reads its x tile from L2.
 //
-// Design: the tile decode and FMA loop, the kernel and its launch are in
-// razer_matmul_tile.cuh, shared with the grouped GEMM (K6): this is its
-// one-expert case.  Decode-sized M gives too few output tiles to
-// fill 132 SMs, so K is split over gridDim.z; each split writes its partial
-// tile and a second kernel sums the splits in a fixed order (deterministic,
-// no atomics).  wgmma, TMA and a pipelined ring of tiles are later work.
+// Design: the tile, kernel and launch are razer_matmul_tile.cuh's mixed-input
+// wgmma GEMM (swap-AB: decoded weights as A in registers, x as B in shared
+// memory, a cp.async ring of wire bytes), shared with the grouped GEMM (K6):
+// this is its one-expert case.  Decode-sized M gives too few output tiles
+// to fill 132 SMs, so K is split (from (N, K) alone) over the blocks of a
+// cluster, which sum their partial tiles in a fixed order through
+// distributed shared memory: one launch, deterministic, no atomics.
 
 #include "razer_matmul_tile.cuh"
 
@@ -29,28 +31,32 @@ struct K1;  // names the dense GEMM's kernel in a profile
 struct K7;  // names its K-shard form
 
 // x: (M, K) bf16 (x_is_bf16 = 1) or f32, row-major; codes (K/2, N) and
-// scale_meta (K/16, N) uint8; out (M, N) f32.  With splits > 1, partial
-// holds (splits, M, N) f32 scratch.  K must be a multiple of 64.  The
-// grouped launch with one expert.
-// Returns cudaGetLastError() after the launches.
-extern "C" int razer_matmul_launch(const void* x, int x_is_bf16, const void* codes,
-                                   const void* scale_meta, void* partial, void* out, int M,
-                                   int K, int N, int splits, int k_tiles_per_split, float m0,
-                                   float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K1>(
-      x, x_is_bf16, codes, scale_meta, partial, out, 1, M, K, N, splits, k_tiles_per_split, 1, m0, m1,
-      static_cast<cudaStream_t>(stream)));
+// scale_meta (K/16, N) uint8; out (M, N) f32.  nt is the token tile, splits
+// and k_tiles_per_split the K split (razer_matmul.py's launch_plan); K must
+// be a multiple of 64.  The grouped launch with one expert.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int razer_matmul_launch(const void* x, int x_is_bf16, const void* codes, const void* scale_meta,
+                                   void* out, int M, int K, int N, int nt, int splits, int k_tiles_per_split,
+                                   float m0, float m1, void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K1>(x, x_is_bf16, codes, scale_meta, out, 1, M, K, N, nt,
+                                                         splits, k_tiles_per_split, 1, m0, m1,
+                                                         static_cast<cudaStream_t>(stream)));
 }
 
 // K7: as razer_matmul_launch on this rank's (K_local/2, N) shard, with out
-// (and each split of partial) stored as (out_chunks, M, N/out_chunks): the
-// N/out_chunks columns of rank r at out[r].  N must be a multiple of
-// out_chunks.  Returns cudaGetLastError() after the launches.
+// stored as (out_chunks, M, N/out_chunks): the N/out_chunks columns of rank r
+// at out[r].  N must be a multiple of out_chunks.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int razer_matmul_kshard_launch(const void* x, int x_is_bf16, const void* codes,
-                                          const void* scale_meta, void* partial, void* out, int M,
-                                          int K, int N, int splits, int k_tiles_per_split,
-                                          int out_chunks, float m0, float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K7>(
-      x, x_is_bf16, codes, scale_meta, partial, out, 1, M, K, N, splits, k_tiles_per_split,
-      out_chunks, m0, m1, static_cast<cudaStream_t>(stream)));
+                                          const void* scale_meta, void* out, int M, int K, int N, int nt,
+                                          int splits, int k_tiles_per_split, int out_chunks, float m0, float m1,
+                                          void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K7>(x, x_is_bf16, codes, scale_meta, out, 1, M, K, N, nt,
+                                                         splits, k_tiles_per_split, out_chunks, m0, m1,
+                                                         static_cast<cudaStream_t>(stream)));
 }
+
+// Dynamic shared memory (bytes) of the tile's block for token tile nt (0 if
+// nt is not one the kernel is built for): what a build report prints beside
+// ptxas's registers.
+extern "C" int razer_matmul_tile_smem(int nt) { return razer_tile::tile_smem(nt); }

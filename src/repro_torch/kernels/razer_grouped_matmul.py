@@ -13,18 +13,18 @@ import ctypes
 import torch
 
 from . import build
-from .razer_matmul import BK, _splits
+from .razer_matmul import BK, launch_plan
 from .ref import razer_grouped_matmul_ref as plain
 
 __all__ = ["razer_grouped_matmul_cuda", "razer_grouped_matmul_kshard_cuda", "plain"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
-_KSHARD_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_KSHARD_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 
 
 def _check(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, what: str, k_shards: int = 1):
-    """Validate a K6/K8 call; returns (E, M, K, N, splits, k tiles per split)."""
+    """Validate a K6/K8 call; returns (E, M, K, N)."""
     if not (x.is_cuda and codes.is_cuda and scale_meta.is_cuda):
         raise ValueError(f"{what} takes CUDA tensors; kernels.ops routes CPU tensors to the plain version")
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 3 or not x.is_contiguous():
@@ -42,27 +42,24 @@ def _check(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, what:
                          f"K % {BK} == 0")
     if not (codes.is_contiguous() and scale_meta.is_contiguous()):
         raise ValueError("codes and scale_meta must be contiguous")
-    splits, per = _splits(n, k)
-    if e * splits > 65535:
-        raise ValueError(f"{e} experts x {splits} K splits exceed the grid's z limit of 65535")
-    return e, m, k, n, splits, per
+    return e, m, k, n
 
 
 def razer_grouped_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, *,
                               m0: float, m1: float) -> torch.Tensor:
     """x (E, M, K) bf16 or f32 @ the packed (E, K, N) bank -> (E, M, N) f32,
     without the per-expert tensor scale.  The K split count is K1's
-    (``razer_matmul._splits``, from (N, K) alone), so expert e returns K1's
+    (``razer_matmul.launch_plan``, from (N, K) alone), so expert e returns K1's
     bits on entry e and a row's bits do not depend on M."""
-    e, m, k, n, splits, per = _check(x, codes, scale_meta, "razer_grouped_matmul_cuda")
+    e, m, k, n = _check(x, codes, scale_meta, "razer_grouped_matmul_cuda")
     out = torch.empty((e, m, n), dtype=torch.float32, device=x.device)
     if m == 0 or e == 0:
         return out
-    partial = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
+    plan = launch_plan(e, m, n, k)
     fn = build.function("razer_grouped_matmul", "razer_grouped_matmul_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale_meta.data_ptr(),
-                    partial.data_ptr(), out.data_ptr(), e, m, k, n, splits, per, float(m0), float(m1),
+                    out.data_ptr(), e, m, k, n, plan.nt, plan.splits, plan.k_tiles_per_split, float(m0), float(m1),
                     torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_grouped_matmul")
     razer_grouped_matmul_cuda.launches += 1
@@ -78,17 +75,17 @@ def razer_grouped_matmul_kshard_cuda(x: torch.Tensor, codes: torch.Tensor, scale
     bank tile -> its full-N f32 partial, without the per-expert tensor
     scale, laid out for the reduce-scatter as (out_chunks, E_local, M,
     N/out_chunks).  Bit for bit K6's output on the same tile, permuted."""
-    e, m, k, n, splits, per = _check(x, codes, scale_meta, "razer_grouped_matmul_kshard_cuda", out_chunks)
+    e, m, k, n = _check(x, codes, scale_meta, "razer_grouped_matmul_kshard_cuda", out_chunks)
     if out_chunks <= 0 or n % out_chunks:
         raise ValueError(f"N {n} does not split into {out_chunks} output chunks")
     out = torch.empty((out_chunks, e, m, n // out_chunks), dtype=torch.float32, device=x.device)
     if m == 0 or e == 0:
         return out
-    partial = torch.empty((splits, e, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
+    plan = launch_plan(e, m, n, k)
     fn = build.function("razer_grouped_matmul", "razer_grouped_matmul_kshard_launch", _KSHARD_ARGTYPES)
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale_meta.data_ptr(),
-                    partial.data_ptr(), out.data_ptr(), e, m, k, n, splits, per, out_chunks, float(m0),
+                    out.data_ptr(), e, m, k, n, plan.nt, plan.splits, plan.k_tiles_per_split, out_chunks, float(m0),
                     float(m1), torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_grouped_matmul_kshard")
     razer_grouped_matmul_kshard_cuda.launches += 1

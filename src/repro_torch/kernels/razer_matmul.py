@@ -8,37 +8,67 @@ only; ``kernels.ops`` sends CPU tensors to ``plain`` instead.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from . import build
 from .ref import razer_matmul_ref as plain
 
-__all__ = ["razer_matmul_cuda", "razer_matmul_kshard_cuda", "plain", "BK"]
+__all__ = ["razer_matmul_cuda", "razer_matmul_kshard_cuda", "plain", "BK", "BN", "MAX_SPLITS", "LaunchPlan",
+           "launch_plan"]
 
 BK = 64  # K step of the kernel; K must be a multiple of it
-_BN = 64
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
-_KSHARD_ARGTYPES = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
-
-
+BN = 128  # columns of N per block: the CUDA tile's BN (razer_matmul_tile.cuh), which this copy must equal
+MAX_SPLITS = 8  # K splits = blocks of one thread-block cluster: the portable cluster size
+TOKEN_TILES = (8, 16, 24, 32, 48, 64, 96, 128)  # the instruction widths n the kernel is built for
+GRID_Z = 65535  # CUDA's limit on gridDim.z (E x splits) and gridDim.y (token tiles)
 # blocks the split-K grid aims for at decode-sized M: two per SM of an H100
 # SXM (132 SMs).  A constant, not the card's SM count, so that the split
 # boundaries -- and with them every output bit -- depend on (N, K) alone.
 _TARGET_BLOCKS = 2 * 132
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_KSHARD_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 
 
-def _splits(n: int, k: int):
-    """(splits, k_tiles_per_split) from the weight's shape alone: split K
-    until N's column tiles fill about ``_TARGET_BLOCKS`` blocks, with no
-    empty split.  The row count M never enters, so one activation row sums
-    its K in the same grouping whatever the batch (decode, padded serve
-    slots, a verify pass, prefill), and its output is bit for bit the same."""
+class LaunchPlan(NamedTuple):
+    """The geometry of one K1/K6/K7/K8 launch.  ``bn``, ``splits``,
+    ``k_tiles_per_split`` and ``cluster`` come from (N, K) alone; only the
+    token tile ``nt`` and the grid's y and z follow M and E, and they do not
+    change which K steps an output sums or in what order.  The split sum
+    runs through the cluster's distributed shared memory, so a launch needs
+    no workspace."""
+
+    nt: int  # tokens per block: the wgmma instruction's n
+    bn: int  # columns of N per block
+    splits: int  # K splits per output tile
+    k_tiles_per_split: int  # BK-deep steps per split (the last may have fewer)
+    cluster: int  # blocks per thread-block cluster: a tile's splits (1: no cluster)
+    grid: Tuple[int, int, int]  # (column tiles, token tiles, E x splits)
+
+
+def launch_plan(e: int, m: int, n: int, k: int) -> LaunchPlan:
+    """Launch geometry of a packed GEMM of E experts, x (E, M, K) @ (E, K, N).
+
+    K is split until N's column tiles fill about ``_TARGET_BLOCKS`` blocks, at
+    most ``MAX_SPLITS`` ways (a split's blocks form one cluster), with no
+    empty split.  The row count M never enters the split, so one activation
+    row sums its K in the same grouping whatever the batch (decode, padded
+    serve slots, a verify pass, prefill), and its output is bit for bit the
+    same; the token tile is the smallest instruction width that holds M (128
+    tokens per block beyond that)."""
+    if k < BK or k % BK or n < 1 or m < 1 or e < 1:
+        raise ValueError(f"no packed GEMM launch for E {e}, M {m}, N {n}, K {k} (K a positive multiple of {BK})")
     k_tiles = k // BK
-    want = min(max(1, -(-_TARGET_BLOCKS // -(-n // _BN))), k_tiles)
+    want = min(max(1, -(-_TARGET_BLOCKS // -(-n // BN))), k_tiles, MAX_SPLITS)
     per = -(-k_tiles // want)
-    return -(-k_tiles // per), per
+    splits = -(-k_tiles // per)
+    nt = next((t for t in TOKEN_TILES if m <= t), TOKEN_TILES[-1])
+    grid = (-(-n // BN), -(-m // nt), e * splits)
+    if grid[1] > GRID_Z or grid[2] > GRID_Z:
+        raise ValueError(f"{e} experts x {splits} K splits, {grid[1]} token tiles: past the grid's limit of {GRID_Z}")
+    return LaunchPlan(nt, BN, splits, per, splits if splits > 1 else 1, grid)
 
 
 def _check(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, what: str, k_shards: int = 1):
@@ -70,13 +100,12 @@ def razer_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Te
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    splits, per = _splits(n, k)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
+    plan = launch_plan(1, m, n, k)
     fn = build.function("razer_matmul", "razer_matmul_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-                    scale_meta.data_ptr(), partial.data_ptr(), out.data_ptr(), m, k, n, splits,
-                    per, float(m0), float(m1), torch.cuda.current_stream().cuda_stream)
+        status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale_meta.data_ptr(),
+                    out.data_ptr(), m, k, n, plan.nt, plan.splits, plan.k_tiles_per_split, float(m0), float(m1),
+                    torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_matmul")
     razer_matmul_cuda.launches += 1
     return out
@@ -98,13 +127,12 @@ def razer_matmul_kshard_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: t
     out = torch.empty((out_chunks, m, n // out_chunks), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    splits, per = _splits(n, k)
-    partial = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) if splits > 1 else out
+    plan = launch_plan(1, m, n, k)
     fn = build.function("razer_matmul", "razer_matmul_kshard_launch", _KSHARD_ARGTYPES)
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
-                    scale_meta.data_ptr(), partial.data_ptr(), out.data_ptr(), m, k, n, splits,
-                    per, out_chunks, float(m0), float(m1), torch.cuda.current_stream().cuda_stream)
+        status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale_meta.data_ptr(),
+                    out.data_ptr(), m, k, n, plan.nt, plan.splits, plan.k_tiles_per_split, out_chunks, float(m0),
+                    float(m1), torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_matmul_kshard")
     razer_matmul_kshard_cuda.launches += 1
     return out

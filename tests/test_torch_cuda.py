@@ -240,3 +240,83 @@ def test_cuda_kshard_grouped_matmul_is_k6_permuted_bitwise(cuda_device, e, k, n,
     want = ref.razer_grouped_matmul_ref(x, pst)
     bound = 1e-5 * torch.einsum("emk,ekn->emn", x.float().abs(), pst.dequantize().abs()) + 1e-6
     assert bool(((_unchunk(got) * pst.tensor_scale[:, None, None] - want).abs() <= bound).all())
+
+
+# The tile's edges: token tiles of 8 ... 128 and several of them (M 129,
+# 257), column tiles cut by N (208: the 16-byte copies; 200: byte loads), one
+# K split and several (a cluster summing in order), f32 x, an all-zero
+# expert, out_chunks 2 and 4.
+_EDGE_M = [1, 7, 8, 9, 64, 65, 129, 257]
+_EDGE_KN = [(512, 192), (64, 200), (1024, 208), (640, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", _EDGE_KN)
+def test_cuda_matmul_tile_edges_match_plain(cuda_device, k, n):
+    """K1 within 1e-5 * (|x| @ |w|) + 1e-6 of its plain version at every
+    edge M, and each row bit for bit the same at every M."""
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    pw = pack_weight(torch.randn((k, n), generator=g, device=cuda_device) / k**0.5)
+    x = torch.randn((max(_EDGE_M), k), generator=g, device=cuda_device).to(torch.bfloat16)
+    dense_abs = pw.dequantize().abs()
+    m0, m1 = pw.sv_magnitudes
+    first = None
+    for m in _EDGE_M:
+        xm = x[:m].contiguous()
+        raw = razer_matmul_cuda(xm, pw.codes, pw.scale_meta, m0=m0, m1=m1)
+        bound = 1e-5 * (xm.float().abs() @ dense_abs) + 1e-6
+        assert bool(((raw * pw.tensor_scale - ref.razer_matmul_ref(xm, pw)).abs() <= bound).all()), f"M={m}"
+        first = raw[:1] if first is None else first
+        assert torch.equal(raw[:1], first), f"row 0 moves at M={m}"
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_splits_one_and_many(cuda_device):
+    """The edge shapes cover a single K split and cluster sums of 5 and 8."""
+    from repro_torch.kernels.razer_matmul import launch_plan
+
+    assert sorted({launch_plan(1, 4, n, k).splits for k, n in _EDGE_KN}) == [1, 5, 8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 9, 129])
+def test_cuda_matmul_f32_x_equals_bf16_x_bitwise(cuda_device, m):
+    """f32 x is rounded to bf16 (RN) as it is loaded: the same bits as the
+    bf16 input."""
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    pw = pack_weight(torch.randn((1024, 208), generator=g, device=cuda_device))
+    x = torch.randn((m, 1024), generator=g, device=cuda_device)
+    m0, m1 = pw.sv_magnitudes
+    want = razer_matmul_cuda(x.to(torch.bfloat16), pw.codes, pw.scale_meta, m0=m0, m1=m1)
+    assert torch.equal(razer_matmul_cuda(x, pw.codes, pw.scale_meta, m0=m0, m1=m1), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 65])
+def test_cuda_grouped_edges_and_zero_expert(cuda_device, m):
+    """K6 at edge M within the plain version's tolerance; expert e == K1 on
+    entry e bit for bit; an expert whose x rows are all zero returns +0.0."""
+    pst, g = _bank(cuda_device, 3, 640, 200, seed=m)
+    x = torch.randn((3, m, 640), generator=g, device=cuda_device).to(torch.bfloat16)
+    x[1] = 0
+    m0, m1 = pst.sv_magnitudes
+    raw = razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1)
+    assert torch.equal(raw[1].view(torch.int32), torch.zeros_like(raw[1]).view(torch.int32))
+    want = ref.razer_grouped_matmul_ref(x, pst)
+    bound = 1e-5 * torch.einsum("emk,ekn->emn", x.float().abs(), pst.dequantize().abs()) + 1e-6
+    assert bool(((raw * pst.tensor_scale[:, None, None] - want).abs() <= bound).all())
+    for e in range(3):
+        pw = pst[e]
+        assert torch.equal(raw[e], razer_matmul_cuda(x[e], pw.codes, pw.scale_meta, m0=m0, m1=m1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [2, 4])
+def test_cuda_kshard_grouped_chunks_at_edge_m(cuda_device, chunks):
+    """K8 with out_chunks 2 and 4 at M 9 and 129: K6 permuted, bit for bit."""
+    pst, g = _bank(cuda_device, 2, 512, 208, seed=chunks)
+    m0, m1 = pst.sv_magnitudes
+    for m in (9, 129):
+        x = torch.randn((2, m, 512), generator=g, device=cuda_device).to(torch.bfloat16)
+        got = razer_grouped_matmul_kshard_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1, out_chunks=chunks)
+        assert torch.equal(_unchunk(got), razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1))
