@@ -11,7 +11,10 @@ Phases, each printing one line (and failing the run with a traceback):
                 times, and the bit-identities the serving invariants rest on:
                 K1's rows across batch sizes, K4 == K3 on a contiguous page
                 table, K5's query t == K4 at cur_len + t + 1, K6's expert e ==
-                K1 on bank entry e, K6's rows across batch sizes;
+                K1 on bank entry e, K6's rows across batch sizes; K3, K4 and
+                K5 also at B 16 x 4096 (one sequence at 4001) and B 1 x
+                32768 with llama heads: plain versions, K4 == K3, K5 == K4
+                and a sequence's output alone == inside the batch;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
@@ -25,6 +28,11 @@ Phases, each printing one line (and failing the run with a traceback):
                 tokens/s, TTFT, decode ms per step, the pool and cache stats,
                 the accept rate, the share of requests whose tokens equal
                 generate's (and vanilla serve's), and the device idle share;
+  4e. long   -- the llama W4 + KV engine at max_len 4096: generate of 4
+                prompts of 1024-3968 random tokens and serve of 8 such
+                requests over 4 slots, 32 new tokens each, exact launch
+                counts, decode ms per step, per-step device ms, idle share
+                and decode-attention share, and the serve == generate share;
   4d. dbrx   -- dbrx_132b at full width (d_model 6144, 48/8 heads, 16
                 experts top-4, expert d_ff 10752, capacity factor 1.25, vocab
                 100352; the one cut: 2 of 40 layers), random weights packed on
@@ -57,10 +65,10 @@ Phases, each printing one line (and failing the run with a traceback):
                 at the no-drop n_experts / topk (logits asserted).
 Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
 (dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
-shard, permuted, bit for bit; rows bit-identical across M.  Each packed-GEMM
-timing row (K1, K6, K7, K8) also carries the kernels' own device time per
-launch from a torch.profiler pass over the same loop, beside the CUDA-event
-time, which at decode sizes is the host's issue rate.
+shard, permuted, bit for bit; rows bit-identical across M.  Each kernel's
+timing row also carries its own device time per launch from a torch.profiler
+pass over the same loop (L2 flushed before each attention launch), beside
+the CUDA-event time, which at decode sizes is the host's issue rate.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -122,36 +130,53 @@ def _cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(run, tag: str, reps: int = 3):
+_L2_FLUSH = []  # a buffer larger than the 50 MB L2, written between profiled runs
+
+
+def _flush_l2():
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8, device="cuda"))
+    _L2_FLUSH[0].zero_()
+
+
+def _device_ms(run, tag: str, reps: int = 3, cold: bool = False):
     """Device time of the kernels whose profiler name holds ``tag`` (a
     packed GEMM's instantiation, e.g. ``gemm_kernel<K1,``) over ``reps``
     runs of ``run()`` after a warm-up, from torch.profiler: (total ms,
     launches) per run.  CUDA events around a loop of small launches measure
     the host's issue rate as much as the kernel; this is the kernels' own
-    time."""
+    time.  ``cold``: overwrite a 128 MB buffer before each run, so that the
+    run finds its inputs in device memory, not in L2, as a decode step's
+    layer does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and tag in e.key]
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    launches = sum(e.count for e in events)
-    if not launches:
-        raise RuntimeError(f"the profiler recorded no kernel named like {tag!r}")
-    return total / reps, launches / reps
+    seen = set()
+    for _ in range(3):  # a profiler run can come back without device events: try again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    _flush_l2()
+                run()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        events = [e for e in device if tag in e.key]
+        launches = sum(e.count for e in events)
+        if launches:
+            return sum(e.self_device_time_total for e in events) / 1e3 / reps, launches / reps
+        seen.update(e.key[:60] for e in device)
+    raise RuntimeError(f"the profiler recorded no kernel named like {tag!r}; it saw {sorted(seen)[:8]}")
 
 
-def _with_device_time(row, run, tag, launches_per_unit: int):
+def _with_device_time(row, run, tag, launches_per_unit: int, cold: bool = False):
     """Adds the profiler's device time to a timing row: ``device_ms_per_launch``
     and ``device_ms`` per timed unit (``launches_per_unit`` launches: the
     per-launch time times that count, so an event the profiler drops does
-    not shrink it); ``profiled_launches_per_run`` says how many it kept."""
-    total, launches = _device_ms(run, tag)
+    not shrink it); ``profiled_launches_per_run`` says how many it kept.
+    The tag sums every kernel of one call whose name holds it."""
+    total, launches = _device_ms(run, tag, cold=cold)
     per_launch = total / launches
     row.update({"device_ms": per_launch * launches_per_unit, "device_ms_per_launch": per_launch,
                 "profiled_launches_per_run": launches})
@@ -359,9 +384,11 @@ def _check_act_qdq(cfg, dev, gen, detail):
             assert torch.equal(got.view(torch.int16), want.view(torch.int16)), f"razer_act_qdq ({m}, {k}) not bit-exact"
         nbytes = sum(2 * 2 * m * k for k in ks)
         bound, by = _bound_ms(nbytes, 0.0)
-        out[m] = {"ms": _cuda_ms(lambda: [razer_act_qdq_cuda(xs[k]) for k in ks]),
-                  "plain_ms": _cuda_ms(lambda: [ref.razer_act_qdq_ref(xs[k]) for k in ks], reps=3),
-                  "library_ms": None, "bound_ms": bound, "bound_by": by}
+        out[m] = _with_device_time(
+            {"ms": _cuda_ms(lambda: [razer_act_qdq_cuda(xs[k]) for k in ks]),
+             "plain_ms": _cuda_ms(lambda: [ref.razer_act_qdq_ref(xs[k]) for k in ks], reps=3),
+             "library_ms": None, "bound_ms": bound, "bound_by": by},
+            lambda: [razer_act_qdq_cuda(xs[k]) for k in ks], "razer_act_qdq_kernel", len(ks))
         detail[f"razer_act_qdq_layer_M{m}"] = out[m]
     return 0.0, out[4]
 
@@ -392,13 +419,18 @@ def _check_kv_attention(cfg, dev, gen, detail):
     def library():
         F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
 
+    qb, kb, vb = qs.to(torch.bfloat16), ks.to(torch.bfloat16), vs.to(torch.bfloat16)
     valid = int(cur.sum())
     nbytes = q.numel() * 4 * 2 + valid * kvh * (hd // 2 + hd // 16) * 2 + b * 4
     flops = 4 * valid * h * hd
     bound, by = _bound_ms(nbytes, flops)
-    out = {"ms": _cuda_ms(lambda: razer_kv_attention_cuda(q, kc, km, vc, vm, cur), reps=50),
-           "plain_ms": _cuda_ms(lambda: ref.razer_kv_attention_ref(q, kc, km, vc, vm, cur), reps=10),
-           "library_ms": _cuda_ms(library, reps=50), "bound_ms": bound, "bound_by": by}
+    out = _with_device_time(
+        {"ms": _cuda_ms(lambda: razer_kv_attention_cuda(q, kc, km, vc, vm, cur), reps=50),
+         "plain_ms": _cuda_ms(lambda: ref.razer_kv_attention_ref(q, kc, km, vc, vm, cur), reps=10),
+         "library_ms": _cuda_ms(library, reps=50),
+         "library_bf16_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask), reps=50),
+         "bound_ms": bound, "bound_by": by},
+        lambda: razer_kv_attention_cuda(q, kc, km, vc, vm, cur), "kv_attention_kernel", 1, cold=True)
     detail["razer_kv_attention_B4_S128"] = out
     return err, out
 
@@ -464,22 +496,145 @@ def _check_paged_attention(cfg, dev, gen, detail):
     out = {}
     valid4 = int(cur.sum())
     bound, by = _bound_ms(2 * q.numel() * 4 + valid4 * kv_row + table.numel() * 4 + b * 4, 4 * valid4 * h * hd)
-    out["paged_kv_attention"] = (err4, {
+    kb, vb = ks.to(torch.bfloat16), vs.to(torch.bfloat16)
+    out["paged_kv_attention"] = (err4, _with_device_time({
         "ms": _cuda_ms(lambda: paged_kv_attention_cuda(q, *pool, table, cur), reps=50),
         "plain_ms": _cuda_ms(lambda: ref.paged_kv_attention_ref(q, *pool, table, cur), reps=10),
         "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], ks, vs, attn_mask=mask4),
                                reps=50),
-        "bound_ms": bound, "bound_by": by})
+        "library_bf16_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None].to(torch.bfloat16), kb, vb, attn_mask=mask4), reps=50),
+        "bound_ms": bound, "bound_by": by},
+        lambda: paged_kv_attention_cuda(q, *pool, table, cur), "kv_attention_kernel", 1, cold=True))
     valid5 = int((committed + 3).sum())  # each input position read once
     ops5 = 4 * int(lim.sum()) * h * hd
     bound, by = _bound_ms(2 * qt.numel() * 4 + valid5 * kv_row + table.numel() * 4 + b * 4, ops5)
-    out["paged_kv_attention_verify"] = (err5, {
+    out["paged_kv_attention_verify"] = (err5, _with_device_time({
         "ms": _cuda_ms(lambda: paged_kv_attention_verify_cuda(qt, *pool, table, committed), reps=50),
         "plain_ms": _cuda_ms(lambda: ref.paged_kv_attention_verify_ref(qt, *pool, table, committed), reps=10),
         "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(q5, ks, vs, attn_mask=mask5), reps=50),
-        "bound_ms": bound, "bound_by": by})
+        "library_bf16_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(
+            q5.to(torch.bfloat16), kb, vb, attn_mask=mask5), reps=50),
+        "bound_ms": bound, "bound_by": by},
+        lambda: paged_kv_attention_verify_cuda(qt, *pool, table, committed), "kv_attention_kernel", 1, cold=True))
     detail["paged_kv_attention_B4_ps16"] = out["paged_kv_attention"][1]
     detail["paged_kv_attention_verify_B4_T3_ps16"] = out["paged_kv_attention_verify"][1]
+    return out
+
+
+# Long decode shapes with llama3_2_3b heads and pages of 16: 16 sequences
+# at 4096 positions (one at 4001, off a page edge) and one at 32768.
+LONG_ATTENTION = {"B16_L4096": [4001] + [4096] * 15, "B1_L32768": [32768]}
+
+
+def _attention_case(cfg, dev, gen, lengths, ps=16):
+    """A pool holding each sequence on scattered pages (+ the null page), its
+    table, the same bytes gathered into a contiguous cache, q and cur_len."""
+    from repro_torch.kernels import ref
+    from repro_torch.serving.kvcache import kv_quantize
+
+    b, h, kvh, hd = len(lengths), cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    npg = -(-max(lengths) // ps)
+    n_pages = b * npg + 1
+    pool = []
+    for _ in range(2):
+        x = torch.randn((n_pages, ps, kvh, hd), generator=gen, device=dev)
+        pool += kv_quantize(x)
+        del x
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(len(lengths))) + 1
+    table = perm.reshape(b, npg).to(torch.int32).to(dev)
+    caches = [ref._gathered(x, table).contiguous() for x in pool]
+    q = torch.randn((b, h, hd), generator=gen, device=dev)
+    return pool, table, caches, q, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify: int = 3):
+    """K3, K4 and K5 (T = 3) at the long shapes: each within 1e-4 of its
+    plain version; K4 == K3 on the gathered bytes, K5's query t == K4 at
+    cur_len + t + 1, and the first sequence's output alone == inside the
+    batch, bit for bit; per kernel the CUDA-event time, the device time per
+    launch (profiler, L2 flushed before each launch), the plain version's
+    time, F.scaled_dot_product_attention on the dequantized K/V in f32 and
+    in bf16 (expanded to H heads, masked to each length), and the bound
+    (cache bytes up to each length plus q and out, or 4 flop per (position,
+    head, dim) at the bf16 peak).  Returns {shape: {kernel: row}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+    from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
+    from repro_torch.serving.kvcache import kv_dequantize
+
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    kv_row = kvh * (hd // 2 + hd // 16) * 2  # K and V bytes of one position
+    out = {}
+    for name, lengths in shapes.items():
+        pool, table, caches, q, cur = _attention_case(cfg, dev, gen, lengths)
+        b, s_max = len(lengths), caches[0].shape[1]
+        committed = cur - t_verify
+        qt = torch.randn((b, t_verify, h, hd), generator=gen, device=dev)
+        calls = {"razer_kv_attention": lambda: razer_kv_attention_cuda(q, *caches, cur),
+                 "paged_kv_attention": lambda: paged_kv_attention_cuda(q, *pool, table, cur),
+                 "paged_kv_attention_verify": lambda: paged_kv_attention_verify_cuda(qt, *pool, table, committed)}
+        plains = {"razer_kv_attention": lambda: ref.razer_kv_attention_ref(q, *caches, cur),
+                  "paged_kv_attention": lambda: ref.paged_kv_attention_ref(q, *pool, table, cur),
+                  "paged_kv_attention_verify": lambda: ref.paged_kv_attention_verify_ref(qt, *pool, table, committed)}
+        got = {k: fn() for k, fn in calls.items()}
+        errs = {}
+        for k, fn in plains.items():
+            want = fn()
+            torch.testing.assert_close(got[k], want, rtol=1e-4, atol=1e-4)
+            errs[k] = float((got[k] - want).abs().max())
+            del want
+        assert torch.equal(got["paged_kv_attention"], got["razer_kv_attention"]), f"{name}: K4 != K3"
+        for t in range(t_verify):
+            one = paged_kv_attention_cuda(qt[:, t].contiguous(), *pool, table, committed + t + 1)
+            assert torch.equal(got["paged_kv_attention_verify"][:, t], one), f"{name}: K5 query {t} != K4"
+        if b > 1:  # the first sequence alone, on a table of its own pages only
+            own = table[:1, :-(-lengths[0] // 16)].contiguous()
+            alone = paged_kv_attention_cuda(q[:1].contiguous(), *pool, own, cur[:1])
+            assert torch.equal(alone, got["paged_kv_attention"][:1]), f"{name}: batch moves sequence 0 (K4)"
+            alone = paged_kv_attention_verify_cuda(qt[:1].contiguous(), *pool, own, committed[:1])
+            assert torch.equal(alone, got["paged_kv_attention_verify"][:1]), f"{name}: batch moves sequence 0 (K5)"
+            alone = razer_kv_attention_cuda(q[:1].contiguous(), *(c[:1, :own.shape[1] * 16].contiguous()
+                                                                   for c in caches), cur[:1])
+            assert torch.equal(alone, got["razer_kv_attention"][:1]), f"{name}: batch moves sequence 0 (K3)"
+        del got
+        # the library calls: dequantized K/V, (B, H, S, hd), masked to each length
+        kd = kv_dequantize(caches[0], caches[1], hd).transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+        vd = kv_dequantize(caches[2], caches[3], hd).transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+        pos = torch.arange(s_max, device=dev)
+        lim = committed[:, None] + torch.arange(t_verify, device=dev)[None, :] + 1
+        masks = {"one": pos[None, None, None, :] < cur[:, None, None, None],
+                 "verify": pos[None, None, None, :] < lim[:, None, :, None]}
+        queries = {"one": q[:, :, None], "verify": qt.transpose(1, 2).contiguous()}
+        lib = {}
+        for kind in ("one", "verify"):
+            for dt in (torch.float32, torch.bfloat16):
+                kk, vv, qq = kd.to(dt), vd.to(dt), queries[kind].to(dt)
+                lib[(kind, dt)] = _cuda_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=masks[kind]),
+                                           reps=10)
+                del kk, vv
+        del kd, vd
+        valid = int(cur.sum())
+        rows = {}
+        for k, fn in calls.items():
+            verify = k == "paged_kv_attention_verify"
+            read = int((committed + t_verify).sum()) if verify else valid
+            attended = int(lim.sum()) if verify else valid
+            qbytes = 2 * (qt if verify else q).numel() * 4
+            bound, by = _bound_ms(qbytes + read * kv_row + (0 if k == "razer_kv_attention" else table.numel() * 4),
+                                  4 * attended * h * hd)
+            kind = "verify" if verify else "one"
+            rows[k] = _with_device_time(
+                {"max_abs_err": errs[k], "ms": _cuda_ms(fn, reps=10), "plain_ms": _cuda_ms(plains[k], reps=2, warmup=1),
+                 "library_ms": lib[(kind, torch.float32)], "library_bf16_ms": lib[(kind, torch.bfloat16)],
+                 "bound_ms": bound, "bound_by": by, "lengths": sorted(set(lengths))},
+                fn, "kv_attention_kernel", 1, cold=True)
+        out[name] = rows
+        detail[f"attention_{name}"] = rows
+        del pool, caches, q, qt
+        torch.cuda.empty_cache()
     return out
 
 
@@ -969,8 +1124,9 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
 
 def _profile(run):
     """Device time by kernel over one ``run()`` (a generate of prefill + 3
-    decode steps, or a short serve), from torch.profiler, and the share of
-    the wall time the device was idle."""
+    decode steps, or a short serve), from torch.profiler, the share of the
+    wall time the device was idle and the decode-attention kernels' (K3,
+    K4, K5) share of the device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -982,10 +1138,84 @@ def _profile(run):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]  # kernels, not ops
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attention_ms = sum(e.self_device_time_total for e in events if "kv_attention_kernel" in e.key) / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+            "attention_ms": attention_ms, "attention_share_of_device": attention_ms / device_ms if device_ms else 0.0,
             "kernel_launches": sum(e.count for e in events),
             "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in top]}
+
+
+def _long_prompts(cfg, n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab_size, size=int(k)).tolist() for k in rng.integers(lo, hi + 1, size=n)]
+
+
+def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
+    """Phase 4e: long-context decode at full width.  ``eng``: an engine whose
+    ServeConfig.max_len holds hi + n_new (4096 here).  generate: B 4 prompts
+    of lo..hi random tokens (seed 2), n_new new tokens; serve: 8 requests of
+    lo..hi tokens (seed 3) over 4 slots, pages of 16, prefix cache on.  Exact
+    launch counts; decode ms per step; torch.profiler's device ms, idle share
+    and decode-attention share per decode step (a generate of the same
+    prompts, and a serve of 4 of the requests, with 5 new tokens less one
+    with 1); the share of requests whose serve tokens equal a batch-8
+    generate's, with the first differing step and the generate's top-2
+    logit gap there for each that differs."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.pagepool import PagePoolConfig
+    from repro_torch.serving.scheduler import Request, SchedulerConfig
+
+    gen_prompts, serve_prompts = _long_prompts(cfg, 4, lo, hi, 2), _long_prompts(cfg, 8, lo, hi, 3)
+    out = {"generate_prompt_lens": [len(p) for p in gen_prompts],
+           "serve_prompt_lens": [len(p) for p in serve_prompts], "new_tokens": n_new,
+           "max_len": eng.scfg.max_len}
+    eng.generate(gen_prompts[:1], max_new_tokens=2)  # warm-up
+    _reset_counts()
+    toks = eng.generate(gen_prompts, max_new_tokens=n_new)
+    counts = _main_path_counts()
+    steps = eng.stats["decode_steps"]
+    assert counts == _want_counts(cfg, 1, eng.policy, 1 + steps, decode_steps=steps), counts
+    assert all(len(o) == len(p) + n_new for o, p in zip(toks, gen_prompts))
+    st = eng.stats
+    out["generate"] = {"prefill_ms": st["prefill_s"] * 1e3, "decode_ms_per_step": st["decode_s"] * 1e3 / steps,
+                       "decode_steps": steps, "launches": counts,
+                       "profile_decode_per_step": _decode_profile(lambda n: eng.generate(gen_prompts, max_new_tokens=n))}
+    ref = eng.generate(serve_prompts, max_new_tokens=n_new)
+    sched_cfg = SchedulerConfig(max_slots=4)
+    pool_cfg = PagePoolConfig(num_pages=4 * (eng.scfg.max_len // ps), page_size=ps, max_len=eng.scfg.max_len)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(serve_prompts)]
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    _reset_counts()
+    rep = eng.serve(reqs, sched_cfg=sched_cfg, pool_cfg=pool_cfg, trace=tracer)
+    torch.cuda.synchronize()
+    counts = _main_path_counts()
+    assert all(r.state == "finished" and len(r.out_tokens) == n_new for r in rep.requests)
+    prefills = sum(1 for r in rep.requests if r.dedup_of is None)
+    want = _want_counts(cfg, 1, eng.policy, prefills + rep.decode_steps, paged=rep.decode_steps)
+    assert counts == want, (counts, want)
+    out["serve"] = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time, "ttft_p50_s": rep.ttft_p50,
+                    "ttft_p95_s": rep.ttft_p95, "decode_steps": rep.decode_steps,
+                    "decode_ms_per_step": _span_ms(tracer, "decode_step"), "launches": counts,
+                    "profile_decode_per_step": _decode_profile(lambda n: eng.serve(
+                        [Request(rid=i, prompt=p, max_new_tokens=n) for i, p in enumerate(serve_prompts[:4])],
+                        sched_cfg=sched_cfg, pool_cfg=pool_cfg))}
+    share, diffs = _agreement(eng, rep.requests, ref)
+    out["serve"].update(share_equal_to_generate=share, differs_from_generate=diffs)
+    return out
+
+
+def _decode_profile(run, n: int = 5):
+    """Per decode step of ``run(k)`` (k new tokens): the difference between
+    a profile of run(n) and one of run(1), over n - 1 steps -- so the
+    prefill drops out: wall ms, device ms, idle share, decode-attention ms
+    and its share of the device time."""
+    one, many = _profile(lambda: run(1)), _profile(lambda: run(n))
+    per = {k: (many[k] - one[k]) / (n - 1) for k in ("wall_ms", "device_ms", "attention_ms")}
+    per["idle_share"] = 1.0 - per["device_ms"] / per["wall_ms"]
+    per["attention_share_of_device"] = per["attention_ms"] / per["device_ms"]
+    return per
 
 
 def _dbrx_full_width(dev, detail):
@@ -1541,6 +1771,8 @@ def main() -> int:
               "razer_act_qdq": _check_act_qdq(cfg, dev, gen, detail),
               "razer_kv_attention": _check_kv_attention(cfg, dev, gen, detail),
               **_check_paged_attention(cfg, dev, gen, detail)}
+    print("decode attention at long lengths (K3, K4, K5; llama3_2_3b heads): "
+          + json.dumps(_check_attention_long(cfg, dev, gen, detail)))
     banks = _dbrx_banks(dev, gen, detail)
     checks["razer_grouped_matmul"] = _check_grouped_matmul(dev, gen, detail, banks)
     checks["razer_grouped_matmul_kshard"] = _check_kshard_grouped(dev, gen, detail, banks)
@@ -1558,6 +1790,12 @@ def main() -> int:
     print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
     serve = _serve_full_width(cfg, engines, detail)
     print("serve llama3_2_3b full width: " + json.dumps(serve))
+    eng = engines["w4_kv"]
+    short_cfg = eng.scfg
+    eng.scfg = dataclasses.replace(short_cfg, max_len=4096)
+    detail["long_context"] = _long_context(cfg, eng)
+    eng.scfg = short_cfg
+    print("long context llama3_2_3b full width, W4 + KV, max_len 4096: " + json.dumps(detail["long_context"]))
     print("parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width: "
           + json.dumps(_world1_nccl(cfg, engines, detail)))
     f32_ref = _f32_prefill_logits(engines["w4_kv"]._raw_params, cfg, _generate_prompts(cfg), device=dev)

@@ -14,18 +14,19 @@
 // null page idle slots point at.
 //
 // What bounds it on this card: the valid pages' bytes, each read once and
-// used by the G = H / KVH query rows of its head, a few operations per byte.
+// used by the G = H / KVH query rows of its head (T G rows for K5).
 //
 // Design: the TPU kernel walks a sequential (b, kv head, page) grid whose
 // index maps do the page-table gather through scalar prefetch; neither
-// exists on a GPU.  Here one block takes one (b, kv head) -- one (b, t, kv
-// head) for K5 -- and runs the body of the contiguous kernel K3
-// (`razer_kv::attend`, razer_kv_attend.cuh) with a row functor that reads
-// page_table[b, p / ps] itself, only for positions below the query's length.
-// So K4 gives K3's bits on the same bytes, and K5's query t gives K4's bits
-// at cur_len + t + 1, the exact reduction a vanilla decode step performs
-// there.  K5 re-reads a slot's pages once per query (T times, mostly from
-// L2); fusing the T queries into one pass over the pages is later work.
+// exists on a GPU.  Here the grid is (split, kv head, b): each block runs
+// the body of the contiguous kernel K3 (`razer_kv::attend`,
+// razer_kv_attend.cuh) over one 256-position split of one sequence, with a
+// row functor that reads page_table[b, p / ps] itself for the positions it
+// stages, and the last block of a (b, kv head) combines the splits.  K5's
+// block takes all T queries of its (b, kv head), so each page is read once
+// for them, and masks query t at cur_len + t + 1 with K4's cut and order:
+// K4 gives K3's bits on the same bytes, and K5's query t gives K4's bits at
+// cur_len + t + 1, the exact reduction a vanilla decode step performs there.
 
 #include "razer_kv_attend.cuh"
 
@@ -40,70 +41,82 @@ struct PagedRows {
   }
 };
 
-// grid (B * T, KVH): block (b * T + t, kh); its query length is
-// cur_len[b] + (verify ? t + 1 : 0), clamped to the page table's span
-__global__ void __launch_bounds__(razer_kv::THREADS)
-paged_kv_attention_kernel(const float* __restrict__ q, const uint8_t* __restrict__ k_codes,
-                          const uint8_t* __restrict__ k_meta, const uint8_t* __restrict__ v_codes,
-                          const uint8_t* __restrict__ v_meta, const int* __restrict__ page_table,
-                          const int* __restrict__ cur_len, float* __restrict__ out, int T,
-                          int verify, int NP, int ps, int KVH, int G, int hd, float scale) {
-  const int bt = blockIdx.x;
-  const int b = bt / T;
-  const int t = bt % T;
-  const int kh = blockIdx.y;
-  const size_t head0 = ((size_t)bt * KVH * G + (size_t)kh * G) * hd;
-  const int len = min(cur_len[b] + (verify ? t + 1 : 0), NP * ps);
-  razer_kv::attend(q + head0, k_codes, k_meta, v_codes, v_meta, len,
-                   PagedRows{page_table + (size_t)b * NP, ps, KVH, kh}, out + head0, G, hd, scale);
+// grid (splits, KVH, B): block (split, kh, b)
+template <int HD, int NTM>
+__global__ void __launch_bounds__(razer_kv::THREADS, razer_kv::MinBlocks<NTM>::value)
+paged_kv_attention_kernel(const razer_kv::Params p, const int* __restrict__ page_table, int NP, int ps) {
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  razer_kv::attend<HD, NTM>(p, PagedRows{page_table + (size_t)b * NP, ps, p.KVH, kh}, b, kh, split);
 }
 
-int launch(const void* q, const void* k_codes, const void* k_meta, const void* v_codes,
-           const void* v_meta, const void* page_table, const void* cur_len, void* out, int B,
-           int T, int verify, int NP, int ps, int KVH, int G, int hd, void* stream) {
-  using namespace razer_kv;
-  if (G < 1 || G > MAX_G || hd % 16 != 0 || hd > THREADS * MAX_D_PER_THREAD || T < 1 || ps < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * smem_floats(G, hd);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(paged_kv_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+struct Launch {
+  razer_kv::Params p;
+  const int* page_table;
+  int B, NP, ps, rows;
+  cudaStream_t stream;
+  template <int HD, int NTM>
+  int go() const {
+    const size_t smem = razer_kv::smem_bytes<HD>(rows);
+    auto kernel = paged_kv_attention_kernel<HD, NTM>;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    dim3 grid(p.nsplit_grid, p.KVH, B);
+    kernel<<<grid, razer_kv::THREADS, smem, stream>>>(p, page_table, NP, ps);
+    return static_cast<int>(cudaGetLastError());
   }
-  const float scale = 1.0f / sqrtf((float)hd);
-  dim3 grid(B * T, KVH);
-  paged_kv_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(k_codes),
-      static_cast<const uint8_t*>(k_meta), static_cast<const uint8_t*>(v_codes),
-      static_cast<const uint8_t*>(v_meta), static_cast<const int*>(page_table),
-      static_cast<const int*>(cur_len), static_cast<float*>(out), T, verify, NP, ps, KVH, G, hd,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+};
+
+int launch(const void* q, const void* k_codes, const void* k_meta, const void* v_codes, const void* v_meta,
+           const void* page_table, const void* cur_len, void* out, void* ws, void* counters, int B, int T,
+           int verify, int NP, int ps, int KVH, int G, int hd, void* stream) {
+  using namespace razer_kv;
+  const int rows = T * G;
+  if (G < 1 || G > MAX_G || T < 1 || rows > MAX_ROWS || !built_hd(hd) || ps < 1 ||
+      NP < 1 || B < 1 || KVH < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch l;
+  l.p = Params{static_cast<const float*>(q), static_cast<const uint8_t*>(k_codes),
+               static_cast<const uint8_t*>(k_meta), static_cast<const uint8_t*>(v_codes),
+               static_cast<const uint8_t*>(v_meta), static_cast<const int*>(cur_len), static_cast<float*>(out),
+               static_cast<float*>(ws), static_cast<int*>(counters), T, verify, G, KVH, NP * ps,
+               num_splits(NP * ps), num_groups(num_splits(NP * ps)), B, score_scale(hd),
+               {copy_unit(k_codes, hd / 2), copy_unit(k_meta, hd / 16), copy_unit(v_codes, hd / 2),
+                copy_unit(v_meta, hd / 16)}};
+  l.page_table = static_cast<const int*>(page_table);
+  l.B = B, l.NP = NP, l.ps = ps, l.rows = rows;
+  l.stream = static_cast<cudaStream_t>(stream);
+  const int nt = (rows + 3) / 4;  // n-tiles of 4 query rows (and their low parts)
+  if (nt <= 2) return dispatch_hd<2>(hd, l);
+  if (nt <= 4) return dispatch_hd<4>(hd, l);
+  return dispatch_hd<8>(hd, l);
 }
 
 }  // namespace
 
 // K4.  q (B, KVH * G, hd) f32; pool arrays (P, ps, KVH, hd/2 | hd/16) uint8;
 // page_table (B, NP) int32, entries in [0, P); cur_len (B,) int32; out
-// (B, KVH * G, hd) f32.  G <= 8, hd a multiple of 16 and <= 256.  Returns
-// cudaGetLastError().
+// (B, KVH * G, hd) f32; ws a float32 workspace of at least B * KVH *
+// (splits + groups) * partial_floats(G, hd) floats and counters
+// B * KVH * (groups + 1) int32, zero (each call leaves them zero), for the
+// splits(NP * ps) splits and their groups of 8.  G <= 8, hd 16, 32,
+// 64, 128 or 256.  Returns cudaGetLastError().
 extern "C" int paged_kv_attention_launch(const void* q, const void* k_codes, const void* k_meta,
-                                         const void* v_codes, const void* v_meta,
-                                         const void* page_table, const void* cur_len, void* out,
-                                         int B, int NP, int ps, int KVH, int G, int hd,
-                                         void* stream) {
-  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, B, 1, 0, NP, ps,
+                                         const void* v_codes, const void* v_meta, const void* page_table,
+                                         const void* cur_len, void* out, void* ws, void* counters, int B, int NP,
+                                         int ps, int KVH, int G, int hd, void* stream) {
+  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, ws, counters, B, 1, 0, NP, ps,
                 KVH, G, hd, stream);
 }
 
 // K5.  q (B, T, KVH * G, hd) f32; out (B, T, KVH * G, hd) f32; cur_len (B,)
-// int32 is the committed length before the T positions; the rest as K4.
-extern "C" int paged_kv_attention_verify_launch(const void* q, const void* k_codes,
-                                                const void* k_meta, const void* v_codes,
-                                                const void* v_meta, const void* page_table,
-                                                const void* cur_len, void* out, int B, int T,
-                                                int NP, int ps, int KVH, int G, int hd,
-                                                void* stream) {
-  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, B, T, 1, NP, ps,
+// int32 is the committed length before the T positions; T * G <= 32; the
+// workspace as K4's with T * G rows; the rest as K4.
+extern "C" int paged_kv_attention_verify_launch(const void* q, const void* k_codes, const void* k_meta,
+                                                const void* v_codes, const void* v_meta, const void* page_table,
+                                                const void* cur_len, void* out, void* ws, void* counters, int B,
+                                                int T, int NP, int ps, int KVH, int G, int hd, void* stream) {
+  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, ws, counters, B, T, 1, NP, ps,
                 KVH, G, hd, stream);
 }

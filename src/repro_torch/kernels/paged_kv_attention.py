@@ -8,15 +8,15 @@ import ctypes
 
 import torch
 
-from . import build
+from . import attention_plan, build
 from .ref import paged_kv_attention_ref as plain
 from .ref import paged_kv_attention_verify_ref as plain_verify
 
 __all__ = ["paged_kv_attention_cuda", "paged_kv_attention_verify_cuda", "plain", "plain_verify"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 6 + [_P]  # K4: ..., B, NP, ps, KVH, G, hd, stream
-_VERIFY_ARGTYPES = [_P] * 8 + [_I] * 7 + [_P]  # K5: ..., B, T, NP, ps, KVH, G, hd, stream
+_ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]  # K4: ..., out, ws, counters, B, NP, ps, KVH, G, hd, stream
+_VERIFY_ARGTYPES = [_P] * 10 + [_I] * 7 + [_P]  # K5: ..., B, T, NP, ps, KVH, G, hd, stream
 
 
 def _check(name, q, pool, page_table, cur_len, check_pages: bool):
@@ -33,8 +33,8 @@ def _check(name, q, pool, page_table, cur_len, check_pages: bool):
         raise ValueError(f"pool arrays must be (P, ps, KVH, x), got {tuple(k_codes.shape)}")
     n_pages, ps, kvh, _ = k_codes.shape
     h, hd = q.shape[-2:]
-    if h % kvh or not 1 <= h // kvh <= 8 or hd % 16 or hd > 256:
-        raise ValueError(f"unsupported heads H={h}, KVH={kvh}, hd={hd} (G = H/KVH <= 8, hd % 16 == 0, hd <= 256)")
+    if h % kvh or not 1 <= h // kvh <= attention_plan.MAX_G or hd not in attention_plan.HEAD_DIMS:
+        raise ValueError(f"unsupported heads H={h}, KVH={kvh}, hd={hd} (G = H/KVH <= 8, hd in {attention_plan.HEAD_DIMS})")
     for t, width in zip(pool, (hd // 2, hd // 16, hd // 2, hd // 16)):
         if t.dtype != torch.uint8 or tuple(t.shape) != (n_pages, ps, kvh, width):
             raise ValueError(f"pool tensor {t.dtype} {tuple(t.shape)} != uint8 {(n_pages, ps, kvh, width)}")
@@ -61,10 +61,12 @@ def paged_kv_attention_cuda(q, k_codes, k_meta, v_codes, v_meta, page_table, cur
     pool = (k_codes, k_meta, v_codes, v_meta)
     b, n_p, ps, kvh, g, hd = _check("paged_kv_attention_cuda", q, pool, page_table, cur_len, check_pages)
     out = torch.empty_like(q)
+    ws, tickets = attention_plan.workspace(q.device, *attention_plan.workspace_size(b, kvh, n_p * ps, g, hd))
     fn = build.function("paged_kv_attention", "paged_kv_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), *(t.data_ptr() for t in pool), page_table.data_ptr(), cur_len.data_ptr(),
-                    out.data_ptr(), b, n_p, ps, kvh, g, hd, torch.cuda.current_stream().cuda_stream)
+                    out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, n_p, ps, kvh, g, hd,
+                    torch.cuda.current_stream().cuda_stream)
     build.check(status, "paged_kv_attention")
     paged_kv_attention_cuda.launches += 1
     return out
@@ -74,17 +76,22 @@ def paged_kv_attention_verify_cuda(q, k_codes, k_meta, v_codes, v_meta, page_tab
                                    check_pages: bool = False) -> torch.Tensor:
     """K5: q (B, T, H, hd) f32; query t of sequence b attends positions
     < cur_len[b] + t + 1 (cur_len = the committed length) -> (B, T, H, hd)
-    f32.  Pool and table as ``paged_kv_attention_cuda``."""
+    f32; one block reads a split's pages once for all T queries, so T * G
+    <= 32.  Pool and table as ``paged_kv_attention_cuda``."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd), got {tuple(q.shape)}")
     pool = (k_codes, k_meta, v_codes, v_meta)
     b, n_p, ps, kvh, g, hd = _check("paged_kv_attention_verify_cuda", q, pool, page_table, cur_len,
                                     check_pages)
+    t = q.shape[1]
+    if t * g > attention_plan.MAX_ROWS:
+        raise ValueError(f"T * G = {t} * {g} query rows exceed the kernel's {attention_plan.MAX_ROWS}")
     out = torch.empty_like(q)
+    ws, tickets = attention_plan.workspace(q.device, *attention_plan.workspace_size(b, kvh, n_p * ps, t * g, hd))
     fn = build.function("paged_kv_attention", "paged_kv_attention_verify_launch", _VERIFY_ARGTYPES)
     with torch.cuda.device(q.device):
-        status = fn(q.data_ptr(), *(t.data_ptr() for t in pool), page_table.data_ptr(), cur_len.data_ptr(),
-                    out.data_ptr(), b, q.shape[1], n_p, ps, kvh, g, hd,
+        status = fn(q.data_ptr(), *(x.data_ptr() for x in pool), page_table.data_ptr(), cur_len.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, t, n_p, ps, kvh, g, hd,
                     torch.cuda.current_stream().cuda_stream)
     build.check(status, "paged_kv_attention_verify")
     paged_kv_attention_verify_cuda.launches += 1

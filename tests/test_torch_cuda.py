@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from repro_torch.core.packing import pack_stacked_weights, pack_weight
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import attention_plan, ops, ref
 from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
 from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
 from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
@@ -320,3 +320,107 @@ def test_cuda_kshard_grouped_chunks_at_edge_m(cuda_device, chunks):
         x = torch.randn((2, m, 512), generator=g, device=cuda_device).to(torch.bfloat16)
         got = razer_grouped_matmul_kshard_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1, out_chunks=chunks)
         assert torch.equal(_unchunk(got), razer_grouped_matmul_cuda(x, pst.codes, pst.scale_meta, m0=m0, m1=m1))
+
+
+# --- the split decode-attention body (K3, K4, K5) -----------------------------------------------
+# Lengths around a page (16), a split and several splits.
+_SPLIT = attention_plan.SPLIT
+_LENGTHS = [1, 15, 16, 17, _SPLIT - 1, _SPLIT, _SPLIT + 1, 3 * _SPLIT + 40]
+_HEADS = [(3, 128), (4, 64), (6, 128), (8, 64), (2, 16), (3, 32)]  # (G, hd)
+
+
+def _long_fixture(device, g, hd, lengths, kvh=2, ps=16, seed=11, extra_pages=1):
+    """A pool holding each sequence on scattered pages (+ the null page, and
+    spare pages past the longest sequence so the table's span exceeds it),
+    q (B, KVH * G, hd) and cur_len."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = len(lengths)
+    npg = -(-max(lengths) // ps) + extra_pages
+    n_pages = b * npg + 1
+    pool = kv_quantize(torch.randn((n_pages, ps, kvh, hd), generator=gen, device=device))
+    pool += kv_quantize(torch.randn((n_pages, ps, kvh, hd), generator=gen, device=device))
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.reshape(b, npg).to(torch.int32).to(device)
+    q = torch.randn((b, kvh * g, hd), generator=gen, device=device)
+    cur = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, pool, table, cur
+
+
+def _contiguous(pool, table):
+    """Each sequence's pages gathered into a (B, NP * ps, KVH, x) cache."""
+    return [ref._gathered(x, table).contiguous() for x in pool]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", _HEADS)
+def test_cuda_split_attention_matches_plain(cuda_device, g, hd):
+    """K3, K4 and K5 (T = 3) within rtol = atol = 1e-4 of their plain
+    versions at lengths 1, 15, 16, 17, around a split and over several
+    splits (tensor-core products of exact bf16 K/V with q and P split into
+    high and low bf16 parts, base-2 exponentials, another summation order)."""
+    q, pool, table, cur = _long_fixture(cuda_device, g, hd, _LENGTHS)
+    got = paged_kv_attention_cuda(q, *pool, table, cur, check_pages=True)
+    torch.testing.assert_close(got, ref.paged_kv_attention_ref(q, *pool, table, cur), rtol=1e-4, atol=1e-4)
+    caches = _contiguous(pool, table)
+    got = razer_kv_attention_cuda(q, *caches, cur)
+    torch.testing.assert_close(got, ref.razer_kv_attention_ref(q, *caches, cur), rtol=1e-4, atol=1e-4)
+    qt = torch.randn((len(_LENGTHS), 3, *q.shape[1:]), generator=torch.Generator(device=cuda_device).manual_seed(g),
+                     device=cuda_device)
+    committed = (cur - 3).clamp(min=0)
+    got = paged_kv_attention_verify_cuda(qt, *pool, table, committed, check_pages=True)
+    torch.testing.assert_close(got, ref.paged_kv_attention_verify_ref(qt, *pool, table, committed),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", [(3, 128), (6, 128), (8, 64)])
+def test_cuda_split_attention_bit_identities(cuda_device, g, hd):
+    """At multi-split lengths: K4 == K3 on the gathered bytes, and K5's query
+    t at committed length c == K4 at c + t + 1, bit for bit, where the T
+    queries' lengths straddle a split boundary."""
+    lengths = [_SPLIT - 2, 2 * _SPLIT - 1, 2 * _SPLIT + 1, 3 * _SPLIT + 40]
+    q, pool, table, cur = _long_fixture(cuda_device, g, hd, lengths, seed=12)
+    assert torch.equal(paged_kv_attention_cuda(q, *pool, table, cur),
+                       razer_kv_attention_cuda(q, *_contiguous(pool, table), cur))
+    qt = torch.randn((len(lengths), 3, *q.shape[1:]), generator=torch.Generator(device=cuda_device).manual_seed(7),
+                     device=cuda_device)
+    committed = cur - 2  # query t at c + t + 1: the last split boundary falls between the queries
+    got = paged_kv_attention_verify_cuda(qt, *pool, table, committed)
+    for t in range(3):
+        assert torch.equal(got[:, t], paged_kv_attention_cuda(qt[:, t].contiguous(), *pool, table, committed + t + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K5"])
+def test_cuda_split_attention_is_batch_invariant(cuda_device, kernel):
+    """A sequence's output is bit for bit the same alone and inside a batch
+    of 16 with other lengths and a wider page table: the split cut depends
+    on its length alone."""
+    lengths = [3 * _SPLIT + 40] + [1, 17, 90, _SPLIT - 1, _SPLIT, _SPLIT + 44, 2 * _SPLIT - 1, 2 * _SPLIT + 1,
+                                   700, 1000, 1100, 6 * _SPLIT, 64, 2, 1400]
+    q, pool, table, cur = _long_fixture(cuda_device, 3, 128, lengths, seed=13, extra_pages=3)
+    npg_alone = -(-lengths[0] // 16)
+    alone_table = table[:1, :npg_alone].contiguous()
+    if kernel == "K5":
+        qt = torch.randn((16, 3, *q.shape[1:]), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                         device=cuda_device)
+        committed = (cur - 3).clamp(min=0)
+        batch = paged_kv_attention_verify_cuda(qt, *pool, table, committed)[:1]
+        alone = paged_kv_attention_verify_cuda(qt[:1].contiguous(), *pool, alone_table, committed[:1])
+    elif kernel == "K4":
+        batch = paged_kv_attention_cuda(q, *pool, table, cur)[:1]
+        alone = paged_kv_attention_cuda(q[:1].contiguous(), *pool, alone_table, cur[:1])
+    else:
+        caches = _contiguous(pool, table)
+        batch = razer_kv_attention_cuda(q, *caches, cur)[:1]
+        alone = razer_kv_attention_cuda(q[:1].contiguous(), *(c[:1, :npg_alone * 16].contiguous() for c in caches),
+                                        cur[:1])
+    assert torch.equal(batch, alone)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_refuses_too_many_rows(cuda_device):
+    q, pool, table, cur = _long_fixture(cuda_device, 8, 64, [20])
+    qt = q[:, None].expand(1, 5, *q.shape[1:]).contiguous()  # T * G = 40 > 32
+    with pytest.raises(ValueError, match="query rows"):
+        paged_kv_attention_verify_cuda(qt, *pool, table, cur)

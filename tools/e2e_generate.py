@@ -1,6 +1,7 @@
 """Time the port's Engine.generate at full width on one card.
 
     python3 tools/e2e_generate.py [--src DIR] [--label NAME]
+    python3 tools/e2e_generate.py --prompt-len 1024 3968 --max-len 4096 [--new-tokens 32] [--src DIR]
 
 Runs llama3_2_3b (all 28 layers) and dbrx_132b (its published widths, cut
 to 2 of 40 layers) under the packed W4 + RaZeR-KV policy: random weights
@@ -11,6 +12,13 @@ picks the directory that holds the ``repro_torch`` package (default: this
 checkout's ``src``), so that two checkouts can be timed in turns within one
 call on one card (parent, change, change, parent).  Prints one JSON line;
 exits non-zero without CUDA.
+
+With ``--prompt-len LO HI`` it runs ``chip_smoke.py``'s long-context phase
+instead, on full-width llama3_2_3b under W4 + KV with ServeConfig.max_len
+``--max-len``: generate of 4 prompts of LO..HI random tokens and serve of 8
+such requests over 4 slots, ``--new-tokens`` each, with exact launch counts,
+decode ms per step, device ms, idle share, the decode-attention kernels'
+share of device time and the serve == generate share.
 """
 from __future__ import annotations
 
@@ -64,10 +72,33 @@ def _time_generate(cfg, dev):
     return result
 
 
+def _long_context(cfg, dev, args):
+    """chip_smoke.py's phase 4e on an engine of this checkout's package."""
+    import torch
+
+    sys.path.insert(1, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raw = init_params(cfg, seed=0, device=dev)
+    eng = Engine(raw, cfg, ServeConfig(max_len=args.max_len, max_new_tokens=args.new_tokens,
+                                       quant=QuantPolicy.packed(kv_quant=True)), device=dev)
+    del raw
+    lo, hi = args.prompt_len
+    return cs._long_context(cfg, eng, lo=lo, hi=hi, n_new=args.new_tokens)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--prompt-len", nargs=2, type=int, metavar=("LO", "HI"),
+                    help="long-context mode: prompts of LO..HI random tokens")
+    ap.add_argument("--max-len", type=int, default=4096, help="ServeConfig.max_len of the long-context mode")
+    ap.add_argument("--new-tokens", type=int, default=32, help="new tokens per prompt in the long-context mode")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import torch
@@ -78,9 +109,12 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     dev = torch.device("cuda", 0)
-    out = {"label": args.label, "src": args.src, "card": torch.cuda.get_device_name(0),
-           "llama3_2_3b": _time_generate(get_config("llama3_2_3b"), dev),
-           "dbrx_132b_2_layers": _time_generate(dataclasses.replace(get_config("dbrx_132b"), num_layers=2), dev)}
+    out = {"label": args.label, "src": args.src, "card": torch.cuda.get_device_name(0)}
+    if args.prompt_len:
+        out["llama3_2_3b_long_context"] = _long_context(get_config("llama3_2_3b"), dev, args)
+    else:
+        out["llama3_2_3b"] = _time_generate(get_config("llama3_2_3b"), dev)
+        out["dbrx_132b_2_layers"] = _time_generate(dataclasses.replace(get_config("dbrx_132b"), num_layers=2), dev)
     print(json.dumps(out))
     return 0
 
