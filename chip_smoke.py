@@ -525,6 +525,13 @@ def _check_paged_attention(cfg, dev, gen, detail):
 # Long decode shapes with llama3_2_3b heads and pages of 16: 16 sequences
 # at 4096 positions (one at 4001, off a page edge) and one at 32768.
 LONG_ATTENTION = {"B16_L4096": [4001] + [4096] * 15, "B1_L32768": [32768]}
+# The body's largest |error| against the plain versions at the long shapes,
+# beside the 1e-4 of every kernel check: set between the kernel's own (at
+# most 1.15e-6, K5 at B 16 x 4096) and that of the body with q and P
+# rounded to one bf16 part each (7.1e-5 at B 1 x 32768, 2.6e-4 at B 16 x
+# 4096; ``tools/attention_attribution.py no_lo_parts``), so that a body
+# without the low parts fails.
+LONG_ATTENTION_ATOL = 1e-5
 
 
 def _attention_case(cfg, dev, gen, lengths, ps=16):
@@ -552,12 +559,14 @@ def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify
     """K3, K4 and K5 (T = 3) at the long shapes: each within 1e-4 of its
     plain version; K4 == K3 on the gathered bytes, K5's query t == K4 at
     cur_len + t + 1, and the first sequence's output alone == inside the
-    batch, bit for bit; per kernel the CUDA-event time, the device time per
-    launch (profiler, L2 flushed before each launch), the plain version's
-    time, F.scaled_dot_product_attention on the dequantized K/V in f32 and
-    in bf16 (expanded to H heads, masked to each length), and the bound
-    (cache bytes up to each length plus q and out, or 4 flop per (position,
-    head, dim) at the bf16 peak).  Returns {shape: {kernel: row}}."""
+    batch, bit for bit; each also within LONG_ATTENTION_ATOL of its plain
+    version; per kernel the CUDA-event time, the device time per launch
+    (profiler, L2 flushed before each launch), the plain version's time,
+    F.scaled_dot_product_attention on the dequantized K/V in f32 and in
+    bf16 expanded to H heads, and in bf16 with the heads grouped
+    (enable_gqa, and G query rows per kv head), masked to each length, and
+    the bound (cache bytes up to each length plus q and out, or 4 flop per
+    (position, head, dim) at the bf16 peak).  Returns {shape: {kernel: row}}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -585,6 +594,7 @@ def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify
             want = fn()
             torch.testing.assert_close(got[k], want, rtol=1e-4, atol=1e-4)
             errs[k] = float((got[k] - want).abs().max())
+            assert errs[k] <= LONG_ATTENTION_ATOL, f"{name}: {k} |err| {errs[k]} > {LONG_ATTENTION_ATOL}"
             del want
         assert torch.equal(got["paged_kv_attention"], got["razer_kv_attention"]), f"{name}: K4 != K3"
         for t in range(t_verify):
@@ -600,9 +610,15 @@ def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify
                                                                    for c in caches), cur[:1])
             assert torch.equal(alone, got["razer_kv_attention"][:1]), f"{name}: batch moves sequence 0 (K3)"
         del got
-        # the library calls: dequantized K/V, (B, H, S, hd), masked to each length
-        kd = kv_dequantize(caches[0], caches[1], hd).transpose(1, 2).repeat_interleave(h // kvh, dim=1)
-        vd = kv_dequantize(caches[2], caches[3], hd).transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+        # the library calls on the dequantized K/V, masked to each length:
+        # expanded to the H query heads (B, H, S, hd) in f32 and bf16, and
+        # in bf16 with the heads left grouped (B, KVH, S, hd), each K/V row
+        # read once: through enable_gqa, and with a kv head's G query rows
+        # (and T queries) as the query positions of one attention
+        g = h // kvh
+        kg = kv_dequantize(caches[0], caches[1], hd).transpose(1, 2).contiguous()  # (B, KVH, S, hd)
+        vg = kv_dequantize(caches[2], caches[3], hd).transpose(1, 2).contiguous()
+        kd, vd = kg.repeat_interleave(g, dim=1), vg.repeat_interleave(g, dim=1)
         pos = torch.arange(s_max, device=dev)
         lim = committed[:, None] + torch.arange(t_verify, device=dev)[None, :] + 1
         masks = {"one": pos[None, None, None, :] < cur[:, None, None, None],
@@ -616,6 +632,19 @@ def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify
                                            reps=10)
                 del kk, vv
         del kd, vd
+        kb, vb = kg.to(torch.bfloat16), vg.to(torch.bfloat16)
+        del kg, vg
+        for kind in ("one", "verify"):
+            qq = queries[kind].to(torch.bfloat16)  # (B, H, T, hd)
+            tq = qq.shape[2]
+            lib[(kind, "gqa")] = _cuda_ms(lambda: F.scaled_dot_product_attention(
+                qq, kb, vb, attn_mask=masks[kind], enable_gqa=True), reps=10)
+            qf = qq.reshape(b, kvh, g * tq, hd)  # rows (g, t) of each kv head
+            mf = masks[kind].expand(b, 1, tq, s_max).repeat(1, 1, g, 1).contiguous()  # (B, 1, G T, S)
+            lib[(kind, "grouped")] = _cuda_ms(lambda: F.scaled_dot_product_attention(qf, kb, vb, attn_mask=mf),
+                                              reps=10)
+        del kb, vb
+        bf16_grouped_bytes = 2 * b * kvh * s_max * hd * 2  # the bf16 K and V the grouped calls read
         valid = int(cur.sum())
         rows = {}
         for k, fn in calls.items():
@@ -629,7 +658,9 @@ def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify
             rows[k] = _with_device_time(
                 {"max_abs_err": errs[k], "ms": _cuda_ms(fn, reps=10), "plain_ms": _cuda_ms(plains[k], reps=2, warmup=1),
                  "library_ms": lib[(kind, torch.float32)], "library_bf16_ms": lib[(kind, torch.bfloat16)],
-                 "bound_ms": bound, "bound_by": by, "lengths": sorted(set(lengths))},
+                 "library_bf16_gqa_ms": lib[(kind, "gqa")], "library_bf16_grouped_ms": lib[(kind, "grouped")],
+                 "library_bf16_grouped_bytes": bf16_grouped_bytes, "bound_ms": bound, "bound_by": by,
+                 "lengths": sorted(set(lengths))},
                 fn, "kv_attention_kernel", 1, cold=True)
         out[name] = rows
         detail[f"attention_{name}"] = rows

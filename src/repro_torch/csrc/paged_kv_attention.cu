@@ -23,8 +23,9 @@
 // razer_kv_attend.cuh) over one 256-position split of one sequence, with a
 // row functor that reads page_table[b, p / ps] itself for the positions it
 // stages, and the last block of a (b, kv head) combines the splits.  K5's
-// block takes all T queries of its (b, kv head), so each page is read once
-// for them, and masks query t at cur_len + t + 1 with K4's cut and order:
+// block takes all T queries of its (b, kv head) (up to 32 / G of them; a
+// call with more launches once per 32 / G queries), so each page is read
+// once for them, and masks query t at cur_len + t + 1 with K4's cut and order:
 // K4 gives K3's bits on the same bytes, and K5's query t gives K4's bits at
 // cur_len + t + 1, the exact reduction a vanilla decode step performs there.
 
@@ -69,11 +70,11 @@ struct Launch {
 };
 
 int launch(const void* q, const void* k_codes, const void* k_meta, const void* v_codes, const void* v_meta,
-           const void* page_table, const void* cur_len, void* out, void* ws, void* counters, int B, int T,
-           int verify, int NP, int ps, int KVH, int G, int hd, void* stream) {
+           const void* page_table, const void* cur_len, void* out, void* ws, void* counters, int B, int TQ,
+           int t0, int T, int verify, int NP, int ps, int KVH, int G, int hd, void* stream) {
   using namespace razer_kv;
   const int rows = T * G;
-  if (G < 1 || G > MAX_G || T < 1 || rows > MAX_ROWS || !built_hd(hd) || ps < 1 ||
+  if (G < 1 || G > MAX_G || T < 1 || rows > MAX_ROWS || t0 < 0 || t0 + T > TQ || !built_hd(hd) || ps < 1 ||
       NP < 1 || B < 1 || KVH < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Launch l;
@@ -81,7 +82,7 @@ int launch(const void* q, const void* k_codes, const void* k_meta, const void* v
                static_cast<const uint8_t*>(k_meta), static_cast<const uint8_t*>(v_codes),
                static_cast<const uint8_t*>(v_meta), static_cast<const int*>(cur_len), static_cast<float*>(out),
                static_cast<float*>(ws), static_cast<int*>(counters), T, verify, G, KVH, NP * ps,
-               num_splits(NP * ps), num_groups(num_splits(NP * ps)), B, score_scale(hd),
+               num_splits(NP * ps), num_groups(num_splits(NP * ps)), B, TQ, t0, score_scale(hd),
                {copy_unit(k_codes, hd / 2), copy_unit(k_meta, hd / 16), copy_unit(v_codes, hd / 2),
                 copy_unit(v_meta, hd / 16)}};
   l.page_table = static_cast<const int*>(page_table);
@@ -100,23 +101,25 @@ int launch(const void* q, const void* k_codes, const void* k_meta, const void* v
 // (B, KVH * G, hd) f32; ws a float32 workspace of at least B * KVH *
 // (splits + groups) * partial_floats(G, hd) floats and counters
 // B * KVH * (groups + 1) int32, zero (each call leaves them zero), for the
-// splits(NP * ps) splits and their groups of 8.  G <= 8, hd 16, 32,
-// 64, 128 or 256.  Returns cudaGetLastError().
+// splits(NP * ps) splits and their groups of 8.  G <= 8, hd 16, 64 or
+// 128.  Returns cudaGetLastError().
 extern "C" int paged_kv_attention_launch(const void* q, const void* k_codes, const void* k_meta,
                                          const void* v_codes, const void* v_meta, const void* page_table,
                                          const void* cur_len, void* out, void* ws, void* counters, int B, int NP,
                                          int ps, int KVH, int G, int hd, void* stream) {
-  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, ws, counters, B, 1, 0, NP, ps,
-                KVH, G, hd, stream);
+  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, ws, counters, B, 1, 0, 1, 0, NP,
+                ps, KVH, G, hd, stream);
 }
 
-// K5.  q (B, T, KVH * G, hd) f32; out (B, T, KVH * G, hd) f32; cur_len (B,)
-// int32 is the committed length before the T positions; T * G <= 32; the
-// workspace as K4's with T * G rows; the rest as K4.
+// K5 over queries [t0, t0 + T) of TQ.  q (B, TQ, KVH * G, hd) f32; out
+// (B, TQ, KVH * G, hd) f32, this launch writing its queries' rows; cur_len
+// (B,) int32 is the committed length before the TQ positions; T * G <= 32;
+// the workspace as K4's with T * G rows; the rest as K4.
 extern "C" int paged_kv_attention_verify_launch(const void* q, const void* k_codes, const void* k_meta,
                                                 const void* v_codes, const void* v_meta, const void* page_table,
                                                 const void* cur_len, void* out, void* ws, void* counters, int B,
-                                                int T, int NP, int ps, int KVH, int G, int hd, void* stream) {
-  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, ws, counters, B, T, 1, NP, ps,
-                KVH, G, hd, stream);
+                                                int TQ, int t0, int T, int NP, int ps, int KVH, int G, int hd,
+                                                void* stream) {
+  return launch(q, k_codes, k_meta, v_codes, v_meta, page_table, cur_len, out, ws, counters, B, TQ, t0, T, 1, NP,
+                ps, KVH, G, hd, stream);
 }

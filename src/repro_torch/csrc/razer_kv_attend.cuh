@@ -3,14 +3,15 @@
 // speculative verify, paged_kv_attention.cu), for Hopper (sm_90a).
 //
 // One block attends the R = T * G query rows of one (sequence b, kv head)
-// -- T = 1 for K3/K4, the T verify queries for K5 -- over one split of the
-// sequence, and the last block of the (b, kv head) to finish combines the
-// splits' partials.  The kernels differ only in where position p's packed
-// row lives: K3 at (b, p) of a contiguous (B, S, KVH, .) cache, K4/K5 at
-// slot p % ps of the physical page page_table[b, p / ps] of the pool.  Each
-// passes that mapping as a functor; everything else -- the split cut, the
-// staging, the decode, the scores, the softmax and the order of every
-// floating-point operation -- is this one function.  So K4 on a page table
+// -- T = 1 for K3/K4, for K5 the verify queries [t0, t0 + T) with T * G <=
+// MAX_ROWS (a call with more queries launches once per such range) -- over
+// one split of the sequence, and the last block of the (b, kv head) to
+// finish combines the splits' partials.  The kernels differ only in where
+// position p's packed row lives: K3 at (b, p) of a contiguous (B, S, KVH,
+// .) cache, K4/K5 at slot p % ps of the physical page page_table[b, p / ps]
+// of the pool.  Each passes that mapping as a functor; everything else --
+// the split cut, the staging, the decode, the scores, the softmax and the
+// order of every floating-point operation -- is this one function.  So K4 on a page table
 // that maps a sequence onto its pages returns K3's bits on the same bytes,
 // and K5's query t returns K4's bits at length cur_len + t + 1.
 //
@@ -98,6 +99,7 @@ struct Params {
                   // each partial_floats(R, hd) floats
   int* counters;  // (B * KVH, ngroup_grid) group tickets, then (B * KVH) final tickets; zero between calls
   int T, verify, G, KVH, span, nsplit_grid, ngroup_grid, B;
+  int TQ, t0;                 // K5: q and out hold TQ queries a sequence; this launch takes [t0, t0 + T)
   float score_scale;          // 2^8 / sqrt(hd) * log2(e)
   int unit[4];                // copy unit of k codes, k meta, v codes, v meta: 16, 8, 4 or 1 byte
 };
@@ -356,7 +358,7 @@ __device__ __forceinline__ void combine(const Params& p, const float* in, size_t
     if (den > 0.0f)
       o = make_float4(__fdiv_rn(__fmul_rn(num.x, 256.0f), den), __fdiv_rn(__fmul_rn(num.y, 256.0f), den),
                       __fdiv_rn(__fmul_rn(num.z, 256.0f), den), __fdiv_rn(__fmul_rn(num.w, 256.0f), den));
-    *reinterpret_cast<float4*>(p.out + ((((size_t)b * p.T + row / p.G) * p.KVH + kh) * p.G + row % p.G) * HD + d) = o;
+    *reinterpret_cast<float4*>(p.out + ((((size_t)b * p.TQ + p.t0 + row / p.G) * p.KVH + kh) * p.G + row % p.G) * HD + d) = o;
   }
 }
 
@@ -371,7 +373,7 @@ __device__ __forceinline__ void attend(const Params& p, const RowOf& row_of, int
   const int gq = lane >> 2, tq = lane & 3;  // fragment group and thread in group
   const int T = p.T, G = p.G, R = T * G, NT = (R + 3) / 4;
   const int cl = p.cur_len[b];
-  const int len_max = min(max(cl + (p.verify ? T : 0), 0), p.span);
+  const int len_max = min(max(cl + (p.verify ? p.t0 + T : 0), 0), p.span);
   const int nsplit = num_splits(len_max);
   if (split >= nsplit) return;
   const int s0 = split * SPLIT, s1 = min(s0 + SPLIT, len_max);
@@ -424,7 +426,7 @@ __device__ __forceinline__ void attend(const Params& p, const RowOf& row_of, int
     const int g2 = ln >> 2, t = ln & 3, row = 4 * nt + (g2 & 3);
     uint32_t h[4] = {0u, 0u, 0u, 0u};
     if (row < R) {
-      const float* src = p.q + ((((size_t)b * T + row / G) * p.KVH + kh) * G + row % G) * HD + t * (HD / 4) + 4 * s;
+      const float* src = p.q + ((((size_t)b * p.TQ + p.t0 + row / G) * p.KVH + kh) * G + row % G) * HD + t * (HD / 4) + 4 * s;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float v = src[e];
@@ -503,7 +505,7 @@ __device__ __forceinline__ void attend(const Params& p, const RowOf& row_of, int
     for (int i = 0; i < NTM; ++i) {
       const int row = warp + 4 * i;
       if (row < R) {
-        const int len = min(max(cl + (p.verify ? row / G + 1 : 0), 0), p.span);
+        const int len = min(max(cl + (p.verify ? p.t0 + row / G + 1 : 0), 0), p.span);
         const bool ok0 = c0 + lane < len, ok1 = c0 + lane + 32 < len;
         const float v0 = ok0 ? ssm[row * CHUNK + lane] : -INFINITY;
         const float v1 = ok1 ? ssm[row * CHUNK + lane + 32] : -INFINITY;
@@ -668,10 +670,12 @@ inline int copy_unit(const void* ptr, int rowb) {
   return 1;
 }
 
-// The head widths the kernels are built for (each an instantiation of the
-// body, which the build compiles for each row bound): the port's configs
-// (128, and 16 reduced) and the other powers of two up to 256.
-constexpr bool built_hd(int hd) { return hd == 16 || hd == 32 || hd == 64 || hd == 128 || hd == 256; }
+// The head widths the kernels are built for: each is an instantiation of
+// the body (its fragment layout and registers are fixed by the width),
+// compiled for each row bound at every first build, so only the widths in
+// use are built: the port's configs (128, and 16 reduced) and 64, the
+// tests' second width.
+constexpr bool built_hd(int hd) { return hd == 16 || hd == 64 || hd == 128; }
 
 // Launch kernel<HD, NTM> for a built hd: F is a functor whose go<HD, NTM>()
 // launches it.
@@ -679,10 +683,8 @@ template <int NTM, class F>
 inline int dispatch_hd(int hd, F&& f) {
   switch (hd) {
     case 16: return f.template go<16, NTM>();
-    case 32: return f.template go<32, NTM>();
     case 64: return f.template go<64, NTM>();
     case 128: return f.template go<128, NTM>();
-    case 256: return f.template go<256, NTM>();
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -65,7 +65,7 @@ struct Launch {
 // workspace of at least B * KVH * (splits + groups) * partial_floats(G, hd)
 // floats and counters B * KVH * (groups + 1) int32, zero (each call leaves
 // them zero), for the splits(S) splits and their groups of 8.  G <= 8,
-// hd 16, 32, 64, 128 or 256.  Returns cudaGetLastError().
+// hd 16, 64 or 128.  Returns cudaGetLastError().
 extern "C" int razer_kv_attention_launch(const void* q, const void* k_codes, const void* k_meta,
                                          const void* v_codes, const void* v_meta, const void* cur_len, void* out,
                                          void* ws, void* counters, int B, int S, int KVH, int G, int hd,
@@ -78,7 +78,7 @@ extern "C" int razer_kv_attention_launch(const void* q, const void* k_codes, con
                static_cast<const uint8_t*>(k_meta), static_cast<const uint8_t*>(v_codes),
                static_cast<const uint8_t*>(v_meta), static_cast<const int*>(cur_len), static_cast<float*>(out),
                static_cast<float*>(ws), static_cast<int*>(counters), 1, 0, G, KVH, S, num_splits(S),
-               num_groups(num_splits(S)), B, score_scale(hd),
+               num_groups(num_splits(S)), B, 1, 0, score_scale(hd),
                {copy_unit(k_codes, hd / 2), copy_unit(k_meta, hd / 16), copy_unit(v_codes, hd / 2),
                 copy_unit(v_meta, hd / 16)}};
   l.B = B, l.S = S;

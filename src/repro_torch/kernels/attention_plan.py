@@ -15,19 +15,19 @@ holds them equal).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["SPLIT", "CHUNK", "GROUP", "MAX_G", "MAX_ROWS", "HEAD_DIMS", "num_splits", "num_groups", "split_bounds",
-           "partial_floats", "workspace_size", "workspace"]
+__all__ = ["SPLIT", "CHUNK", "GROUP", "MAX_G", "MAX_ROWS", "HEAD_DIMS", "num_splits", "num_groups", "partial_floats",
+           "workspace_size", "workspace"]
 
 SPLIT = 256  # positions per split: a multiple of CHUNK and of the page size 16
 CHUNK = 64  # positions a block stages and computes per step
 MAX_G = 8  # query rows per kv head
-MAX_ROWS = 32  # T * G query rows of one block (K5)
+MAX_ROWS = 32  # T * G query rows of one block (K5 launches once per MAX_ROWS // G queries)
 GROUP = 8  # splits combined together first
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the head widths the kernels are built for
+HEAD_DIMS = (16, 64, 128)  # the head widths the kernels are built for: the configs' 128 (16 reduced), the tests' 64
 
 
 def num_splits(length: int) -> int:
@@ -38,11 +38,6 @@ def num_splits(length: int) -> int:
 def num_groups(splits: int) -> int:
     """Groups of ``GROUP`` consecutive splits (the first level of the combine)."""
     return -(-int(splits) // GROUP)
-
-
-def split_bounds(length: int) -> List[Tuple[int, int]]:
-    """The [start, end) positions of each split of a sequence of ``length``."""
-    return [(s, min(s + SPLIT, length)) for s in range(0, num_splits(length) * SPLIT, SPLIT)]
 
 
 def partial_floats(rows: int, hd: int) -> int:

@@ -16,7 +16,7 @@ __all__ = ["paged_kv_attention_cuda", "paged_kv_attention_verify_cuda", "plain",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]  # K4: ..., out, ws, counters, B, NP, ps, KVH, G, hd, stream
-_VERIFY_ARGTYPES = [_P] * 10 + [_I] * 7 + [_P]  # K5: ..., B, T, NP, ps, KVH, G, hd, stream
+_VERIFY_ARGTYPES = [_P] * 10 + [_I] * 9 + [_P]  # K5: ..., B, T, first query, queries, NP, ps, KVH, G, hd, stream
 
 
 def _check(name, q, pool, page_table, cur_len, check_pages: bool):
@@ -76,25 +76,28 @@ def paged_kv_attention_verify_cuda(q, k_codes, k_meta, v_codes, v_meta, page_tab
                                    check_pages: bool = False) -> torch.Tensor:
     """K5: q (B, T, H, hd) f32; query t of sequence b attends positions
     < cur_len[b] + t + 1 (cur_len = the committed length) -> (B, T, H, hd)
-    f32; one block reads a split's pages once for all T queries, so T * G
-    <= 32.  Pool and table as ``paged_kv_attention_cuda``."""
+    f32.  One block reads a split's pages once for up to 32 // G queries;
+    a larger T launches the kernel once per 32 // G queries, each masked at
+    its own length, so every query returns K4's bits there.  Pool and table
+    as ``paged_kv_attention_cuda``."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, T, H, hd), got {tuple(q.shape)}")
     pool = (k_codes, k_meta, v_codes, v_meta)
     b, n_p, ps, kvh, g, hd = _check("paged_kv_attention_verify_cuda", q, pool, page_table, cur_len,
                                     check_pages)
     t = q.shape[1]
-    if t * g > attention_plan.MAX_ROWS:
-        raise ValueError(f"T * G = {t} * {g} query rows exceed the kernel's {attention_plan.MAX_ROWS}")
+    step = min(t, attention_plan.MAX_ROWS // g)  # queries a launch takes
     out = torch.empty_like(q)
-    ws, tickets = attention_plan.workspace(q.device, *attention_plan.workspace_size(b, kvh, n_p * ps, t * g, hd))
+    ws, tickets = attention_plan.workspace(q.device, *attention_plan.workspace_size(b, kvh, n_p * ps, step * g, hd))
     fn = build.function("paged_kv_attention", "paged_kv_attention_verify_launch", _VERIFY_ARGTYPES)
     with torch.cuda.device(q.device):
-        status = fn(q.data_ptr(), *(x.data_ptr() for x in pool), page_table.data_ptr(), cur_len.data_ptr(),
-                    out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, t, n_p, ps, kvh, g, hd,
-                    torch.cuda.current_stream().cuda_stream)
-    build.check(status, "paged_kv_attention_verify")
-    paged_kv_attention_verify_cuda.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for t0 in range(0, t, step):
+            status = fn(q.data_ptr(), *(x.data_ptr() for x in pool), page_table.data_ptr(), cur_len.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, t, t0, min(step, t - t0), n_p, ps,
+                        kvh, g, hd, stream)
+            build.check(status, "paged_kv_attention_verify")
+            paged_kv_attention_verify_cuda.launches += 1
     return out
 
 

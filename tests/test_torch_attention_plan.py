@@ -1,14 +1,13 @@
-"""The split plan of the decode-attention kernels K3, K4 and K5
-(``kernels.attention_plan``), and their plain versions against the Pallas
-kernels in interpret mode at lengths that span several splits and pages.
+"""The host side of the decode-attention kernels K3, K4 and K5
+(``kernels.attention_plan``: the split count and workspace the wrappers
+size each call with), and their plain versions against the Pallas kernels
+in interpret mode at lengths around a page, a split and several splits.
 
-The CUDA body cuts a sequence of length L into splits of SPLIT positions
-and combines them in split order; that cut must depend on L alone, so that
-a sequence's output does not move with the batch around it, and K5's query
-t must see K4's cut at its own length.  The kernels run only on a card
-(``tests/test_torch_cuda.py``); these tests hold the host copy of the plan
-to those properties and to the CUDA constants, and the plain versions the
-kernels are held to on the card to the reference at the same lengths.
+The kernels run only on a card: ``tests/test_torch_cuda.py`` holds them to
+their plain versions, K4 == K3, K5's query t == K4 at its length and a
+sequence's output alone == inside a batch.  Here the plan's constants are
+held equal to the CUDA body's, and the plain versions the kernels are held
+to on the card are held to the reference.
 """
 import pathlib
 import re
@@ -22,7 +21,7 @@ from repro.kernels import ops as jax_ops
 from repro.serving.kvcache import kv_quantize as jax_kv_quantize
 from repro_torch.kernels import ops
 from repro_torch.kernels.attention_plan import (CHUNK, GROUP, HEAD_DIMS, MAX_G, MAX_ROWS, SPLIT, num_groups,
-                                                num_splits, partial_floats, split_bounds, workspace_size)
+                                                num_splits, partial_floats, workspace, workspace_size)
 
 torch.set_num_threads(2)
 BODY = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc" / "razer_kv_attend.cuh"
@@ -31,49 +30,16 @@ LENGTHS = [0, 1, 15, 16, 17, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT, 4001, 4096,
 TOL = 1e-5  # f32: the plain versions and the Pallas kernels sum in other orders
 
 
-def _grid_ranges(length: int, span: int):
-    """The [s0, s1) each block of a grid sized from ``span`` covers for a
-    sequence of ``length``, as the CUDA body computes it (blocks past the
-    sequence's last split return)."""
-    out = []
-    for split in range(num_splits(span)):
-        if split >= num_splits(length):
-            continue
-        s0 = split * SPLIT
-        out.append((s0, min(s0 + SPLIT, length)))
-    return out
-
-
 @pytest.mark.parametrize("length", LENGTHS)
-def test_split_cut_covers_the_sequence_exactly(length):
-    bounds = split_bounds(length)
-    assert bounds[0][0] == 0 and bounds[-1][1] == length
-    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))  # contiguous, no overlap
-    assert all(0 < e - s <= SPLIT for s, e in bounds) or length == 0
-    assert all(s % PAGE == 0 and s % SPLIT == 0 for s, _ in bounds)  # page- and split-aligned starts
-    assert len(bounds) == num_splits(length)
-
-
-@pytest.mark.parametrize("length", LENGTHS)
-def test_split_cut_depends_on_the_length_alone(length):
-    """Whatever the span the grid is sized from (a wider table, a longer
-    cache, another sequence in the batch), the blocks that do work for a
-    sequence cover exactly its own splits."""
-    for span in {max(length, 1), length + PAGE, 2 * length + 1, 32768 + 4096}:
-        if span >= length:
-            assert _grid_ranges(length, span) == split_bounds(length)
-
-
-@pytest.mark.parametrize("committed", [0, SPLIT - 2, SPLIT - 1, 2 * SPLIT - 3, 4000])
-def test_verify_queries_see_the_decode_cut(committed, t_count=3):
-    """K5's block reads up to committed + T; query t's splits are the first
-    splits of that range, and any further split holds no position of it
-    (an exact no-op in the combine)."""
-    whole = split_bounds(committed + t_count)
-    for t in range(t_count):
-        own = split_bounds(committed + t + 1)
-        assert whole[: len(own)][:-1] == own[:-1] and whole[len(own) - 1][0] == own[-1][0]
-        assert all(s >= committed + t + 1 for s, _ in whole[len(own):])
+def test_split_count_covers_the_sequence(length):
+    """The host's split count (which sizes the workspace for a table's span)
+    cuts [0, L) into page-aligned splits of SPLIT positions, the last one
+    non-empty, and groups them GROUP at a time in split order."""
+    n = num_splits(length)
+    assert (n - 1) * SPLIT < max(length, 1) <= n * SPLIT
+    assert SPLIT % PAGE == 0
+    g = num_groups(n)
+    assert (g - 1) * GROUP < n <= g * GROUP
 
 
 def test_plan_constants_match_the_cuda_body():
@@ -85,6 +51,8 @@ def test_plan_constants_match_the_cuda_body():
     built = re.search(r"constexpr bool built_hd\(int hd\) \{ return ([^;]+);", src).group(1)
     assert tuple(int(v) for v in re.findall(r"hd == (\d+)", built)) == HEAD_DIMS
     assert tuple(int(v) for v in re.findall(r"case (\d+): return f\.template go<\1, NTM>", src)) == HEAD_DIMS
+    splits = re.search(r"inline int num_splits\(int len\) \{ return ([^}]+)\}", src).group(1)
+    assert splits.strip() == "len > SPLIT ? (len + SPLIT - 1) / SPLIT : 1;"
 
 
 @pytest.mark.parametrize("rows,hd", [(1, 16), (3, 128), (6, 128), (9, 128), (32, 64), (8, 256)])
@@ -94,13 +62,16 @@ def test_partials_stay_16_byte_aligned(rows, hd):
     assert workspace_size(1, 8, 32768, rows, hd) == (8 * (128 + 16) * partial_floats(rows, hd), 8 * 17)
 
 
-@pytest.mark.parametrize("splits", [1, 2, 7, 8, 9, 16, 17, 128])
-def test_groups_cover_the_splits_in_order(splits):
-    """The first level of the combine: groups of GROUP consecutive splits,
-    fixed by split index, so an extra all-masked split (K5's longer range)
-    joins the last group or forms a group of its own."""
-    groups = [list(range(g * GROUP, min((g + 1) * GROUP, splits))) for g in range(num_groups(splits))]
-    assert sum(groups, []) == list(range(splits)) and all(0 < len(g) <= GROUP for g in groups)
+def test_workspace_is_kept_and_grown():
+    """One workspace per device, kept between calls, grown when a call
+    needs more; its tickets start at zero."""
+    dev = torch.device("cpu", 0)
+    ws, tickets = workspace(dev, 100, 4)
+    assert ws.numel() >= 100 and tickets.numel() >= 4 and int(tickets.abs().sum()) == 0
+    again, again_t = workspace(dev, 50, 2)
+    assert again is ws and again_t is tickets
+    bigger, bigger_t = workspace(dev, ws.numel() + 1, tickets.numel() + 1)
+    assert bigger.numel() > ws.numel() and bigger_t.numel() > tickets.numel() and int(bigger_t.sum()) == 0
 
 
 # --- the plain versions against the Pallas kernels (interpret mode) -------------------------------
@@ -124,7 +95,8 @@ def _paged_case(seed, lengths, ps=PAGE):
     return rng, jcache, tcache, pt
 
 
-@pytest.mark.parametrize("lengths", [[SPLIT + 1, 2 * SPLIT + 17], [3, SPLIT - 1]])
+@pytest.mark.parametrize("lengths", [[1], [15], [16], [17], [SPLIT - 1], [SPLIT], [SPLIT + 1],
+                                     [SPLIT + 1, 2 * SPLIT + 17], [3, SPLIT - 1]])
 def test_paged_plain_matches_pallas_over_splits(lengths):
     rng, jcache, tcache, pt = _paged_case(21, lengths)
     q = rng.standard_normal((len(lengths), KVH * G, HD)).astype(np.float32)

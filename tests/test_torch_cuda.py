@@ -326,7 +326,7 @@ def test_cuda_kshard_grouped_chunks_at_edge_m(cuda_device, chunks):
 # Lengths around a page (16), a split and several splits.
 _SPLIT = attention_plan.SPLIT
 _LENGTHS = [1, 15, 16, 17, _SPLIT - 1, _SPLIT, _SPLIT + 1, 3 * _SPLIT + 40]
-_HEADS = [(3, 128), (4, 64), (6, 128), (8, 64), (2, 16), (3, 32)]  # (G, hd)
+_HEADS = [(3, 128), (4, 64), (6, 128), (8, 64), (2, 16), (1, 128)]  # (G, hd)
 
 
 def _long_fixture(device, g, hd, lengths, kvh=2, ps=16, seed=11, extra_pages=1):
@@ -419,8 +419,20 @@ def test_cuda_split_attention_is_batch_invariant(cuda_device, kernel):
 
 
 @pytest.mark.cuda
-def test_cuda_verify_refuses_too_many_rows(cuda_device):
-    q, pool, table, cur = _long_fixture(cuda_device, 8, 64, [20])
-    qt = q[:, None].expand(1, 5, *q.shape[1:]).contiguous()  # T * G = 40 > 32
-    with pytest.raises(ValueError, match="query rows"):
-        paged_kv_attention_verify_cuda(qt, *pool, table, cur)
+@pytest.mark.parametrize("g,hd,t", [(8, 64, 5), (6, 128, 7), (3, 128, 11)])
+def test_cuda_verify_beyond_one_block_of_rows_equals_decode_bitwise(cuda_device, g, hd, t):
+    """T * G above a block's 32 rows (speculate_k >= 5 on dbrx's G = 6): K5
+    launches once per 32 // G queries, each query within 1e-4 of the plain
+    version and bit for bit K4 at committed + t + 1."""
+    lengths = [_SPLIT - 4, 2 * _SPLIT + 3, 3 * _SPLIT + 40]
+    q, pool, table, cur = _long_fixture(cuda_device, g, hd, lengths, seed=14, extra_pages=2)
+    qt = torch.randn((len(lengths), t, *q.shape[1:]), generator=torch.Generator(device=cuda_device).manual_seed(5),
+                     device=cuda_device)
+    committed = cur - t // 2  # the later queries cross a split edge
+    before = paged_kv_attention_verify_cuda.launches
+    got = paged_kv_attention_verify_cuda(qt, *pool, table, committed, check_pages=True)
+    assert paged_kv_attention_verify_cuda.launches - before == -(-t // (32 // g))
+    torch.testing.assert_close(got, ref.paged_kv_attention_verify_ref(qt, *pool, table, committed),
+                               rtol=1e-4, atol=1e-4)
+    for i in range(t):
+        assert torch.equal(got[:, i], paged_kv_attention_cuda(qt[:, i].contiguous(), *pool, table, committed + i + 1))

@@ -22,10 +22,15 @@ a textual patch, built by nvcc with ``razer_kv_attention.cu`` into
   no_copies    copies_only without the copies;
   split_512    splits of 512 positions in place of 256 (half the blocks);
   blocks_4, blocks_8  registers capped for 4 or 8 resident blocks of the
-               main path's instantiation in place of 6.
+               main path's instantiation in place of 6;
+  no_lo_parts  q and P as one bf16 part each, their low parts zero (what
+               the high/low split buys in accuracy).
 
-Only ``kernel``, ``whole_split`` and ``blocks_*`` compute the right output;
-the others exist to be timed (a variant that drops the partial lets the
+Only ``kernel``, ``whole_split``, ``split_512`` and ``blocks_*`` compute the
+right output, ``no_lo_parts`` a less accurate one; for these the largest
+|error| against the plain version (``kernels.ref``) is measured on KV-
+quantized caches at the two long shapes (``chip_smoke.py``'s phase-3
+cases).  The others exist to be timed (a variant that drops the partial lets the
 compiler drop the output math with it: ``copies_bare`` skips the math
 explicitly).  Shapes: llama3_2_3b heads (G 3, hd 128) over random wire bytes, B 16 at
 4096 positions (one sequence at 4001) and B 1 at 32768 with KVH 8, and B 128
@@ -75,7 +80,11 @@ PATCHES = {
     "split_512": [("constexpr int SPLIT = 256;", "constexpr int SPLIT = 512;")],
     "blocks_4": [(_MINB, _MINB.replace("? 6 :", "? 4 :"))],
     "blocks_8": [(_MINB, _MINB.replace("? 6 :", "? 8 :"))],
+    "no_lo_parts": [("h[e] = g2 < 4 ? hi : bf16_bits_rn(__fsub_rn(v, bf16_value(hi)));", "h[e] = g2 < 4 ? hi : 0u;"),
+                    ("lo = bf16_bits_rn(__fsub_rn(pv, bf16_value(hi)));", "lo = 0u;")],
 }
+# variants whose output is measured against the plain version
+MEASURED = ("kernel", "whole_split", "split_512", "blocks_4", "blocks_8", "no_lo_parts")
 # name -> (lengths, kv heads); llama3_2_3b's G = 3 and hd 128.  B128_L4096_KVH1
 # holds B16_L4096's bytes with one kv head, so that a block's rows are
 # contiguous in memory rather than one 64-byte head row in eight.
@@ -141,7 +150,38 @@ def _time(variant: str) -> dict:
         out[name] = start.elapsed_time(end) / 20
         del caches
         torch.cuda.empty_cache()
+    if variant in MEASURED:
+        out["max_abs_err"] = _errors(fn, dev, g, hd)
     return out
+
+
+def _errors(fn, dev, g, hd):
+    """Largest |K3 variant - plain| at chip_smoke's long shapes, on
+    KV-quantized random caches (seed 1)."""
+    import types
+
+    import torch
+
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import attention_plan, ref
+
+    cfg = types.SimpleNamespace(num_heads=8 * g, num_kv_heads=8, hd=hd)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    errs = {}
+    for name, lengths in cs.LONG_ATTENTION.items():
+        _, _, caches, q, cur = cs._attention_case(cfg, dev, gen, lengths)
+        b, s = caches[0].shape[:2]
+        o = torch.empty_like(q)
+        ws, tickets = attention_plan.workspace(dev, *attention_plan.workspace_size(b, 8, s, g, hd))
+        st = fn(q.data_ptr(), *(c.data_ptr() for c in caches), cur.data_ptr(), o.data_ptr(), ws.data_ptr(),
+                tickets.data_ptr(), b, s, 8, g, hd, torch.cuda.current_stream().cuda_stream)
+        if st:
+            raise RuntimeError(f"CUDA error {st} at launch")
+        errs[name] = float((o - ref.razer_kv_attention_ref(q, *caches, cur)).abs().max())
+        del caches
+        torch.cuda.empty_cache()
+    return errs
 
 
 def main() -> int:
