@@ -4,8 +4,8 @@
 
 Phases, each printing one line (and failing the run with a traceback):
   1. device  -- the card's name and power limit (exits non-zero without CUDA);
-  2. build   -- nvcc builds the kernels from the five src/repro_torch/csrc/*.cu;
-  3. kernels -- each of the eight kernels against its plain PyTorch version on
+  2. build   -- nvcc builds the kernels from the seven src/repro_torch/csrc/*.cu;
+  3. kernels -- each of the ten kernels against its plain PyTorch version on
                 the card, K1-K5 at the full-width llama3_2_3b shapes and the
                 grouped GEMM K6 at the full-width dbrx_132b expert banks, with
                 times, and the bit-identities the serving invariants rest on:
@@ -14,12 +14,21 @@ Phases, each printing one line (and failing the run with a traceback):
                 K1 on bank entry e, K6's rows across batch sizes; K3, K4 and
                 K5 also at B 16 x 4096 (one sequence at 4001) and B 1 x
                 32768 with llama heads: plain versions, K4 == K3, K5 == K4
-                and a sequence's output alone == inside the batch;
+                and a sequence's output alone == inside the batch; K1 and
+                K2 rows across M up to 1024 (prefill's 8 x 128 rows); the
+                W4A4 path with x fake-quantized in K1/K7's own load == K2
+                then K1/K7 bit for bit, timed both ways at M 4 and 128; the
+                prefill attention kernel K9 against its plain version, a
+                prompt alone at its bucket == inside a batch at the
+                128-token bucket, timed beside SDPA; the RMSNorm kernel K10
+                against its plain version, its rows alone == in a batch;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
                 checked against the path's expected count, and a
-                torch.profiler breakdown of one generate;
+                torch.profiler breakdown of one generate; one W4A4 decode
+                forward launches no K2 and 196 K1 that quantize x in
+                their load;
   4b. paged  -- teacher-forced decode over the paged pool against the
                 contiguous cache on the same bytes: logits bit-identical;
   4c. serve  -- full-width Engine.serve (continuous batching, prefix cache
@@ -189,27 +198,36 @@ def _bound_ms(nbytes: float, flops: float):
 
 
 def _counters():
+    """name -> (wrapper, counter attribute): each wrapper adds one to its
+    count where it launches its kernel; K1 and K7 also count the launches
+    that fake-quantized x in their load (the fused W4A4 path)."""
     from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
     from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
     from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
+    from repro_torch.kernels.rms_norm import rms_norm_cuda
 
-    return {"razer_matmul": razer_matmul_cuda, "razer_act_qdq": razer_act_qdq_cuda,
-            "razer_kv_attention": razer_kv_attention_cuda, "paged_kv_attention": paged_kv_attention_cuda,
-            "paged_kv_attention_verify": paged_kv_attention_verify_cuda,
-            "razer_grouped_matmul": razer_grouped_matmul_cuda,
-            "razer_matmul_kshard": razer_matmul_kshard_cuda,
-            "razer_grouped_matmul_kshard": razer_grouped_matmul_kshard_cuda}
+    return {"razer_matmul": (razer_matmul_cuda, "launches"), "razer_act_qdq": (razer_act_qdq_cuda, "launches"),
+            "razer_kv_attention": (razer_kv_attention_cuda, "launches"),
+            "paged_kv_attention": (paged_kv_attention_cuda, "launches"),
+            "paged_kv_attention_verify": (paged_kv_attention_verify_cuda, "launches"),
+            "razer_grouped_matmul": (razer_grouped_matmul_cuda, "launches"),
+            "razer_matmul_kshard": (razer_matmul_kshard_cuda, "launches"),
+            "razer_grouped_matmul_kshard": (razer_grouped_matmul_kshard_cuda, "launches"),
+            "razer_matmul_fused_act": (razer_matmul_cuda, "fused_act_launches"),
+            "razer_matmul_kshard_fused_act": (razer_matmul_kshard_cuda, "fused_act_launches"),
+            "prefill_attention": (prefill_attention_cuda, "launches"), "rms_norm": (rms_norm_cuda, "launches")}
 
 
 def _reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts():
-    return {name: fn.launches for name, fn in _counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 MAIN_PATH_LAUNCHES = {}  # kernel -> launches summed over every main-path run
@@ -230,8 +248,9 @@ def _per_forward(cfg, tp: int = 1):
     16) == 0 and N % tp == 0), K1 (the rest: the 4 attention linears of
     every layer, the 3 MLP linears of a dense layer, the shared experts' 3
     of an MoE layer), K8 (an MoE layer's 3 banks when the trio K-shards: d
-    and f % (tp * 16) == 0) and K6 (a trio that does not).  K2 runs once
-    before every K1 and K7 under W4A4."""
+    and f % (tp * 16) == 0) and K6 (a trio that does not).  Under W4A4 every
+    K1 and K7 fake-quantizes x: in its own load at decode-sized M, else
+    after a K2 launch."""
     from repro_torch.models.transformer import layer_groups
 
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
@@ -251,14 +270,54 @@ def _per_forward(cfg, tp: int = 1):
     return out
 
 
-def _want_counts(cfg, tp, policy, target_passes, decode_steps=0, paged=0, verify=0):
-    """Exact launch counts of a run of ``target_passes`` target forwards."""
+def _want_counts(cfg, tp, policy, prefill_m, decode_m=0, decode_passes=0, decode_steps=0, paged=0, verify=0,
+                 draft_passes=0):
+    """Exact launch counts of a run of target forwards: prefills of
+    ``prefill_m`` rows each (K9 once per layer each) and ``decode_passes``
+    decode or verify passes of ``decode_m`` rows.  Under W4A4 a pass of M <=
+    ``FUSE_ACT_MAX_M`` rows quantizes x inside K1/K7, a larger one launches
+    K2 before each; ``decode_steps``, ``paged`` and ``verify`` count K3, K4
+    and K5 passes; every forward, a speculative draft's ``draft_passes``
+    too, runs K10 for each norm."""
+    from repro_torch.kernels.razer_matmul import FUSE_ACT_MAX_M
+
     per = _per_forward(cfg, tp)
-    want = {name: n * target_passes for name, n in per.items()}
-    want["razer_act_qdq"] = (want["razer_matmul"] + want["razer_matmul_kshard"]) if policy.act is not None else 0
-    want.update(razer_kv_attention=cfg.num_layers * decode_steps, paged_kv_attention=cfg.num_layers * paged,
+    ms = list(prefill_m) + [decode_m] * decode_passes
+    want = {name: n * len(ms) for name, n in per.items()}
+    act = policy.act is not None
+    fused = sum(m <= FUSE_ACT_MAX_M for m in ms) if act else 0
+    unfused = len(ms) - fused if act else 0
+    want.update(razer_act_qdq=(per["razer_matmul"] + per["razer_matmul_kshard"]) * unfused,
+                razer_matmul_fused_act=per["razer_matmul"] * fused,
+                razer_matmul_kshard_fused_act=per["razer_matmul_kshard"] * fused,
+                prefill_attention=cfg.num_layers * len(prefill_m),
+                rms_norm=(cfg.num_layers * (4 if cfg.qk_norm else 2) + 1) * (len(ms) + draft_passes),
+                razer_kv_attention=cfg.num_layers * decode_steps, paged_kv_attention=cfg.num_layers * paged,
                 paged_kv_attention_verify=cfg.num_layers * verify)
     return want
+
+
+def _generate_want(cfg, tp, policy, stats):
+    """``_want_counts`` of one generate from its ``Engine.stats``: a prefill
+    of batch x bucket rows, then decode steps of batch rows over K3."""
+    steps = stats["decode_steps"]
+    return _want_counts(cfg, tp, policy, [stats["batch"] * stats["bucket"]], stats["batch"], steps,
+                        decode_steps=steps)
+
+
+def _serve_prefill_m(eng, requests):
+    """The rows of each prefill a serve ran: each request not deduplicated
+    prefills its uncached suffix, padded to its bucket."""
+    return [eng._bucket(len(r.prompt) - r.cached_tokens) for r in requests if r.dedup_of is None]
+
+
+def _serve_want(cfg, tp, policy, prefill_m, decode_steps, k=0, draft_steps=0, slots=4):
+    """``_want_counts`` of one serve over ``slots`` slots: its prefills, then
+    decode steps (K4) of ``slots`` rows, or with ``k`` drafts verify passes
+    (K5) of slots x (k + 1) rows and the draft's K4 steps."""
+    return _want_counts(cfg, tp, policy, prefill_m, slots * (k + 1), decode_steps,
+                        paged=(0 if k else decode_steps) + draft_steps, verify=decode_steps if k else 0,
+                        draft_passes=draft_steps)
 
 
 MESHLESS = {}  # (arch, policy, what) -> a meshless run's output, for phase 6
@@ -272,6 +331,9 @@ def _linear_shapes(cfg):
     return [("wq", d, cfg.num_heads * hd), ("wk", d, cfg.num_kv_heads * hd),
             ("wv", d, cfg.num_kv_heads * hd), ("wo", cfg.num_heads * hd, d),
             ("gate", d, cfg.d_ff), ("up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
+
+
+ROW_INVARIANT_M = [1, 4, 8, 24, 128, 1024]  # 1024: prefill's 8 prompts at the 128-token bucket
 
 
 def _check_matmul(cfg, dev, gen, detail):
@@ -296,12 +358,15 @@ def _check_matmul(cfg, dev, gen, detail):
             err = (got - want).abs()
             assert bool((err <= bound).all()), f"razer_matmul K={k} N={n} M={m}: {float(err.max())}"
             max_err = max(max_err, float(err.max()))
-        # split-K boundaries depend on (N, K) only: a row's bits do not move with M
-        x = torch.randn((128, k), generator=gen, device=dev).to(torch.bfloat16)
-        rows = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
-                                  m1=pw.sv_magnitudes[1])[:1] for m in (1, 4, 8, 24, 128)]
-        assert all(torch.equal(r, rows[0]) for r in rows[1:]), f"razer_matmul K={k} N={n}: row 0 moves with M"
-    detail["razer_matmul_row_invariant_M"] = [1, 4, 8, 24, 128]
+        # split-K boundaries depend on (N, K) only: a row's bits do not move
+        # with M, up to prefill's 8 x 128 rows; nor with the activation
+        # fake-quant, fused into the load or as K2 then K1
+        x = (torch.randn((1024, k), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        for act in ({}, {"act_svs": (5.0, -5.0), "fused": True}, {"act_svs": (5.0, -5.0), "fused": False}):
+            rows = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                                      m1=pw.sv_magnitudes[1], **act)[:1] for m in ROW_INVARIANT_M]
+            assert all(torch.equal(r, rows[0]) for r in rows[1:]), f"razer_matmul K={k} N={n} {act}: row 0 moves"
+    detail["razer_matmul_row_invariant_M"] = ROW_INVARIANT_M
     dense = [{name: layer[name].dequantize().to(torch.bfloat16) for name, _, _ in shapes} for layer in layers]
     out = {}
     for m in (4, 4 * 32):
@@ -358,7 +423,8 @@ def _split_k_cost(cfg, dev, gen, detail, m: int = 128):
         for x, pw, out, plan, k, n in calls:
             sp, pr = (plan.splits, plan.k_tiles_per_split) if new else (1, k // 64)
             build.check(fn(x.data_ptr(), 1, pw.codes.data_ptr(), pw.scale_meta.data_ptr(), out.data_ptr(), m, k, n,
-                           plan.nt, sp, pr, pw.sv_magnitudes[0], pw.sv_magnitudes[1], stream), "razer_matmul")
+                           plan.nt, sp, pr, pw.sv_magnitudes[0], pw.sv_magnitudes[1], None, 0, stream),
+                        "razer_matmul")
 
     times = {"nk_splits": [], "one_split": []}
     for new in (True, False, False, True):
@@ -376,6 +442,16 @@ def _check_act_qdq(cfg, dev, gen, detail):
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 
     ks = [k for _, k, _ in _linear_shapes(cfg)]
+    # a row's bits do not move with M (each 16-value block on its own), up
+    # to prefill's 8 x 128 rows; a four-value special set as well
+    x = (torch.randn((1024, ks[0]), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    whole = razer_act_qdq_cuda(x)
+    for m in ROW_INVARIANT_M[:-1]:
+        assert torch.equal(razer_act_qdq_cuda(x[:m].contiguous()).view(torch.int16), whole[:m].view(torch.int16)), m
+    svs4 = (5.0, -5.0, 8.0, -8.0)
+    assert torch.equal(razer_act_qdq_cuda(x, svs4).view(torch.int16),
+                       ref.razer_act_qdq_ref(x, svs=svs4).view(torch.int16)), "razer_act_qdq, four special values"
+    detail["razer_act_qdq_row_invariant_M"] = ROW_INVARIANT_M
     out = {}
     for m in (4, 4 * 32):
         xs = {k: (torch.randn((m, k), generator=gen, device=dev) * 3).to(torch.bfloat16) for k in set(ks)}
@@ -391,6 +467,201 @@ def _check_act_qdq(cfg, dev, gen, detail):
             lambda: [razer_act_qdq_cuda(xs[k]) for k in ks], "razer_act_qdq_kernel", len(ks))
         detail[f"razer_act_qdq_layer_M{m}"] = out[m]
     return 0.0, out[4]
+
+
+def _check_fused_act(cfg, dev, gen, detail):
+    """K1 and K7 fake-quantizing x in their own load (the W4A4 path at
+    decode-sized M) against K2 followed by K1 / K7: bit for bit at M 1, 4,
+    12, 128 and 1024, bf16 and f32 x, the activation set (5, -5) and a set
+    of four; then one llama layer's 7 linears timed both ways at M = 4 and
+    M = 128 (device time from the profiler, K1 plus K2 for the two-launch
+    path), beside the plain qdq + matmul and the bound of the fused
+    function (x, the wire bytes and y once; 2 M K N operations)."""
+    from repro_torch.core.packing import pack_weight, take_shard
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
+    from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
+
+    shapes = _linear_shapes(cfg)
+    layers = [{name: pack_weight(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
+               for name, k, n in shapes} for _ in range(4)]
+    svs = (5.0, -5.0)
+    for name, k, n in shapes[:1] + shapes[4:5] + shapes[6:]:  # (K, N) kinds
+        pw = layers[0][name]
+        mm = dict(m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1])
+        shard = take_shard(pw, tp=2, tp_index=1)
+        for m in (1, 4, 12, 128, 1024):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = (torch.randn((m, k), generator=gen, device=dev) * 3).to(dtype)
+                for sv in (svs, (5.0, -5.0, 8.0, -8.0)):
+                    two = razer_matmul_cuda(razer_act_qdq_cuda(x, sv), pw.codes, pw.scale_meta, **mm)
+                    got = razer_matmul_cuda(x, pw.codes, pw.scale_meta, act_svs=sv, fused=True, **mm)
+                    assert torch.equal(got, two), ("fused K1 != K2 then K1", name, m, dtype, sv)
+                xs = x[:, k // 2:].contiguous()
+                two = razer_matmul_kshard_cuda(razer_act_qdq_cuda(xs, svs), shard.codes, shard.scale_meta,
+                                               out_chunks=2, **mm)
+                got = razer_matmul_kshard_cuda(xs, shard.codes, shard.scale_meta, out_chunks=2, act_svs=svs,
+                                               fused=True, **mm)
+                assert torch.equal(got, two), ("fused K7 != K2 then K7", name, m, dtype)
+    detail["razer_matmul_fused_act_bit_identical"] = {"M": [1, 4, 12, 128, 1024], "x": ["bf16", "f32"],
+                                                      "svs": [list(svs), [5.0, -5.0, 8.0, -8.0]]}
+    out = {}
+    for m in (4, 128):
+        xs = {k: (torch.randn((m, k), generator=gen, device=dev) * 3).to(torch.bfloat16) for _, k, _ in shapes}
+
+        def run(fused):
+            def go():
+                for layer in layers:
+                    for name, k, _ in shapes:
+                        pw = layer[name]
+                        razer_matmul_cuda(xs[k], pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
+                                          m1=pw.sv_magnitudes[1], act_svs=svs, fused=fused)
+            return go
+
+        def plain_layer():
+            for name, k, _ in shapes:
+                ref.razer_matmul_ref(ref.razer_act_qdq_ref(xs[k], svs=svs), layers[0][name])
+
+        nbytes = sum(m * k * 2 + k * n // 2 + k * n // 16 + m * n * 4 for _, k, n in shapes)
+        bound, by = _bound_ms(nbytes, sum(2 * m * k * n for _, k, n in shapes))
+        row = _with_device_time({"ms": _cuda_ms(run(True), reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
+                                 "library_ms": None, "bound_ms": bound, "bound_by": by},
+                                run(True), "gemm_kernel<K1,", 7)
+        k1_ms = _device_ms(run(False), "gemm_kernel<K1,")[0] / 4
+        k2_ms = _device_ms(run(False), "razer_act_qdq_kernel")[0] / 4
+        row.update(two_launch_ms=_cuda_ms(run(False), reps=10) / 4, two_launch_device_ms=k1_ms + k2_ms,
+                   two_launch_k1_device_ms=k1_ms, two_launch_k2_device_ms=k2_ms, k2_launches_per_layer_fused=0,
+                   k2_launches_per_layer_two_launch=7)
+        out[m] = row
+        detail[f"razer_matmul_fused_act_layer_M{m}"] = row
+    return 0.0, out[4]
+
+
+# The prefill kernel (K9) against its plain version: q bf16 with K/V f32
+# (as prefill(qdq_kv=True) gives them: P stays f32) within one bf16 ulp of
+# the output, where the f32 values before the cast may fall on the two
+# sides of a rounding edge; with bf16 K/V also within 2^-9, since P is
+# rounded to bf16 in both and an f32 ulp of p can move that rounding.
+PREFILL_TOL = {torch.float32: dict(rtol=2**-7, atol=1e-6), torch.bfloat16: dict(rtol=2**-7, atol=2**-9)}
+
+
+def _check_prefill_attention(cfg, dev, gen, detail):
+    """K9 at llama3_2_3b heads: against its plain version at B 8 x 128 (the
+    8 serve prompts at generate's bucket) with K/V f32 and bf16; each
+    prompt's rows alone at its own bucket == inside the batch bit for bit;
+    a prefix-cached continuation's rows (q_offset 40) == the same rows of
+    the whole prompt; timed at B 8 x 128 and B 1 x 4096 against the plain
+    version and F.scaled_dot_product_attention (bf16, causal, heads
+    grouped)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    lens = (8, 15, 23, 32, 40, 57, 64, 100)
+    bucket = lambda n: max(8, 1 << (n - 1).bit_length())  # noqa: E731  Engine._bucket
+    max_err = 0.0
+    q = torch.randn((8, 128, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    for kv_dtype in (torch.float32, torch.bfloat16):
+        k = torch.randn((8, 128, kvh, hd), generator=gen, device=dev).to(kv_dtype)
+        v = torch.randn((8, 128, kvh, hd), generator=gen, device=dev).to(kv_dtype)
+        got = prefill_attention_cuda(q, k, v)
+        want = ref.chunked_attention_ref(q, k, v)
+        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[kv_dtype])
+        if kv_dtype == torch.float32:
+            max_err = float((got.float() - want.float()).abs().max())
+        for r, n in enumerate(lens):
+            s = bucket(n)
+            alone = prefill_attention_cuda(q[r:r + 1, :s].contiguous(), k[r:r + 1, :s].contiguous(),
+                                           v[r:r + 1, :s].contiguous())
+            assert torch.equal(alone[0, :n], got[r, :n]), ("prefill attention alone != in batch", n, kv_dtype)
+        c, n = 40, lens[6]
+        s = bucket(n - c)
+        kv = [torch.zeros((1, 64 + s, kvh, hd), dtype=kv_dtype, device=dev) for _ in range(2)]
+        for buf, src in zip(kv, (k, v)):
+            buf[0, :n] = src[6, :n]
+        sfx = prefill_attention_cuda(q[6:7, c:c + s].contiguous(), *kv, q_offset=c)
+        assert torch.equal(sfx[0, :n - c], got[6, c:n]), ("continuation rows != whole prompt's", kv_dtype)
+    detail["prefill_attention_batch_invariant"] = {"prompt_lens": list(lens), "bucket": 128, "continuation_at": 40}
+    out = {}
+    for b, s in ((8, 128), (1, 4096)):
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+        v = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+        qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = b * s * (s + 1) // 2  # (query, key) pairs a causal prefill needs
+        nbytes = q.numel() * 2 * 2 + (k.numel() + v.numel()) * 4
+        bound, by = _bound_ms(nbytes, 4 * hd * h * pairs)
+        reps = 20 if s <= 128 else 3
+        row = _with_device_time(
+            {"ms": _cuda_ms(lambda: prefill_attention_cuda(q, k, v), reps=reps),
+             "plain_ms": _cuda_ms(lambda: ref.chunked_attention_ref(q, k, v), reps=reps),
+             "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
+                                                                           enable_gqa=True), reps=reps),
+             "bound_ms": bound, "bound_by": by, "shape": [b, s, h, kvh, hd], "kv": "f32"},
+            lambda: prefill_attention_cuda(q, k, v), "prefill_attention_kernel", 1)
+        out[(b, s)] = row
+        detail[f"prefill_attention_B{b}_S{s}"] = row
+    return max_err, out[(8, 128)]
+
+
+def _check_rms_norm(cfg, dev, gen, detail):
+    """K10 at llama3_2_3b's d_model: against its plain version (one bf16 ulp
+    of the output: rsqrt and the sum's order differ), each prompt's rows
+    alone == inside a batch of 8 x 128 and decode's 4 rows == the same rows
+    of 8, bit for bit; timed at M 4 and 1024 (bytes: x and y once, gamma)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rms_norm import rms_norm_cuda
+
+    d = cfg.d_model
+    gamma = torch.randn(d, generator=gen, device=dev) * 0.1
+    x = (torch.randn((8, 128, d), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    got, want = rms_norm_cuda(x, gamma, cfg.norm_eps), ref.rms_norm_ref(x, gamma, cfg.norm_eps)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-6)
+    err = float((got.float() - want.float()).abs().max())
+    for r, n in enumerate((8, 15, 23, 32, 40, 57, 64, 100)):
+        s = max(8, 1 << (n - 1).bit_length())
+        assert torch.equal(rms_norm_cuda(x[r:r + 1, :s], gamma, cfg.norm_eps)[0, :n], got[r, :n]), ("K10 rows", n)
+    xd = x[:, -1:].contiguous()
+    assert torch.equal(rms_norm_cuda(xd[:4], gamma, cfg.norm_eps), rms_norm_cuda(xd, gamma, cfg.norm_eps)[:4])
+    out = {}
+    for m in (4, 1024):
+        xm = x.reshape(-1, d)[:m].contiguous()
+        bound, by = _bound_ms(2 * m * d * 2 + d * 4, 0.0)
+        out[m] = _with_device_time(
+            {"ms": _cuda_ms(lambda: rms_norm_cuda(xm, gamma, cfg.norm_eps), reps=50),
+             "plain_ms": _cuda_ms(lambda: ref.rms_norm_ref(xm, gamma, cfg.norm_eps), reps=50),
+             "library_ms": None, "bound_ms": bound, "bound_by": by},
+            lambda: rms_norm_cuda(xm, gamma, cfg.norm_eps), "rms_norm_kernel", 1)
+        detail[f"rms_norm_M{m}"] = out[m]
+    return err, out[4]
+
+
+def _decode_forward_counts(cfg, eng, detail):
+    """One W4A4 decode forward of llama3_2_3b (batch 4): every K1 launch
+    fake-quantizes x in its own load, and no K2 is launched."""
+    from repro_torch.models import transformer as tf
+
+    prompts = _generate_prompts(cfg)
+    toks = np.zeros((len(prompts), 32), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    lens = np.array([len(p) for p in prompts])
+    last, caches = eng._bucketed_prefill(toks, lens, max_len=eng.scfg.max_len, qdq_kv=True)
+    caches = eng._quantize_caches(caches)
+    torch.cuda.synchronize()
+    _reset_counts()
+    with torch.no_grad():
+        tf.decode_step(eng.params, torch.argmax(last, -1), caches, torch.as_tensor(lens, device=eng.device), cfg,
+                       eng.policy)
+    counts = _read_counts()
+    per = 7 * cfg.num_layers
+    assert counts["razer_act_qdq"] == 0 and counts["razer_matmul"] == counts["razer_matmul_fused_act"] == per, counts
+    out = {"batch": len(prompts), "razer_act_qdq": counts["razer_act_qdq"], "razer_matmul": counts["razer_matmul"],
+           "razer_matmul_fused_act": counts["razer_matmul_fused_act"]}
+    detail["w4a4_decode_forward_launches"] = out
+    return out
 
 
 def _check_kv_attention(cfg, dev, gen, detail):
@@ -962,7 +1233,7 @@ def _full_width(cfg, engines, detail, pack_s, key="e2e"):
             out = eng.generate(prompts)
             counts = _main_path_counts() if rep else _read_counts()
             steps = eng.stats["decode_steps"]
-            want = _want_counts(cfg, 1, policy, 1 + steps, decode_steps=steps)
+            want = _generate_want(cfg, 1, policy, eng.stats)
             assert counts == want, (name, counts, want)
             assert steps == n_new - 1 and all(len(o) == len(p) + n_new for o, p in zip(out, prompts))
             MESHLESS[(cfg.name, name, "generate")] = out
@@ -1081,6 +1352,14 @@ def _agreement(eng, reqs, ref_outputs):
     return (len(reqs) - len(diffs)) / len(reqs), diffs
 
 
+# serve == generate (and speculative == vanilla), asserted where the port's
+# row-invariant prefill (K9, K10) and decode make it hold on the card:
+# phase 4c's llama serve under both policies, vanilla and with
+# speculate_k=2, and phase 4e's long-context serve.  dbrx's are reported:
+# at capacity factor 1.25 capacity drops depend on the dispatch groups.
+SERVE_EQUALS_GENERATE = {("llama3_2_3b", policy, k) for policy in ("w4_kv", "w4a4_kv") for k in (0, 2)}
+
+
 def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
     """Engine.serve at full width: 8 requests over 4 slots, max_len 256,
     pages of 16, 16 new tokens, prefix cache on.  ``runs`` maps an engine's
@@ -1116,15 +1395,14 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
             counts = _main_path_counts()
             assert all(r.state == "finished" and len(r.out_tokens) == n_new for r in rep.requests)
             assert all(0 <= t < cfg.vocab_size for o in rep.outputs for t in o)
-            prefills = sum(1 for r in rep.requests if r.dedup_of is None)
-            target_passes = prefills + rep.decode_steps  # a verify pass is the target's decode pass
-            want = _want_counts(cfg, 1, eng.policy, target_passes,
-                                paged=(0 if k else rep.decode_steps) + rep.draft_steps,
-                                verify=rep.decode_steps if k else 0)
+            want = _serve_want(cfg, 1, eng.policy, _serve_prefill_m(eng, rep.requests), rep.decode_steps, k,
+                               rep.draft_steps, slots)
             assert counts == want, (name, k, counts, want)
             assert rep.cache_hits >= 1 and rep.requests[6].cached_tokens == 40, \
                 (rep.cache_hits, rep.requests[6].cached_tokens)
             same_gen, gen_diffs = _agreement(eng, rep.requests, ref)
+            if (cfg.name, name, k) in SERVE_EQUALS_GENERATE:
+                assert same_gen == 1.0, ("serve != generate", cfg.name, name, k, gen_diffs)
             row = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time,
                    "ttft_p50_s": rep.ttft_p50, "ttft_p95_s": rep.ttft_p95,
                    "decode_steps": rep.decode_steps, "prefill_tokens": rep.prefill_tokens,
@@ -1138,6 +1416,8 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
                 row["draft_steps"] = rep.draft_steps
                 share, diffs = _agreement(eng, rep.requests, vanilla)
                 row["share_equal_to_vanilla_serve"], row["differs_from_vanilla_serve"] = share, diffs
+                if (cfg.name, name, k) in SERVE_EQUALS_GENERATE:
+                    assert share == 1.0, ("speculative != vanilla serve", cfg.name, name, k, diffs)
             else:
                 row["decode_ms_per_step"] = _span_ms(tracer, "decode_step")
                 vanilla = rep.outputs
@@ -1206,7 +1486,7 @@ def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
     toks = eng.generate(gen_prompts, max_new_tokens=n_new)
     counts = _main_path_counts()
     steps = eng.stats["decode_steps"]
-    assert counts == _want_counts(cfg, 1, eng.policy, 1 + steps, decode_steps=steps), counts
+    assert counts == _generate_want(cfg, 1, eng.policy, eng.stats), counts
     assert all(len(o) == len(p) + n_new for o, p in zip(toks, gen_prompts))
     st = eng.stats
     out["generate"] = {"prefill_ms": st["prefill_s"] * 1e3, "decode_ms_per_step": st["decode_s"] * 1e3 / steps,
@@ -1223,8 +1503,7 @@ def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
     torch.cuda.synchronize()
     counts = _main_path_counts()
     assert all(r.state == "finished" and len(r.out_tokens) == n_new for r in rep.requests)
-    prefills = sum(1 for r in rep.requests if r.dedup_of is None)
-    want = _want_counts(cfg, 1, eng.policy, prefills + rep.decode_steps, paged=rep.decode_steps)
+    want = _serve_want(cfg, 1, eng.policy, _serve_prefill_m(eng, rep.requests), rep.decode_steps)
     assert counts == want, (counts, want)
     out["serve"] = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time, "ttft_p50_s": rep.ttft_p50,
                     "ttft_p95_s": rep.ttft_p95, "decode_steps": rep.decode_steps,
@@ -1334,7 +1613,9 @@ def _card_vs_cpu_one(dev, arch, kw):
             results.append(logits)
             counts = _read_counts()
             assert (eng is card) == (counts["razer_matmul"] > 0 and counts["razer_kv_attention"] > 0), counts
-            assert (eng is card and policy.act is not None) == (counts["razer_act_qdq"] > 0), counts
+            assert (eng is card and policy.act is not None) == (
+                counts["razer_act_qdq"] + counts["razer_matmul_fused_act"] > 0), counts
+            assert (eng is card) == (counts["prefill_attention"] > 0 and counts["rms_norm"] > 0), counts
             assert (eng is card and cfg.moe) == (counts["razer_grouped_matmul"] > 0), counts
         diffs = [float((a - b).abs().max()) for a, b in zip(*results)]
         assert max(diffs) <= tolerances[name], (arch, name, diffs)
@@ -1402,7 +1683,7 @@ def _run_generate(eng, prompts):
     st = eng.stats
     return {"outputs": out, "counts": _read_counts(), "collectives": dict(collectives.stats),
             "prefill_ms": st["prefill_s"] * 1e3, "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
-            "decode_steps": st["decode_steps"],
+            "decode_steps": st["decode_steps"], "stats": dict(st),
             "tokens_per_s": len(prompts) * 16 / (st["prefill_s"] + st["decode_s"]),
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
 
@@ -1432,7 +1713,7 @@ def _run_serve(eng, cfg, k=0, draft=None):
     torch.cuda.synchronize()
     row = {"outputs": rep.outputs, "counts": _read_counts(), "collectives": dict(collectives.stats),
            "decode_steps": rep.decode_steps, "draft_steps": rep.draft_steps,
-           "prefills": sum(1 for r in rep.requests if r.dedup_of is None),
+           "prefill_m": _serve_prefill_m(eng, rep.requests),
            "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time, "ttft_p50_s": rep.ttft_p50,
            "ttft_p95_s": rep.ttft_p95, "accept_rate": rep.accept_rate,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
@@ -1627,8 +1908,7 @@ def _world1_nccl(cfg, engines, detail):
     assert torch.equal(logits, MESHLESS[(cfg.name, "w4_kv", "prefill_logits")]), "world-1 prefill logits differ"
     gen = _run_generate(eng, prompts)
     assert gen["outputs"] == MESHLESS[(cfg.name, "w4_kv", "generate")], "world-1 generate tokens differ"
-    steps = gen["decode_steps"]
-    assert gen["counts"] == _want_counts(cfg, 1, eng.policy, 1 + steps, decode_steps=steps), gen["counts"]
+    assert gen["counts"] == _generate_want(cfg, 1, eng.policy, gen["stats"]), gen["counts"]
     _main_path_counts(gen["counts"])
     serve = _run_serve(eng, cfg)
     assert serve["outputs"] == MESHLESS[(cfg.name, "w4_kv", "serve")], "world-1 serve outputs differ"
@@ -1669,8 +1949,7 @@ def _parallel_llama(cfg, detail, f32_ref):
         _check_ranks_agree([r[name] for r in ranks], "generate")
         for rank, r in enumerate(ranks):
             gen = r[name]["generate"]
-            steps = gen["decode_steps"]
-            want = _want_counts(cfg, 2, policy, 1 + steps, decode_steps=steps)
+            want = _generate_want(cfg, 2, policy, gen["stats"])
             assert gen["counts"] == want, (name, rank, gen["counts"], want)
             assert want["razer_matmul"] == 0  # every llama linear is eligible: no K1 launch
             _main_path_counts(gen["counts"])
@@ -1684,9 +1963,7 @@ def _parallel_llama(cfg, detail, f32_ref):
             _check_ranks_agree([r[name] for r in ranks], key)
             for rank, r in enumerate(ranks):
                 run = r[name][key]
-                want = _want_counts(cfg, 2, policy, run["prefills"] + run["decode_steps"],
-                                    paged=(0 if k else run["decode_steps"]) + run["draft_steps"],
-                                    verify=run["decode_steps"] if k else 0)
+                want = _serve_want(cfg, 2, policy, run["prefill_m"], run["decode_steps"], k, run["draft_steps"])
                 assert run["counts"] == want, (name, key, rank, run["counts"], want)
                 _main_path_counts(run["counts"])
             run = ranks[0][name][key]
@@ -1739,11 +2016,9 @@ def _parallel_dbrx(dev, detail):
                 assert r[(layout, cf)][key]["outputs"] == res0[key]["outputs"], f"{layout} {cf} {key}: ranks disagree"
         for rank, r in enumerate(ranks):
             gen, serve = r[(layout, cf)]["generate"], r[(layout, cf)]["serve_k0"]
-            steps = gen["decode_steps"]
-            want = _want_counts(cfg, layout[1], policy, 1 + steps, decode_steps=steps)
+            want = _generate_want(cfg, layout[1], policy, gen["stats"])
             assert gen["counts"] == want, (layout, cf, rank, gen["counts"], want)
-            want = _want_counts(cfg, layout[1], policy, serve["prefills"] + serve["decode_steps"],
-                                paged=serve["decode_steps"])
+            want = _serve_want(cfg, layout[1], policy, serve["prefill_m"], serve["decode_steps"])
             assert serve["counts"] == want, (layout, cf, rank, serve["counts"], want)
             _main_path_counts(gen["counts"])
             _main_path_counts(serve["counts"])
@@ -1800,6 +2075,9 @@ def main() -> int:
     gen.manual_seed(0)
     checks = {"razer_matmul": _check_matmul(cfg, dev, gen, detail),
               "razer_act_qdq": _check_act_qdq(cfg, dev, gen, detail),
+              "razer_matmul_fused_act": _check_fused_act(cfg, dev, gen, detail),
+              "prefill_attention": _check_prefill_attention(cfg, dev, gen, detail),
+              "rms_norm": _check_rms_norm(cfg, dev, gen, detail),
               "razer_kv_attention": _check_kv_attention(cfg, dev, gen, detail),
               **_check_paged_attention(cfg, dev, gen, detail)}
     print("decode attention at long lengths (K3, K4, K5; llama3_2_3b heads): "
@@ -1819,12 +2097,17 @@ def main() -> int:
     print("e2e llama3_2_3b full width: " + json.dumps(e2e))
     paged = _paged_vs_contiguous(cfg, engines["w4_kv"], detail)
     print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
+    print("W4A4 decode forward, llama3_2_3b full width, launches: "
+          + json.dumps(_decode_forward_counts(cfg, engines["w4a4_kv"], detail)))
     serve = _serve_full_width(cfg, engines, detail)
     print("serve llama3_2_3b full width: " + json.dumps(serve))
     eng = engines["w4_kv"]
     short_cfg = eng.scfg
     eng.scfg = dataclasses.replace(short_cfg, max_len=4096)
     detail["long_context"] = _long_context(cfg, eng)
+    long_serve = detail["long_context"]["serve"]
+    assert long_serve["share_equal_to_generate"] == 1.0, ("long-context serve != generate",
+                                                          long_serve["differs_from_generate"])
     eng.scfg = short_cfg
     print("long context llama3_2_3b full width, W4 + KV, max_len 4096: " + json.dumps(detail["long_context"]))
     print("parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width: "
@@ -1845,6 +2128,15 @@ def main() -> int:
     meta = {
         "razer_matmul": ("src/repro_torch/csrc/razer_matmul.cu", "src/repro/kernels/razer_matmul.py:112",
                          "one layer's 7 packed linears at decode M=4"),
+        "razer_matmul_fused_act": ("src/repro_torch/csrc/razer_matmul_tile.cuh",
+                                   "src/repro/kernels/razer_quantize.py:103",
+                                   "K2 fused into K1/K7's x load (launches: K1 and K7 launches that fake-quantized "
+                                   "x); one layer's 7 packed linears at decode M=4 under W4A4, bf16 x"),
+        "rms_norm": ("src/repro_torch/csrc/rms_norm.cu", "src/repro/models/layers.py:29 (rms_norm, jnp: no Pallas "
+                     "kernel)", "K10, one llama3_2_3b norm at decode M=4 (d_model 3072, bf16)"),
+        "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
+                              "src/repro/models/attention.py:54 (chunked_attention, jnp: no Pallas kernel)",
+                              "K9, causal GQA prefill, B=8 S=128 H=24 KVH=8 hd=128, q bf16, K/V f32"),
         "razer_act_qdq": ("src/repro_torch/csrc/razer_quantize.cu", "src/repro/kernels/razer_quantize.py:103",
                           "one layer's 7 activation fake-quants at decode M=4, bf16"),
         "razer_kv_attention": ("src/repro_torch/csrc/razer_kv_attention.cu",
@@ -1867,6 +2159,7 @@ def main() -> int:
                                         "rank 0's (E=16, K/2) tiles of one dbrx_132b MoE layer's 3 banks (tp=2) "
                                         "at decode M=4, kernel only (no exchange)"),
     }
+    MAIN_PATH_LAUNCHES["razer_matmul_fused_act"] += MAIN_PATH_LAUNCHES.pop("razer_matmul_kshard_fused_act")
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0], "replaces": meta[name][1],
                 "launches": MAIN_PATH_LAUNCHES[name], "max_abs_err": checks[name][0],
                 "ms": checks[name][1]["ms"], "plain_ms": checks[name][1]["plain_ms"],

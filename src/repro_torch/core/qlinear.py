@@ -1,9 +1,10 @@
 """Quantized linear layer (PyTorch port of ``repro.core.qlinear``).
 
-A packed weight container dispatches to its format's matmul kernel, after the
-activation fake-quant kernel when the policy quantizes activations (W4A4).  A
-dense weight runs a plain matmul, fake-quantized first under a ``fakequant``
-weight spec.
+A packed weight container dispatches to its format's matmul kernel, which
+receives the activation spec when the policy quantizes activations (W4A4) and
+fake-quantizes x itself (razer: inside the GEMM's x load at decode-sized M
+on the card, else the activation kernel first).  A dense weight runs a plain
+matmul, fake-quantized first under a ``fakequant`` weight spec.
 
 On a serving mesh a packed weight may be this rank's K/tp shard
 (``k_shards`` > 1, placed by ``parallel.sharding.shard_params``): then the
@@ -19,19 +20,24 @@ import torch
 from . import registry
 from .policy import QuantPolicy
 
-__all__ = ["qdq_activation", "qlinear", "is_kshard"]
+__all__ = ["qdq_activation", "qdq_spec", "qlinear", "is_kshard"]
 
 
-def qdq_activation(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
-    """Dynamic activation fake-quant along the feature dim, through the
-    format's act kernel (per-block scale, no tensor scale)."""
-    spec = policy.act
-    if spec is None:
-        raise ValueError("qdq_activation called but the policy has no activation spec")
+def qdq_spec(x: torch.Tensor, spec) -> torch.Tensor:
+    """Dynamic activation fake-quant of x along the feature dim under the
+    TensorSpec ``spec``, through its format's act kernel (per-block scale,
+    no tensor scale)."""
     entry = spec.entry
     if entry.act_kernel is not None:
         return entry.act_kernel(x, spec)
     return spec.qdq(x, axis=-1)
+
+
+def qdq_activation(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
+    """``qdq_spec`` under the policy's activation spec."""
+    if policy.act is None:
+        raise ValueError("qdq_activation called but the policy has no activation spec")
+    return qdq_spec(x, policy.act)
 
 
 def is_kshard(w) -> bool:
@@ -39,12 +45,13 @@ def is_kshard(w) -> bool:
     return getattr(w, "k_shards", 1) > 1
 
 
-def _tp_packed_matmul(x: torch.Tensor, w, entry, b, *, sharded_in: bool, gather: bool):
+def _tp_packed_matmul(x: torch.Tensor, w, entry, b, *, sharded_in: bool, gather: bool, act=None):
     """The K-shard matmul of this rank: x's K slice (unless the caller
     already holds it, ``sharded_in``) against the local wire rows, the
     full-N partial reduce-scattered over the tp group into this rank's N/tp
-    columns, all-gathered to the full width when ``gather``.  Returns (y,
-    the bias matching y's columns)."""
+    columns, all-gathered to the full width when ``gather``; ``act``, the
+    W4A4 activation spec, fake-quantizes the slice.  Returns (y, the bias
+    matching y's columns)."""
     from repro_torch.parallel.collectives import all_gather_last
     from repro_torch.parallel.sharding import get_ctx
 
@@ -58,7 +65,7 @@ def _tp_packed_matmul(x: torch.Tensor, w, entry, b, *, sharded_in: bool, gather:
     if not sharded_in:
         j = mesh.model_index
         x = x[..., j * kl:(j + 1) * kl]
-    y = entry.kshard_matmul_kernel(x, w, mesh.tp_group)
+    y = entry.kshard_matmul_kernel(x, w, mesh.tp_group, act=act)
     if gather:
         return all_gather_last(y, mesh.tp_group), b
     nl = y.shape[-1]
@@ -70,22 +77,21 @@ def qlinear(x: torch.Tensor, w, policy: QuantPolicy, b: Optional[torch.Tensor] =
     """y = quant(x) @ quant(W) + b under ``policy``; W is (d_in, d_out) or a
     packed container.
 
-    For a K/tp weight shard: under W4A4 the activation fake-quant runs on x
-    before its K slice is taken (its 16-element blocks never straddle a
-    shard); ``sharded_in`` says x already is this rank's K slice (a chain's
-    second matmul, whose input is the first's N/tp tile); ``gather=False``
+    For a K/tp weight shard: under W4A4 the activation fake-quant runs on
+    this rank's K slice of x (its 16-element blocks never straddle a shard,
+    so the bits are those of quantizing x whole); ``sharded_in`` says x
+    already is this rank's K slice (a chain's second matmul, whose input is
+    the first's N/tp tile); ``gather=False``
     returns this rank's N/tp columns, else they are all-gathered over the
     tp group to the full width.  A replicated weight ignores both."""
     entry = registry.packed_entry(w)
     if entry is not None:
         if entry.matmul_kernel is None:
             raise TypeError(f"format {entry.name!r} has a packed container but no matmul_kernel")
-        if policy.act is not None:
-            x = qdq_activation(x, policy)
         if is_kshard(w):
-            y, b = _tp_packed_matmul(x, w, entry, b, sharded_in=sharded_in, gather=gather)
+            y, b = _tp_packed_matmul(x, w, entry, b, sharded_in=sharded_in, gather=gather, act=policy.act)
         else:
-            y = entry.matmul_kernel(x, w)
+            y = entry.matmul_kernel(x, w, act=policy.act)
     else:
         spec = policy.weight
         if spec.quantizes and spec.mode == "fakequant":

@@ -4,10 +4,11 @@ A format names its quantize function and, optionally, how a weight is packed
 into a wire container, the matmul kernel that consumes that container and the
 fused activation fake-quant kernel, and for stacked MoE banks the stacked
 container and its grouped kernel.  ``qlinear`` dispatches a packed weight by
-its container type, ``moe_forward`` a packed bank by its stacked type.  A
-format that can be split over a serving mesh names how a rank takes its
-shard of a packed weight (``shard_packed_fn``, a K/tp shard) and of a
-stacked bank (``shard_stacked_fn``, an E/ep x K/tp tile).  The port
+its container type, ``moe_forward`` a packed bank by its stacked type; under
+W4A4 the matmul kernel receives the activation spec and fake-quantizes x
+itself.  A format that can be split over a serving mesh names how a rank
+takes its shard of a packed weight (``shard_packed_fn``, a K/tp shard) and
+of a stacked bank (``shard_stacked_fn``, an E/ep x K/tp tile).  The port
 registers ``razer`` (packed, with kernels) and ``nvfp4`` (quantize only:
 the default draft format of speculative serving).
 """
@@ -25,7 +26,7 @@ class FormatEntry:
     name: str
     quantize: Callable  # (x, axis=..., **kw) -> BlockQuantized-like
     pack_fn: Optional[Callable] = None  # (w, spec) -> packed container
-    matmul_kernel: Optional[Callable] = None  # (x, packed) -> y
+    matmul_kernel: Optional[Callable] = None  # (x, packed, act=None) -> y; act: the W4A4 activation spec
     act_kernel: Optional[Callable] = None  # (x, spec) -> fake-quantized x
     packed_type: Optional[type] = None  # container class for type dispatch
     # stacked-bank (E, K, N) hooks: an MoE expert bank packs into ONE grouped
@@ -37,7 +38,7 @@ class FormatEntry:
     # the K-shard matmuls that consume it and reduce-scatter over the group
     shard_packed_fn: Optional[Callable] = None  # (packed, tp, tp_index) -> K/tp shard
     shard_stacked_fn: Optional[Callable] = None  # (bank, ep, ep_index, tp, tp_index) -> tile
-    kshard_matmul_kernel: Optional[Callable] = None  # (x (.., K/tp), shard, group) -> (.., N/tp)
+    kshard_matmul_kernel: Optional[Callable] = None  # (x (.., K/tp), shard, group, act=None) -> (.., N/tp)
     kshard_grouped_matmul_kernel: Optional[Callable] = None  # (x (E, M, K/tp), tile, group) -> (E, M, N/tp)
 
 
@@ -102,10 +103,25 @@ def _razer_pack(w, spec):
     return pack_weight(w, sv_magnitudes=spec.sv_magnitudes, block_size=spec.block_size)
 
 
-def _razer_matmul(x, pw):
+def _razer_act_svs(x, act):
+    """(x, special values) for the razer GEMM under activation spec ``act``:
+    a razer E4M3 16-block spec goes to the GEMM, which fake-quantizes x
+    itself (fused into its load at decode-sized M); any other spec is
+    applied here first, through its act kernel."""
+    if act is None:
+        return x, None
+    if act.format == "razer" and act.scale_fmt in (None, "e4m3") and act.block_size == 16:
+        return x, act.special_values
+    from .qlinear import qdq_spec
+
+    return qdq_spec(x, act), None
+
+
+def _razer_matmul(x, pw, act=None):
     from repro_torch.kernels import ops
 
-    return ops.razer_matmul(x, pw)
+    x, svs = _razer_act_svs(x, act)
+    return ops.razer_matmul(x, pw, act_svs=svs)
 
 
 def _razer_pack_stacked(w, spec):
@@ -137,10 +153,11 @@ def _razer_shard_stacked(bank, ep: int, ep_index: int, tp: int = 1, tp_index: in
     return take_shard(bank, ep=ep, ep_index=ep_index, tp=tp, tp_index=tp_index)
 
 
-def _razer_kshard_matmul(x, pw, group):
+def _razer_kshard_matmul(x, pw, group, act=None):
     from repro_torch.kernels import ops
 
-    return ops.razer_matmul_kshard(x, pw, group=group)
+    x, svs = _razer_act_svs(x, act)
+    return ops.razer_matmul_kshard(x, pw, group=group, act_svs=svs)
 
 
 def _razer_kshard_grouped_matmul(x, pst, group):

@@ -46,9 +46,10 @@ struct K8;  // names its K-shard form
 extern "C" int razer_grouped_matmul_launch(const void* x, int x_is_bf16, const void* codes,
                                            const void* scale_meta, void* out, int E, int M, int K, int N, int nt,
                                            int splits, int k_tiles_per_split, float m0, float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K6>(x, x_is_bf16, codes, scale_meta, out, E, M, K, N, nt,
-                                                         splits, k_tiles_per_split, 1, m0, m1,
-                                                         static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(razer_tile::launch_grouped<K6>(
+      x, x_is_bf16, codes, scale_meta, out, E, M, K, N, nt,
+      splits, k_tiles_per_split, 1, m0, m1, nullptr, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K8: as razer_grouped_matmul_launch on this rank's bank tile, with out
@@ -58,7 +59,8 @@ extern "C" int razer_grouped_matmul_kshard_launch(const void* x, int x_is_bf16, 
                                                   const void* scale_meta, void* out, int E, int M, int K, int N,
                                                   int nt, int splits, int k_tiles_per_split, int out_chunks,
                                                   float m0, float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K8>(x, x_is_bf16, codes, scale_meta, out, E, M, K, N, nt,
-                                                         splits, k_tiles_per_split, out_chunks, m0, m1,
-                                                         static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(razer_tile::launch_grouped<K8>(
+      x, x_is_bf16, codes, scale_meta, out, E, M, K, N, nt,
+      splits, k_tiles_per_split, out_chunks, m0, m1, nullptr, 0,
+      static_cast<cudaStream_t>(stream)));
 }

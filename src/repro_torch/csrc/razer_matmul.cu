@@ -30,30 +30,50 @@
 struct K1;  // names the dense GEMM's kernel in a profile
 struct K7;  // names its K-shard form
 
+// both quantize x in their own load under W4A4 (razer_matmul_tile.cuh)
+namespace razer_tile {
+template <>
+struct Fusable<K1> {
+  static constexpr bool value = true;
+};
+template <>
+struct Fusable<K7> {
+  static constexpr bool value = true;
+};
+}  // namespace razer_tile
+
 // x: (M, K) bf16 (x_is_bf16 = 1) or f32, row-major; codes (K/2, N) and
 // scale_meta (K/16, N) uint8; out (M, N) f32.  nt is the token tile, splits
 // and k_tiles_per_split the K split (razer_matmul.py's launch_plan); K must
-// be a multiple of 64.  The grouped launch with one expert.  Returns
-// cudaGetLastError() after the launch.
+// be a multiple of 64.  act_table: null, or the activation fake-quant's
+// table (razer_act_qdq.cuh) with act_nsv special values, to fake-quantize x
+// in the load (W4A4): the bits of razer_act_qdq_launch on x, then this GEMM.
+// The grouped launch with one expert.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int razer_matmul_launch(const void* x, int x_is_bf16, const void* codes, const void* scale_meta,
                                    void* out, int M, int K, int N, int nt, int splits, int k_tiles_per_split,
-                                   float m0, float m1, void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K1>(x, x_is_bf16, codes, scale_meta, out, 1, M, K, N, nt,
-                                                         splits, k_tiles_per_split, 1, m0, m1,
-                                                         static_cast<cudaStream_t>(stream)));
+                                   float m0, float m1, const void* act_table, int act_nsv, void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K1>(
+      x, x_is_bf16, codes, scale_meta, out, 1, M, K, N, nt,
+      splits, k_tiles_per_split, 1, m0, m1,
+      static_cast<const float*>(act_table), act_nsv,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K7: as razer_matmul_launch on this rank's (K_local/2, N) shard, with out
 // stored as (out_chunks, M, N/out_chunks): the N/out_chunks columns of rank r
-// at out[r].  N must be a multiple of out_chunks.  Returns
-// cudaGetLastError() after the launch.
+// at out[r].  N must be a multiple of out_chunks.  The fused activation
+// quant takes this rank's K slice, whose 16-value blocks are whole.
+// Returns cudaGetLastError() after the launch.
 extern "C" int razer_matmul_kshard_launch(const void* x, int x_is_bf16, const void* codes,
                                           const void* scale_meta, void* out, int M, int K, int N, int nt,
                                           int splits, int k_tiles_per_split, int out_chunks, float m0, float m1,
-                                          void* stream) {
-  return static_cast<int>(razer_tile::launch_grouped<K7>(x, x_is_bf16, codes, scale_meta, out, 1, M, K, N, nt,
-                                                         splits, k_tiles_per_split, out_chunks, m0, m1,
-                                                         static_cast<cudaStream_t>(stream)));
+                                          const void* act_table, int act_nsv, void* stream) {
+  return static_cast<int>(razer_tile::launch_grouped<K7>(
+      x, x_is_bf16, codes, scale_meta, out, 1, M, K, N, nt,
+      splits, k_tiles_per_split, out_chunks, m0, m1,
+      static_cast<const float*>(act_table), act_nsv,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Dynamic shared memory (bytes) of the tile's block for token tile nt (0 if

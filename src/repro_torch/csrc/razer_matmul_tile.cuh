@@ -49,6 +49,25 @@
 //    a thread both of its columns' bytes.
 //  * x is rounded to bf16 (RN) as it is loaded; tokens past M and columns
 //    past N are zero-filled in shared memory.
+//  * Fused activation fake-quant (K1 and K7 under W4A4 at decode-sized M,
+//    the launch's act table set): x does not travel in the ring.  The block
+//    reads its x rows, a chunk of steps at a time, from global memory (bf16,
+//    or f32 before any bf16 rounding), fake-quantizes each 16-value block
+//    with one quad of threads (razer_act_qdq.cuh, the standalone K2's
+//    arithmetic, so the bits are K2's followed by the GEMM), and writes the
+//    bf16 tiles into a region of their own, which the wgmmas then read.
+//    The region holds the whole K split when it fits in QX_MAX bytes (all
+//    the main path's shapes at decode-sized M), so the block quantizes once,
+//    before its first wgmma, while the prologue's wire bytes are in flight:
+//    the latency of a long dependent chain per block (the scale search,
+//    divisions, three SSE chains) is paid once, not once per step.  A
+//    longer split quantizes chunk after chunk, each after every wgmma has
+//    retired and behind opaque register barriers, so that no chunk
+//    instruction (nor its registers) moves above that retirement while a
+//    wgmma still reads its A registers.  BK is a multiple of 16, so a block never straddles a step or
+//    a K split.  Every column block quantizes its rows again, N / 128 times
+//    the work of one K2 pass: cheap at decode-sized M, not at prefill's
+//    (launch_plan chooses from M).
 //  * K is split over up to MAX_SPLITS blocks from (N, K) alone (the Python
 //    plan); a split's blocks form one thread-block cluster, each leaves its
 //    partial tile in its shared memory, and after a cluster barrier block r
@@ -62,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "razer_act_qdq.cuh"
+
 namespace razer_tile {
 
 namespace cg = cooperative_groups;
@@ -74,14 +95,21 @@ constexpr int CODE_ROW = BN + 16;                  // padded: a warp's 4 code ro
 constexpr int CODE_BYTES = BK / 2 * CODE_ROW;      // 4608
 constexpr int X_OFFSET = CODE_BYTES + BK / 16 * BN;  // after the scale/meta tile: x, 8-token x 16-byte core matrices
 constexpr int TABLE_BYTES = 256 * 8;               // meta byte -> {scale, special value} bf16x2 pairs
+constexpr int ACT_BYTES = 1280;                    // the activation fake-quant's table (razer_act::TABLE floats)
+static_assert(razer_act::TABLE * 4 <= ACT_BYTES, "the act table fits its region");
 
-// shared memory for NT tokens: the table, then the ring of STAGES slots,
-// which the split sum's partial tile reuses with the table
+constexpr int QX_MAX = 65536;                      // the fused path's quantized x tiles, at most
+
+// shared memory for NT tokens: the tables, then the ring of STAGES slots,
+// which the split sum's partial tile reuses with the tables; a fused launch
+// adds qx_steps quantized x tiles (at most QX_MAX bytes) after the ring
 template <int NT>
 struct Tile {
   static constexpr int STAGE_BYTES = X_OFFSET + NT * BK * 2;
   static constexpr int STAGES = NT <= 32 ? 6 : (NT <= 64 ? 5 : 4);
-  static constexpr int SMEM = TABLE_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = TABLE_BYTES + ACT_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int X_TILE = NT * BK * 2;  // one step's quantized x tile
+  static constexpr int MAX_QSTEPS = QX_MAX / X_TILE > 0 ? QX_MAX / X_TILE : 1;
   static_assert(BN * NT * 4 <= SMEM, "the partial tile reuses the table and the ring");
 };
 
@@ -103,7 +131,17 @@ struct Params {
   int E, M, K, N, splits, k_tiles_per_split, out_chunks;
   float m0, m1;
   int x_is_bf16, vec_x, vec_w;  // vec_*: 16-byte cp.async is legal for x / codes and scale_meta
+  const float* act_table;       // set: fake-quantize x first (razer_act_qdq.cuh's table); null: not
+  int act_nsv;                  // its special values
+  int qx_steps;                 // steps of quantized x the fused path holds at once
 };
+
+// v, as the compiler sees it, computed here: code that depends on it cannot
+// be scheduled above this point
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v)::"memory");
+  return v;
+}
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -415,12 +453,15 @@ struct Loader {
     t += m0;
   }
 
-  // step j of the split into `slot`
+  // step j of the split into `slot` (its x tile too when WITH_X: the fused
+  // path reads x itself)
+  template <bool WITH_X>
   __device__ __forceinline__ void load(const Params& p, uint8_t* slot, int j) const {
     const int tid = threadIdx.x, size = p.x_is_bf16 ? 2 : 4;
     load_wire16(slot + code_dst, code + static_cast<size_t>(j) * (BK / 2) * p.N, n, p.N, p.vec_w);
     if (tid < BK / 16 * 8)
       load_wire16(slot + meta_dst, meta + static_cast<size_t>(j) * (BK / 16) * p.N, n, p.N, p.vec_w);
+    if (!WITH_X) return;
 #pragma unroll
     for (int i = 0; i < XN; ++i)  // chunk i: token t + 32 i
       if (tid + i * THREADS < NT * 8)
@@ -464,15 +505,71 @@ __device__ __forceinline__ void decode_step(uint32_t (&a)[4], const uint8_t* slo
   a[3] = decode_pair(prmt(wa, wb, 0xB7B3u), prmt(z4, z, 0xFFBBu), t1);
 }
 
+// The fused activation fake-quant of `nsteps` steps of the block's x from
+// step k-tile `kt` on, into the quantized-x region `qx` (each step's NT x 64
+// tile in the ring slot's core-matrix layout).  The quads enumerate (token,
+// 16-value block) over the tokens below M, the blocks of one token
+// consecutive, so a warp reads 128 contiguous x values; a thread takes two
+// quads at once where there are that many, so that their dependent chains
+// overlap, and a warp with none left stops (the work is issue-bound: three
+// resident blocks share an SM).  Tokens past M are zero.
+template <int NT>
+__device__ __forceinline__ void qdq_chunk(const Params& p, uint8_t* qx, const float* act, int e, int m0, int kt,
+                                          int nsteps) {
+  const int tid = opaque(static_cast<int>(threadIdx.x)), q = tid & 3;
+  const unsigned mask = razer_act::quad_mask(tid & 31);
+  const int valid = min(NT, p.M - m0), nblk = nsteps * (BK / 16), quads = valid * nblk;
+  for (int i = tid; i < (NT - valid) * nsteps * 8; i += THREADS) {
+    const int t = valid + i / (nsteps * 8), j = (i >> 3) % nsteps, c = i & 7;
+    *reinterpret_cast<uint4*>(qx + j * Tile<NT>::X_TILE + (t >> 3) * 1024 + c * 128 + (t & 7) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  const size_t row0 = static_cast<size_t>(e) * p.M + m0;
+  auto load = [&](int qi, float (&v)[4]) {
+    const int t = qi / nblk, b = qi - t * nblk;
+    const size_t at = (row0 + t) * p.K + static_cast<size_t>(kt) * BK + b * 16 + q * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = p.x_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p.x)[at + i])
+                         : static_cast<const float*>(p.x)[at + i];
+  };
+  auto store = [&](int qi, const float (&v)[4]) {
+    const int t = qi / nblk, b = qi - t * nblk, c = 2 * (b & 3) + (q >> 1);
+    *reinterpret_cast<uint2*>(qx + (b >> 2) * Tile<NT>::X_TILE + (t >> 3) * 1024 + c * 128 + (t & 7) * 16 +
+                              (q & 1) * 8) =
+        make_uint2(bf16_bits(v[0]) | (bf16_bits(v[1]) << 16), bf16_bits(v[2]) | (bf16_bits(v[3]) << 16));
+  };
+  constexpr int PER = THREADS / 4;  // quads a round
+#pragma unroll 1
+  for (int first = 0; first < quads; first += 2 * PER) {
+    const int qa = first + (tid >> 2), qb = qa + PER;
+    if (qa >= quads) break;  // the same on a quad's lanes
+    float va[4], vb[4];
+    if (qb < quads) {
+      load(qa, va);
+      load(qb, vb);
+      razer_act::qdq_quad(va, act, p.act_nsv, q, mask);
+      razer_act::qdq_quad(vb, act, p.act_nsv, q, mask);
+      store(qa, va);
+      store(qb, vb);
+    } else {
+      load(qa, va);
+      razer_act::qdq_quad(va, act, p.act_nsv, q, mask);
+      store(qa, va);
+    }
+  }
+}
+
 // One K step of the main loop: wait for step `it`'s copies, refill the slot
-// two steps back, decode into `cur`, queue the step's wgmmas.  A-operand
+// two steps back, decode into `cur`, queue the step's wgmmas; with the
+// fused activation quant, the wgmmas read x from the quantized tiles `qx`.  A-operand
 // registers are read by the tensor cores asynchronously, so `prev` (the last
 // step's A, possibly still in flight) is kept live until the wait that
 // retires its group: the two sets alternate, and no decode overwrites
 // registers a pending wgmma reads.
-template <int NT>
+template <int NT, bool FUSE>
 __device__ __forceinline__ void main_step(const Params& p, const Loader<NT>& loader, uint8_t* ring,
-                                          const uint2* table, int it, int steps, int q, int col,
+                                          const uint2* table, const uint8_t* qx, int it, int steps, int q, int col,
                                           float (&acc)[NT / 2], uint32_t (&cur)[4][4], uint32_t (&prev)[4][4]) {
   using R = Tile<NT>;
   cp_async_wait<R::STAGES - 3>();  // step it has landed (this thread's copies)
@@ -480,13 +577,13 @@ __device__ __forceinline__ void main_step(const Params& p, const Loader<NT>& loa
   __syncthreads();                 // ... everyone's; and slot it - 2 is free (its wgmmas retired)
   {
     const int j = it + R::STAGES - 2;
-    if (j < steps) loader.load(p, ring + (j % R::STAGES) * R::STAGE_BYTES, j);
+    if (j < steps) loader.template load<!FUSE>(p, ring + (j % R::STAGES) * R::STAGE_BYTES, j);
     cp_async_commit();
   }
   const uint8_t* slot = ring + (it % R::STAGES) * R::STAGE_BYTES;
 #pragma unroll
   for (int s = 0; s < 4; ++s) decode_step(cur[s], slot, table, s, q, col);
-  const uint32_t xs = smem_u32(slot + X_OFFSET);
+  const uint32_t xs = FUSE ? smem_u32(qx + (it % p.qx_steps) * R::X_TILE) : smem_u32(slot + X_OFFSET);
   fence_operands(cur);
   fence_operands(acc);
   wgmma_fence();
@@ -513,15 +610,23 @@ __device__ __forceinline__ void store_out(const Params& p, int e, int m, int n, 
 // apart.
 // blocks per SM the register budget is set for: a small token tile is
 // decode, where resident blocks hide the copies and the decode's latency
+// (the fused path too: with the budget of two blocks it spills nothing,
+// but measured slower at decode, PERF.md)
 template <int NT>
 constexpr int min_blocks() { return NT <= 48 ? 3 : (NT <= 96 ? 2 : 1); }
 
-template <typename Tag, int NT>
+// FUSE: 0 the plain GEMM; 1 the fused activation path with the whole K
+// split's x quantized before the main loop; 2 the fused path in chunks
+// (a split longer than the quantized-x region holds).  Each is a kernel of
+// its own, so that the plain GEMM and the one-chunk path at decode keep
+// their registers.
+template <typename Tag, int NT, int FUSE>
 __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const __grid_constant__ Params p) {
   using R = Tile<NT>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint2* table = reinterpret_cast<uint2*>(smem);
-  uint8_t* ring = smem + TABLE_BYTES;
+  float* act = reinterpret_cast<float*>(smem + TABLE_BYTES);
+  uint8_t* ring = smem + TABLE_BYTES + ACT_BYTES;
 
   const int tid = threadIdx.x;
   const int split = blockIdx.z % p.splits, e = blockIdx.z / p.splits;
@@ -540,8 +645,13 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const _
   const Loader<NT> loader(p, e, kt0, n0, m0);
 #pragma unroll
   for (int s = 0; s < R::STAGES - 2; ++s) {
-    if (s < steps) loader.load(p, ring + s * R::STAGE_BYTES, s);
+    if (s < steps) loader.template load<FUSE == 0>(p, ring + s * R::STAGE_BYTES, s);
     cp_async_commit();
+  }
+  uint8_t* qx = ring + R::STAGES * R::STAGE_BYTES;  // the fused path's quantized x tiles
+  if constexpr (FUSE != 0) {  // after the prologue's copies are on their way
+    for (int i = tid; i < razer_act::TABLE; i += THREADS) act[i] = p.act_table[i];
+    __syncthreads();
   }
 
   const int lane = tid & 31, q = lane & 3, g = lane >> 2;
@@ -551,12 +661,40 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const _
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
 
   uint32_t a[2][4][4] = {};
-  int it = 0;
-  for (; it + 1 < steps; it += 2) {
-    main_step<NT>(p, loader, ring, table, it, steps, q, col, acc, a[0], a[1]);
-    main_step<NT>(p, loader, ring, table, it + 1, steps, q, col, acc, a[1], a[0]);
+  constexpr bool FUSED = FUSE != 0;
+  if constexpr (FUSE == 2) {
+    // chunks of qx_steps steps, an even number, so that a chunk starts with
+    // a[0] as `cur`; each chunk's x is quantized after every wgmma has retired
+    int it = 0;
+    for (int c0 = 0; c0 < steps; c0 += p.qx_steps) {
+      if (c0) {
+        wgmma_wait<0>();  // the last chunk's readers, and every A register in flight
+        fence_operands(acc);
+        fence_operands(a[0]);
+        fence_operands(a[1]);
+        __syncthreads();
+      }
+      qdq_chunk<NT>(p, qx, act, e, opaque(m0), opaque(kt0 + c0), opaque(min(p.qx_steps, steps - c0)));
+      fence_proxy_async();  // made visible to the tensor cores by the first step's barrier
+      const int end = min(c0 + p.qx_steps, steps);
+      for (; it + 1 < end; it += 2) {
+        main_step<NT, FUSED>(p, loader, ring, table, qx, it, steps, q, col, acc, a[0], a[1]);
+        main_step<NT, FUSED>(p, loader, ring, table, qx, it + 1, steps, q, col, acc, a[1], a[0]);
+      }
+      if (it < end) main_step<NT, FUSED>(p, loader, ring, table, qx, it++, steps, q, col, acc, a[0], a[1]);
+    }
+  } else {
+    if constexpr (FUSE == 1) {
+      qdq_chunk<NT>(p, qx, act, e, m0, kt0, steps);  // all of the split, before any wgmma
+      fence_proxy_async();
+    }
+    int it = 0;
+    for (; it + 1 < steps; it += 2) {
+      main_step<NT, FUSED>(p, loader, ring, table, qx, it, steps, q, col, acc, a[0], a[1]);
+      main_step<NT, FUSED>(p, loader, ring, table, qx, it + 1, steps, q, col, acc, a[1], a[0]);
+    }
+    if (it < steps) main_step<NT, FUSED>(p, loader, ring, table, qx, it, steps, q, col, acc, a[0], a[1]);
   }
-  if (it < steps) main_step<NT>(p, loader, ring, table, it, steps, q, col, acc, a[0], a[1]);
   wgmma_wait<0>();
   fence_operands(acc);
   fence_operands(a[0]);
@@ -612,22 +750,26 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const _
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-template <typename Tag, int NT>
-cudaError_t launch_nt(const Params& p, dim3 grid, cudaStream_t st) {
-  auto kernel = gemm_kernel<Tag, NT>;
+// the launch of one instantiation (FUSE as gemm_kernel's)
+template <typename Tag, int NT, int FUSE>
+cudaError_t launch_kernel(const Params& p, dim3 grid, cudaStream_t st) {
+  auto kernel = gemm_kernel<Tag, NT, FUSE>;
+  constexpr int MAX_SMEM = Tile<NT>::SMEM + (FUSE ? Tile<NT>::MAX_QSTEPS * Tile<NT>::X_TILE : 0);
   static unsigned configured = 0;  // devices whose shared-memory limit is raised, as a bit set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 32 && !(configured & (1u << dev))) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<NT>::SMEM);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err != cudaSuccess) return err;
     configured |= 1u << dev;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = Tile<NT>::SMEM;
+  Params q = p;
+  q.qx_steps = FUSE == 0 ? 1 : FUSE == 1 ? p.k_tiles_per_split : Tile<NT>::MAX_QSTEPS & ~1;
+  cfg.dynamicSmemBytes = Tile<NT>::SMEM + (FUSE ? q.qx_steps * Tile<NT>::X_TILE : 0);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -636,8 +778,26 @@ cudaError_t launch_nt(const Params& p, dim3 grid, cudaStream_t st) {
   attr[0].val.clusterDim.z = p.splits;
   cfg.attrs = attr;
   cfg.numAttrs = p.splits > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, q);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// whether Tag's launches may carry an act table: the dense GEMMs (K1, K7)
+// specialize it to true where they are named; the grouped GEMMs (K6, K8)
+// never quantize x and build no fused kernel
+template <typename Tag>
+struct Fusable {
+  static constexpr bool value = false;
+};
+
+template <typename Tag, int NT>
+cudaError_t launch_nt(const Params& p, dim3 grid, cudaStream_t st) {
+  if constexpr (Fusable<Tag>::value) {
+    if (p.act_table)  // the whole K split's quantized x in one chunk when it fits
+      return p.k_tiles_per_split <= Tile<NT>::MAX_QSTEPS ? launch_kernel<Tag, NT, 1>(p, grid, st)
+                                                         : launch_kernel<Tag, NT, 2>(p, grid, st);
+  }
+  return p.act_table ? cudaErrorInvalidValue : launch_kernel<Tag, NT, 0>(p, grid, st);
 }
 
 // dynamic shared memory (bytes) of the block for token tile nt, 0 if none
@@ -657,7 +817,9 @@ inline int tile_smem(int nt) {
 
 // x: (E, M, K) bf16 (x_is_bf16) or f32, contiguous; codes (E, K/2, N) and
 // scale_meta (E, K/16, N) uint8; out (E, M, N) f32, stored out_chunks-
-// chunked ((out_chunks, E, M, N/out_chunks)).  nt is the token tile (8,
+// chunked ((out_chunks, E, M, N/out_chunks)).  act_table (razer_act_qdq.cuh's
+// table, act_nsv <= 4 special values) or null: with it, x is fake-quantized
+// in the load.  nt is the token tile (8,
 // 16, 24, 32, 48, 64, 96 or 128); K is split into `splits` (1 ... MAX_SPLITS) runs of
 // k_tiles_per_split 64-deep steps, none empty.  K must be a multiple of
 // BK, N of out_chunks, and E * splits at most 65535.  One launch; returns
@@ -666,12 +828,13 @@ inline int tile_smem(int nt) {
 template <typename Tag>
 cudaError_t launch_grouped(const void* x, int x_is_bf16, const void* codes, const void* scale_meta, void* out,
                            int E, int M, int K, int N, int nt, int splits, int k_tiles_per_split,
-                           int out_chunks, float m0, float m1, cudaStream_t st) {
+                           int out_chunks, float m0, float m1, const float* act_table, int act_nsv,
+                           cudaStream_t st) {
   const int k_tiles = K / BK;
   if (E < 1 || M < 1 || N < 1 || K < BK || K % BK || splits < 1 || splits > MAX_SPLITS ||
       k_tiles_per_split < 1 || (splits - 1) * k_tiles_per_split >= k_tiles ||
       splits * k_tiles_per_split < k_tiles || static_cast<long long>(E) * splits > 65535 ||
-      out_chunks < 1 || N % out_chunks)
+      out_chunks < 1 || N % out_chunks || act_nsv < 0 || act_nsv > razer_act::MAX_SV)
     return cudaErrorInvalidValue;
   auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
   Params p;
@@ -684,6 +847,8 @@ cudaError_t launch_grouped(const void* x, int x_is_bf16, const void* codes, cons
   p.x_is_bf16 = x_is_bf16;
   p.vec_x = x_is_bf16 && aligned(x);
   p.vec_w = N % 16 == 0 && aligned(codes) && aligned(scale_meta);
+  p.act_table = act_table;
+  p.act_nsv = act_nsv;
   const dim3 grid((N + BN - 1) / BN, (M + nt - 1) / nt, E * splits);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   switch (nt) {

@@ -22,6 +22,8 @@ from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 
 from . import ref
 from .paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+from .prefill_attention import prefill_attention_cuda
+from .rms_norm import rms_norm_cuda
 from .razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
 from .razer_kv_attention import razer_kv_attention_cuda
 from .razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
@@ -29,11 +31,16 @@ from .razer_quantize import razer_act_qdq_cuda
 
 __all__ = ["razer_matmul", "razer_grouped_matmul", "reduce_scatter_epilogue", "razer_matmul_kshard",
            "razer_grouped_matmul_kshard", "razer_act_qdq", "razer_kv_attention", "razer_paged_kv_attention",
-           "razer_paged_kv_attention_verify"]
+           "razer_paged_kv_attention_verify", "prefill_attention", "rms_norm"]
 
 
-def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
-    """y = x @ dequant(pw) for x (..., K) -> (..., N) in x's dtype."""
+def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight, *, act_svs=None) -> torch.Tensor:
+    """y = x @ dequant(pw) for x (..., K) -> (..., N) in x's dtype.
+
+    ``act_svs``: under W4A4, the activation's special values; x is
+    fake-quantized first (16-element blocks, E4M3 scales): on the card by
+    K1 in its own x load at decode-sized M, else by K2 before K1 (the same
+    bits); on the CPU by the plain version before the plain matmul."""
     k, n = pw.shape
     if x.shape[-1] != k:
         raise ValueError(f"x {tuple(x.shape)} does not match packed weight {pw.shape}")
@@ -41,9 +48,11 @@ def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
     xf = x.reshape(-1, k)
     if x.is_cuda:
         y = razer_matmul_cuda(xf.contiguous(), pw.codes, pw.scale_meta,
-                              m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1])
+                              m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1], act_svs=act_svs)
         y = y * pw.tensor_scale
     else:
+        if act_svs is not None:
+            xf = ref.razer_act_qdq_ref(xf, svs=act_svs)
         y = ref.razer_matmul_ref(xf, pw)  # the tensor scale is inside the f32 weight
     return y.reshape(*lead, n).to(x.dtype)
 
@@ -84,10 +93,12 @@ def _kshard_group(container, group):
     return container.k_shards
 
 
-def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group) -> torch.Tensor:
+def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group, act_svs=None) -> torch.Tensor:
     """x (..., K/tp) @ this rank's K/tp shard ``pw`` (``pw.k_shards`` = tp),
     the partials summed over ``group`` -> (..., N/tp), this rank's columns,
-    in x's dtype.  K7 on the card."""
+    in x's dtype.  K7 on the card.  ``act_svs`` as ``razer_matmul``'s, on
+    this rank's K slice (whole 16-element blocks, so the bits of
+    quantizing the full x and slicing it)."""
     tp = _kshard_group(pw, group)
     k, n = pw.shape
     if x.shape[-1] != k:
@@ -96,9 +107,11 @@ def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group) -> tor
     xf = x.reshape(-1, k)
     if x.is_cuda:
         y = razer_matmul_kshard_cuda(xf.contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
-                                     m1=pw.sv_magnitudes[1], out_chunks=tp)
+                                     m1=pw.sv_magnitudes[1], out_chunks=tp, act_svs=act_svs)
         y = (y * pw.tensor_scale).to(x.dtype)
     else:
+        if act_svs is not None:
+            xf = ref.razer_act_qdq_ref(xf, svs=act_svs)
         y = _chunked(ref.razer_matmul_ref(xf, pw).to(x.dtype), tp)
     return reduce_scatter_epilogue(y, group).reshape(*lead, n // tp)
 
@@ -188,3 +201,24 @@ def razer_paged_kv_attention_verify(q: torch.Tensor, cache, page_table: torch.Te
     else:
         out = ref.paged_kv_attention_verify_ref(q, *pool, page_table, cur_len)
     return out.to(q.dtype)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Causal GQA prefill attention, q (B, Sq, H, hd) against k, v (B, Skv,
+    KVH, hd) -> q's shape and dtype.  On the card the prefill kernel (K9),
+    whose rows do not depend on the batch or the padding; ``kv_chunk`` is
+    the plain version's chunk and does not reach the kernel."""
+    if q.is_cuda:
+        return prefill_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                                      q_offset=q_offset)
+    return ref.chunked_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_chunk=kv_chunk)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim with the (1 + gamma) gain, in f32, out in
+    x's dtype.  On the card the kernel (K10), whose rows do not depend on
+    how many rows the call holds."""
+    if x.is_cuda:
+        return rms_norm_cuda(x, gamma, eps)
+    return ref.rms_norm_ref(x, gamma, eps)

@@ -3,20 +3,25 @@
 form K7 (``razer_matmul_kshard_pallas``) -- and its plain version.
 
 ``razer_matmul_cuda`` and ``razer_matmul_kshard_cuda`` take CUDA tensors
-only; ``kernels.ops`` sends CPU tensors to ``plain`` instead.
+only; ``kernels.ops`` sends CPU tensors to ``plain`` instead.  Under W4A4
+they take the activation's special values (``act_svs``) and return the bits
+of the activation fake-quant (K2) followed by the GEMM: at decode-sized M
+(``launch_plan(...).fuse_act``) the GEMM fake-quantizes x in its own x load,
+one launch; at larger M, K2 runs first and the GEMM reads its output.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import build
+from .razer_quantize import act_table, razer_act_qdq_cuda
 from .ref import razer_matmul_ref as plain
 
 __all__ = ["razer_matmul_cuda", "razer_matmul_kshard_cuda", "plain", "BK", "BN", "MAX_SPLITS", "LaunchPlan",
-           "launch_plan"]
+           "launch_plan", "FUSE_ACT_MAX_M"]
 
 BK = 64  # K step of the kernel; K must be a multiple of it
 BN = 128  # columns of N per block: the CUDA tile's BN (razer_matmul_tile.cuh), which this copy must equal
@@ -27,9 +32,19 @@ GRID_Z = 65535  # CUDA's limit on gridDim.z (E x splits) and gridDim.y (token ti
 # SXM (132 SMs).  A constant, not the card's SM count, so that the split
 # boundaries -- and with them every output bit -- depend on (N, K) alone.
 _TARGET_BLOCKS = 2 * 132
+# the largest M at which a W4A4 K1/K7 fake-quantizes x in its own load
+# instead of after a K2 launch.  Every column block (N / 128 of them, 8 to
+# 64 for llama3_2_3b) quantizes its x rows again, so the fused launch takes
+# more device time than K2 + K1 at every M (+0.027 ms a llama layer at M =
+# 4, x8 at M = 128; tools/fused_act_timing.py, PERF.md), but it saves K2's
+# launch and host call, and the decode step is bound by the host: a layer's
+# calls end sooner fused up to M = 16 and later from M = 24 on.  A token
+# tile's edge, so decode (4 slots) and speculate_k=2 verify (12 rows) fuse
+# and prefill buckets do not.  Both paths give the same bits.
+FUSE_ACT_MAX_M = 16
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
-_KSHARD_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P]
+_KSHARD_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P, _I, _P]
 
 
 class LaunchPlan(NamedTuple):
@@ -46,6 +61,7 @@ class LaunchPlan(NamedTuple):
     k_tiles_per_split: int  # BK-deep steps per split (the last may have fewer)
     cluster: int  # blocks per thread-block cluster: a tile's splits (1: no cluster)
     grid: Tuple[int, int, int]  # (column tiles, token tiles, E x splits)
+    fuse_act: bool  # under W4A4 (K1, K7): fake-quantize x in the GEMM's load, not in a K2 launch first
 
 
 def launch_plan(e: int, m: int, n: int, k: int) -> LaunchPlan:
@@ -57,7 +73,9 @@ def launch_plan(e: int, m: int, n: int, k: int) -> LaunchPlan:
     row sums its K in the same grouping whatever the batch (decode, padded
     serve slots, a verify pass, prefill), and its output is bit for bit the
     same; the token tile is the smallest instruction width that holds M (128
-    tokens per block beyond that)."""
+    tokens per block beyond that).  ``fuse_act`` follows M alone (M <=
+    ``FUSE_ACT_MAX_M``); the fused and the two-launch W4A4 paths give the
+    same bits."""
     if k < BK or k % BK or n < 1 or m < 1 or e < 1:
         raise ValueError(f"no packed GEMM launch for E {e}, M {m}, N {n}, K {k} (K a positive multiple of {BK})")
     k_tiles = k // BK
@@ -68,7 +86,7 @@ def launch_plan(e: int, m: int, n: int, k: int) -> LaunchPlan:
     grid = (-(-n // BN), -(-m // nt), e * splits)
     if grid[1] > GRID_Z or grid[2] > GRID_Z:
         raise ValueError(f"{e} experts x {splits} K splits, {grid[1]} token tiles: past the grid's limit of {GRID_Z}")
-    return LaunchPlan(nt, BN, splits, per, splits if splits > 1 else 1, grid)
+    return LaunchPlan(nt, BN, splits, per, splits if splits > 1 else 1, grid, m <= FUSE_ACT_MAX_M)
 
 
 def _check(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, what: str, k_shards: int = 1):
@@ -92,35 +110,59 @@ def _check(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, what:
     return m, k, n
 
 
+def _act(x: torch.Tensor, plan: LaunchPlan, act_svs, fused: Optional[bool]):
+    """(x for the GEMM, act table pointer, special-value count) of a call:
+    without ``act_svs`` x as it is; fused, x with the table; else K2's
+    output.  ``fused`` overrides the plan's choice (the checks that hold
+    the two paths against each other)."""
+    if act_svs is None:
+        return x, None, 0
+    svs = tuple(float(v) for v in act_svs)
+    if plan.fuse_act if fused is None else fused:
+        return x, act_table(str(x.device), svs).data_ptr(), len(svs)
+    return razer_act_qdq_cuda(x, svs), None, 0
+
+
+def _count(fn, table) -> None:
+    fn.launches += 1
+    if table is not None:
+        fn.fused_act_launches += 1
+
+
 def razer_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, *,
-                      m0: float, m1: float) -> torch.Tensor:
+                      m0: float, m1: float, act_svs=None, fused: Optional[bool] = None) -> torch.Tensor:
     """x (M, K) bf16 or f32 @ the packed (K, N) weight -> (M, N) f32, without
-    the tensor scale."""
+    the tensor scale.  ``act_svs``: fake-quantize x first (W4A4), fused
+    into the GEMM's x load at decode-sized M, else by a K2 launch."""
     m, k, n = _check(x, codes, scale_meta, "razer_matmul_cuda")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
     plan = launch_plan(1, m, n, k)
+    x, table, nsv = _act(x, plan, act_svs, fused)
     fn = build.function("razer_matmul", "razer_matmul_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale_meta.data_ptr(),
                     out.data_ptr(), m, k, n, plan.nt, plan.splits, plan.k_tiles_per_split, float(m0), float(m1),
-                    torch.cuda.current_stream().cuda_stream)
+                    table, nsv, torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_matmul")
-    razer_matmul_cuda.launches += 1
+    _count(razer_matmul_cuda, table)
     return out
 
 
-razer_matmul_cuda.launches = 0
+razer_matmul_cuda.launches = 0  # every K1 launch
+razer_matmul_cuda.fused_act_launches = 0  # those that fake-quantized x in their load
 
 
 def razer_matmul_kshard_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: torch.Tensor, *,
-                             m0: float, m1: float, out_chunks: int) -> torch.Tensor:
+                             m0: float, m1: float, out_chunks: int, act_svs=None,
+                             fused: Optional[bool] = None) -> torch.Tensor:
     """K7: x (M, K_local) @ this rank's packed (K_local, N) shard -> its
     full-N f32 partial, without the tensor scale, laid out for the
     reduce-scatter as (out_chunks, M, N/out_chunks): chunk r holds columns
     [r N/c, (r+1) N/c).  The split count is K1's on the local shape, so the
-    result is K1's on the same shard, permuted, bit for bit."""
+    result is K1's on the same shard, permuted, bit for bit.  ``act_svs``
+    as K1's: the local K slice holds whole 16-value blocks."""
     m, k, n = _check(x, codes, scale_meta, "razer_matmul_kshard_cuda", out_chunks)
     if out_chunks <= 0 or n % out_chunks:
         raise ValueError(f"N {n} does not split into {out_chunks} output chunks")
@@ -128,14 +170,16 @@ def razer_matmul_kshard_cuda(x: torch.Tensor, codes: torch.Tensor, scale_meta: t
     if m == 0:
         return out
     plan = launch_plan(1, m, n, k)
+    x, table, nsv = _act(x, plan, act_svs, fused)
     fn = build.function("razer_matmul", "razer_matmul_kshard_launch", _KSHARD_ARGTYPES)
     with torch.cuda.device(x.device):
         status = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(), scale_meta.data_ptr(),
                     out.data_ptr(), m, k, n, plan.nt, plan.splits, plan.k_tiles_per_split, out_chunks, float(m0),
-                    float(m1), torch.cuda.current_stream().cuda_stream)
+                    float(m1), table, nsv, torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_matmul_kshard")
-    razer_matmul_kshard_cuda.launches += 1
+    _count(razer_matmul_kshard_cuda, table)
     return out
 
 
-razer_matmul_kshard_cuda.launches = 0
+razer_matmul_kshard_cuda.launches = 0  # every K7 launch
+razer_matmul_kshard_cuda.fused_act_launches = 0  # those that fake-quantized x in their load

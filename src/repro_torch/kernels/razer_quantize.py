@@ -2,10 +2,11 @@
 ``csrc/razer_quantize.cu`` (which replaces the Pallas ``razer_act_qdq_pallas``)
 and its plain version.
 
-The kernel receives the E4M3 scale grid and the candidate grids (FP4, then
-FP4 with each special value) with their float32 midpoints, built here from
-the same numpy grids the plain version rounds onto, so both search the same
-midpoints.
+The kernel receives one float32 table (``table_numpy``): the E4M3 scale grid,
+the FP4 grid and, per special value, the two midpoints around it, built here
+from the same numpy grids the plain version rounds onto, so both search the
+same midpoints.  The packed GEMM's fused x path (K1, K7 at decode-sized M)
+takes the same table.
 """
 from __future__ import annotations
 
@@ -21,25 +22,48 @@ from repro_torch.core.razer import FP4_GRID, grid_with_sv
 from . import build
 from .ref import razer_act_qdq_ref as plain
 
-__all__ = ["razer_act_qdq_cuda", "plain"]
+__all__ = ["razer_act_qdq_cuda", "plain", "act_table", "table_numpy"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _I, _L, _P, _P, _I, _P, _P, _I, _P]
+_ARGTYPES = [_P, _P, _I, _L, _P, _I, _P]
 _MAX_SVS = 4
+# offsets of csrc/razer_act_qdq.cuh's table, which this layout must equal
+_SCALE_VALS, _SCALE_MIDS, _BASE_VALS, _BASE_MIDS = 0, 128, 256, 272
+_SV_VALS, _SV_LO, _SV_HI, _TABLE = 288, 292, 296, 304
+
+
+def table_numpy(svs: tuple) -> np.ndarray:
+    """The float32 table the kernels round with: the positive E4M3 grid and
+    its midpoints (+inf past the last), the FP4 grid and its midpoints, and
+    for each special value v the midpoints of the FP4 grid with v added
+    just below and above v (-inf / +inf where v is the smallest / largest):
+    that grid rounds s to v exactly where lo < s <= hi, and like the FP4
+    grid elsewhere.  All midpoints are the float32 ones the plain version
+    searches."""
+    if len(svs) > _MAX_SVS:
+        raise ValueError(f"the kernel tries at most {_MAX_SVS} special values, got {len(svs)}")
+    t = np.zeros(_TABLE, np.float32)
+    scale = positive_format_values("e4m3")
+    t[_SCALE_VALS:_SCALE_VALS + len(scale)] = scale
+    t[_SCALE_MIDS:_BASE_VALS] = np.inf
+    t[_SCALE_MIDS:_SCALE_MIDS + len(scale) - 1] = grid_midpoints(scale)
+    t[_BASE_VALS:_BASE_VALS + len(FP4_GRID)] = FP4_GRID
+    t[_BASE_MIDS:_SV_VALS] = np.inf
+    t[_BASE_MIDS:_BASE_MIDS + len(FP4_GRID) - 1] = grid_midpoints(FP4_GRID)
+    for i, v in enumerate(svs):
+        g = grid_with_sv(v)
+        mids = grid_midpoints(g)
+        j = int(np.flatnonzero(g == np.float32(v))[0])
+        t[_SV_VALS + i] = v
+        t[_SV_LO + i] = mids[j - 1] if j > 0 else -np.inf
+        t[_SV_HI + i] = mids[j] if j < len(mids) else np.inf
+    return t
 
 
 @functools.lru_cache(maxsize=None)
-def _tables(device: str, svs: tuple):
-    """(scale_vals, scale_mids, cand_vals, cand_mids) float32 on ``device``."""
-    scale = positive_format_values("e4m3")
-    grids = [FP4_GRID] + [grid_with_sv(v) for v in svs]
-    vals = np.zeros((len(grids), 16), np.float32)
-    mids = np.full((len(grids), 16), np.inf, np.float32)
-    for i, g in enumerate(grids):
-        vals[i, : len(g)] = g
-        mids[i, : len(g) - 1] = grid_midpoints(g)
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return to(scale), to(grid_midpoints(scale)), to(vals), to(mids)
+def act_table(device: str, svs: tuple) -> torch.Tensor:
+    """``table_numpy(svs)`` on ``device``, copied there once."""
+    return torch.from_numpy(table_numpy(svs)).to(device)
 
 
 def razer_act_qdq_cuda(x: torch.Tensor, svs=(5.0, -5.0)) -> torch.Tensor:
@@ -53,16 +77,12 @@ def razer_act_qdq_cuda(x: torch.Tensor, svs=(5.0, -5.0)) -> torch.Tensor:
     if x.shape[-1] % 16:
         raise ValueError(f"last dim {x.shape[-1]} is not a multiple of the 16-element block")
     svs = tuple(float(v) for v in svs)
-    if len(svs) > _MAX_SVS:
-        raise ValueError(f"the kernel tries at most {_MAX_SVS} special values, got {len(svs)}")
-    scale_vals, scale_mids, cand_vals, cand_mids = _tables(str(x.device), svs)
+    table = act_table(str(x.device), svs)
     y = torch.empty_like(x)
     fn = build.function("razer_quantize", "razer_act_qdq_launch", _ARGTYPES)
     with torch.cuda.device(x.device):
-        status = fn(x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(),
-                    scale_vals.data_ptr(), scale_mids.data_ptr(), scale_vals.numel(),
-                    cand_vals.data_ptr(), cand_mids.data_ptr(), cand_vals.shape[0],
-                    torch.cuda.current_stream().cuda_stream)
+        status = fn(x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(), table.data_ptr(),
+                    len(svs), torch.cuda.current_stream().cuda_stream)
     build.check(status, "razer_act_qdq")
     razer_act_qdq_cuda.launches += 1
     return y

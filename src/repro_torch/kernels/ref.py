@@ -11,7 +11,7 @@ from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 from repro_torch.core.razer import razer_quantize
 
 __all__ = ["razer_matmul_ref", "razer_grouped_matmul_ref", "razer_act_qdq_ref", "razer_kv_attention_ref",
-           "paged_kv_attention_ref", "paged_kv_attention_verify_ref"]
+           "paged_kv_attention_ref", "paged_kv_attention_verify_ref", "chunked_attention_ref", "rms_norm_ref"]
 
 
 def razer_matmul_ref(x: torch.Tensor, pw: PackedRazerWeight) -> torch.Tensor:
@@ -73,3 +73,57 @@ def paged_kv_attention_verify_ref(q, k_codes, k_meta, v_codes, v_meta, page_tabl
     cur = (torch.as_tensor(cur_len, device=q.device).reshape(-1, 1).to(torch.int32)
            + torch.arange(t, dtype=torch.int32, device=q.device)[None, :] + 1).reshape(-1)
     return razer_kv_attention_ref(q.reshape(b * t, h, hd), *caches, cur).reshape(b, t, h, hd)
+
+
+def _pick_chunk(s: int, target: int = 1024) -> int:
+    c = min(s, target)
+    while s % c:
+        c //= 2
+    return max(c, 1)
+
+
+def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                          q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
+    """Prefill attention as the JAX package computes it: an online-softmax
+    walk over KV chunks of ``kv_chunk`` (halved until it divides Skv), each
+    a batched matmul.  q (B, Sq, H, hd); k, v (B, Skv, KVH, hd) -> (B, Sq,
+    H, hd) in q's dtype.  Masked scores are -1e30, P is cast to V's dtype
+    before the PV product, and the output is acc / max(l, 1e-30)."""
+    from repro_torch.models.attention import _softmax_scale
+
+    b, sq, h, hd = q.shape
+    _, skv, kvh, _ = k.shape
+    g = h // kvh
+    kc = _pick_chunk(skv, kv_chunk)
+    scale = _softmax_scale(hd)
+    op = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).to(op).float()  # (b,kvh,g,sq,hd)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, kvh, g, sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, skv, kc):
+        kblk = k[:, c0:c0 + kc].to(op).float().permute(0, 2, 3, 1)  # (b,kvh,hd,kc)
+        vblk = v[:, c0:c0 + kc].permute(0, 2, 1, 3)  # (b,kvh,kc,hd)
+        s = (qg @ kblk[:, :, None]) * scale  # (b,kvh,g,sq,kc)
+        if causal:
+            kpos = c0 + torch.arange(kc, device=q.device)
+            s = torch.where(kpos[None, :] <= qpos[:, None], s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = p.to(vblk.dtype).float() @ vblk.float()[:, :, None]
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def rms_norm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the ``(1 + gamma)`` gain convention, computed in f32, as
+    the JAX package computes it."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + gamma.to(torch.float32))).to(dt)

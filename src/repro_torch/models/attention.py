@@ -1,7 +1,8 @@
 """GQA attention (PyTorch port of the dense path of ``repro.models.attention``).
 
-Full-sequence attention is an online-softmax walk over KV chunks written as
-plain matmuls, as the JAX package computes it outside any kernel.  Decode
+Full-sequence (prefill) attention is an online-softmax walk over KV chunks:
+the prefill kernel on the card, and on the CPU plain matmuls, as the JAX
+package computes it outside any kernel.  Decode
 attends one query per sequence against a bf16 cache, or, through
 ``kernels.ops``, against the RaZeR-packed cache, contiguous or paged; the
 speculative verify step attends T queries per sequence over the paged pool.
@@ -31,13 +32,6 @@ def _softmax_scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def _pick_chunk(s: int, target: int = 1024) -> int:
-    c = min(s, target)
-    while s % c:
-        c //= 2
-    return max(c, 1)
-
-
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                       q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
     """q (B, Sq, H, hd); k, v (B, Skv, KVH, hd) with H % KVH == 0 -> (B, Sq, H, hd).
@@ -45,35 +39,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     Query i sits at position ``q_offset + i`` and key j at position j; the
     causal mask keeps key positions <= the query's.  The prefix-cached
     continuation prefill passes the cached length as ``q_offset``, with K/V
-    laid out so that every entry's position is its index.  Masked scores are
-    -1e30 and the output is acc / max(l, 1e-30), as in the JAX package."""
-    b, sq, h, hd = q.shape
-    _, skv, kvh, _ = k.shape
-    g = h // kvh
-    kc = _pick_chunk(skv, kv_chunk)
-    scale = _softmax_scale(hd)
-    op = torch.promote_types(q.dtype, k.dtype)
-    qg = q.reshape(b, sq, kvh, g, hd).permute(0, 2, 3, 1, 4).to(op).float()  # (b,kvh,g,sq,hd)
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    m = torch.full((b, kvh, g, sq), -1e30, dtype=torch.float32, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32, device=q.device)
-    for c0 in range(0, skv, kc):
-        kblk = k[:, c0:c0 + kc].to(op).float().permute(0, 2, 3, 1)  # (b,kvh,hd,kc)
-        vblk = v[:, c0:c0 + kc].permute(0, 2, 1, 3)  # (b,kvh,kc,hd)
-        s = (qg @ kblk[:, :, None]) * scale  # (b,kvh,g,sq,kc)
-        if causal:
-            kpos = c0 + torch.arange(kc, device=q.device)
-            s = torch.where(kpos[None, :] <= qpos[:, None], s, torch.full_like(s, -1e30))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        pv = p.to(vblk.dtype).float() @ vblk.float()[:, :, None]
-        acc = acc * alpha[..., None] + pv
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    laid out so that every entry's position is its index.  On the card the
+    prefill kernel (K9) walks each row's keys in fixed chunks from position
+    0, so a row's bits do not depend on the batch or the padding
+    (``kv_chunk`` is the plain version's); on the CPU the plain version runs
+    (``kernels.ref.chunked_attention_ref``, the JAX package's computation)."""
+    from repro_torch.kernels import ops
+
+    return ops.prefill_attention(q, k, v, causal=causal, q_offset=q_offset, kv_chunk=kv_chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cur_len) -> torch.Tensor:

@@ -32,11 +32,12 @@ def embedding_init(gen: torch.Generator, vocab: int, d_model: int, *, device, dt
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with the ``(1 + gamma)`` gain convention, computed in f32."""
-    dt = x.dtype
-    x = x.to(torch.float32)
-    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + gamma.to(torch.float32))).to(dt)
+    """RMSNorm with the ``(1 + gamma)`` gain convention, computed in f32: on
+    the card the row-invariant kernel (K10), on the CPU the plain version
+    (``kernels.ref.rms_norm_ref``)."""
+    from repro_torch.kernels import ops
+
+    return ops.rms_norm(x, gamma, eps)
 
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

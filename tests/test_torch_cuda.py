@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.packing import pack_stacked_weights, pack_weight
 from repro_torch.kernels import attention_plan, ops, ref
 from repro_torch.kernels.paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
+from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
 from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
 from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
@@ -43,13 +44,40 @@ def test_cuda_matmul_matches_plain(cuda_device, m):
     assert bool(((got - want).abs() <= bound).all())
 
 
+_ACT_SVS = [(5.0, -5.0), (5.0, -5.0, 8.0, -8.0)]
+
+
+def _act_x(device, m, k, dtype, seed):
+    """Activations x 3 with an all-zero block and ties on the FP4 midpoints."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=device) * 3
+    x[0, :16] = 0.0
+    x[0, 16:32] = torch.tensor([0.0, 1.0, -1.0, 5.0, -5.0, 4.5, -4.5, 5.5] * 2, device=device)
+    return x.to(dtype)
+
+
+def _view(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_act_qdq_bit_exact(cuda_device, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = (torch.randn((64, 3072), generator=g, device=cuda_device) * 3).to(dtype)
-    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
-    assert torch.equal(razer_act_qdq_cuda(x).view(view), ref.razer_act_qdq_ref(x).view(view))
+    """K2 equals its plain version bit for bit, for the activation set (5,
+    -5) and a set of four special values."""
+    x = _act_x(cuda_device, 64, 3072, dtype, seed=1)
+    for svs in _ACT_SVS:
+        assert torch.equal(_view(razer_act_qdq_cuda(x, svs)), _view(ref.razer_act_qdq_ref(x, svs=svs))), svs
+
+
+@pytest.mark.cuda
+def test_cuda_act_qdq_rows_bit_identical_across_m(cuda_device):
+    """K2 quantizes each 16-value block on its own: a row's bits do not move
+    with M, up to prefill's 8 x 128 rows."""
+    x = _act_x(cuda_device, 1024, 3072, torch.bfloat16, seed=2)
+    whole = razer_act_qdq_cuda(x)
+    for m in (1, 4, 12, 128):
+        assert torch.equal(_view(razer_act_qdq_cuda(x[:m].contiguous())), _view(whole[:m])), m
 
 
 @pytest.mark.cuda
@@ -68,14 +96,18 @@ def test_cuda_kv_attention_matches_plain(cuda_device):
 @pytest.mark.parametrize("k,n", [(512, 192), (3072, 1024), (3072, 3072)])
 def test_cuda_matmul_row_bit_identical_across_m(cuda_device, k, n):
     """K1's split-K boundaries depend on (N, K) only: the first rows' output
-    is bit for bit the same at every batch size."""
+    is bit for bit the same at every batch size up to prefill's 8 x 128
+    rows, plain and with the activation fake-quant (fused into the load and
+    as K2 then K1, at every M)."""
     g = torch.Generator(device=cuda_device).manual_seed(k + n)
     pw = pack_weight(torch.randn((k, n), generator=g, device=cuda_device) / k**0.5)
-    x = torch.randn((128, k), generator=g, device=cuda_device).to(torch.bfloat16)
-    outs = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
-                              m1=pw.sv_magnitudes[1]) for m in (1, 4, 8, 24, 128)]
-    for out in outs[1:]:
-        assert torch.equal(out[:1], outs[0])
+    x = (torch.randn((1024, k), generator=g, device=cuda_device) * 3).to(torch.bfloat16)
+    m0, m1 = pw.sv_magnitudes
+    for act in ({}, {"act_svs": (5.0, -5.0), "fused": True}, {"act_svs": (5.0, -5.0), "fused": False}):
+        outs = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, m0=m0, m1=m1, **act)
+                for m in (1, 4, 8, 24, 128, 1024)]
+        for out in outs[1:]:
+            assert torch.equal(out[:1], outs[0]), act
 
 
 def _paged_fixture(device, b=4, h=24, kvh=8, hd=128, ps=16, npg=8, seed=3):
@@ -436,3 +468,147 @@ def test_cuda_verify_beyond_one_block_of_rows_equals_decode_bitwise(cuda_device,
                                rtol=1e-4, atol=1e-4)
     for i in range(t):
         assert torch.equal(got[:, i], paged_kv_attention_cuda(qt[:, i].contiguous(), *pool, table, committed + i + 1))
+
+
+# --- the fused activation fake-quant in K1 / K7's x load ----------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 12, 128, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("svs", _ACT_SVS)
+def test_cuda_fused_act_matmul_equals_k2_then_k1(cuda_device, m, dtype, svs):
+    """K1 and K7 fake-quantizing x in their own load return the bits of K2
+    followed by K1 / K7 on K2's output, bit for bit, for bf16 and f32 x (f32
+    quantized before its bf16 rounding); the launch counts say which path
+    ran.  K 3072 over 8 splits gives 6 steps a split: at M 128 and 1024
+    (128-token tiles) more than the quantized-x region holds at once, so
+    the block quantizes chunk after chunk."""
+    from repro_torch.core.packing import take_shard
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + len(svs))
+    pw = pack_weight(torch.randn((3072, 1024), generator=g, device=cuda_device) / 3072**0.5)
+    x = _act_x(cuda_device, m, 3072, dtype, seed=m)
+    m0, m1 = pw.sv_magnitudes
+    two = razer_matmul_cuda(razer_act_qdq_cuda(x, svs), pw.codes, pw.scale_meta, m0=m0, m1=m1)
+    before = (razer_matmul_cuda.fused_act_launches, razer_act_qdq_cuda.launches)
+    fused = razer_matmul_cuda(x, pw.codes, pw.scale_meta, m0=m0, m1=m1, act_svs=svs, fused=True)
+    assert (razer_matmul_cuda.fused_act_launches, razer_act_qdq_cuda.launches) == (before[0] + 1, before[1])
+    assert torch.equal(fused, two)
+    assert torch.equal(razer_matmul_cuda(x, pw.codes, pw.scale_meta, m0=m0, m1=m1, act_svs=svs, fused=False), two)
+    shard = take_shard(pw, tp=2, tp_index=1)
+    xs = x[:, 1536:].contiguous()
+    two = razer_matmul_kshard_cuda(razer_act_qdq_cuda(xs, svs), shard.codes, shard.scale_meta, m0=m0, m1=m1,
+                                   out_chunks=2)
+    got = razer_matmul_kshard_cuda(xs, shard.codes, shard.scale_meta, m0=m0, m1=m1, out_chunks=2, act_svs=svs,
+                                   fused=True)
+    assert torch.equal(got, two)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_act_follows_the_launch_plan(cuda_device):
+    """Without an override the wrapper fuses at decode-sized M and launches
+    K2 first above it (``launch_plan(...).fuse_act``)."""
+    from repro_torch.kernels.razer_matmul import FUSE_ACT_MAX_M
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    pw = pack_weight(torch.randn((512, 256), generator=g, device=cuda_device))
+    for m, fuses in ((FUSE_ACT_MAX_M, True), (FUSE_ACT_MAX_M + 1, False)):
+        x = _act_x(cuda_device, m, 512, torch.bfloat16, seed=m)
+        before = (razer_matmul_cuda.fused_act_launches, razer_act_qdq_cuda.launches)
+        razer_matmul_cuda(x, pw.codes, pw.scale_meta, m0=5.0, m1=8.0, act_svs=(5.0, -5.0))
+        after = (razer_matmul_cuda.fused_act_launches, razer_act_qdq_cuda.launches)
+        assert after == ((before[0] + 1, before[1]) if fuses else (before[0], before[1] + 1)), m
+
+
+# --- prefill attention (K9) -------------------------------------------------------------------------
+_PROMPT_LENS = (8, 15, 23, 32, 40, 57, 64, 100)  # chip_smoke.py phase 4c's requests
+
+
+def _bucket(n):
+    return max(8, 1 << (n - 1).bit_length())
+
+
+def _prefill_inputs(device, b, s, h, kvh, hd, kv_dtype, seed, skv=None):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, s, h, hd), generator=g, device=device).to(torch.bfloat16)
+    k = torch.randn((b, skv or s, kvh, hd), generator=g, device=device).to(kv_dtype)
+    v = torch.randn((b, skv or s, kvh, hd), generator=g, device=device).to(kv_dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", [(1, 16), (3, 64), (3, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q_offset", [0, 40])
+def test_cuda_prefill_attention_matches_plain(cuda_device, g, hd, dtype, q_offset):
+    """K9 against its plain version with q, K and V in ``dtype``: f32 within
+    rtol = atol = 1e-5 (expf and another summation order); bf16 within two
+    bf16 ulps of the output plus 2^-9 (P is rounded to bf16 in both, and an
+    f32 ulp of p can move that rounding)."""
+    q, k, v = _prefill_inputs(cuda_device, 2, 70, 2 * g, 2, hd, dtype, seed=hd + q_offset, skv=70 + q_offset)
+    q = q.to(dtype)
+    got = prefill_attention_cuda(q, k, v, causal=True, q_offset=q_offset)
+    want = ref.chunked_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=2**-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_prefill_attention_alone_equals_batched(cuda_device, kv_dtype):
+    """A prompt's rows alone at its own bucket equal its rows inside a batch
+    of 8 at the 128-token bucket, bit for bit (llama3_2_3b heads; K/V f32
+    as prefill(qdq_kv=True) gives them, and bf16); and a continuation's
+    suffix rows (q_offset 40 over 40 cached keys and its bucket) equal the
+    same rows of the whole prompt's prefill."""
+    q, k, v = _prefill_inputs(cuda_device, 8, 128, 24, 8, 128, kv_dtype, seed=5)
+    batched = prefill_attention_cuda(q, k, v)
+    for r, n in enumerate(_PROMPT_LENS):
+        s = _bucket(n)
+        alone = prefill_attention_cuda(q[r:r + 1, :s].contiguous(), k[r:r + 1, :s].contiguous(),
+                                       v[r:r + 1, :s].contiguous())
+        assert torch.equal(alone[0, :n], batched[r, :n]), n
+    c, n = 40, _PROMPT_LENS[6]  # request 6 shares its first 40 tokens with request 5
+    s = _bucket(n - c)
+    kv = [torch.zeros((1, 64 + s, 8, 128), dtype=kv_dtype, device=cuda_device) for _ in range(2)]
+    for buf, src in zip(kv, (k, v)):
+        buf[0, :n] = src[6, :n]
+    sfx = prefill_attention_cuda(q[6:7, c:c + s].contiguous(), *kv, q_offset=c)
+    assert torch.equal(sfx[0, :n - c], batched[6, c:n])
+
+
+# --- RMSNorm (K10) ----------------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 3072])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rms_norm_matches_plain(cuda_device, d, dtype):
+    """K10 against its plain version: bf16 within one bf16 ulp of the
+    output, f32 within 1e-5 relative (rsqrtf and the sum's order differ)."""
+    from repro_torch.kernels.rms_norm import rms_norm_cuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    x = (torch.randn((3, 37, d), generator=g, device=cuda_device) * 3).to(dtype)
+    gamma = torch.randn(d, generator=g, device=cuda_device) * 0.1
+    got, want = rms_norm_cuda(x, gamma, 1e-5), ref.rms_norm_ref(x, gamma, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = dict(rtol=2**-7, atol=1e-6) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_rms_norm_rows_do_not_move_with_the_batch(cuda_device):
+    """A prompt's rows alone at its bucket equal its rows inside a batch of 8
+    at the 128-token bucket, and 4 decode rows equal the same rows of 8, bit
+    for bit."""
+    from repro_torch.kernels.rms_norm import rms_norm_cuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x = (torch.randn((8, 128, 3072), generator=g, device=cuda_device) * 3).to(torch.bfloat16)
+    gamma = torch.randn(3072, generator=g, device=cuda_device) * 0.1
+    whole = rms_norm_cuda(x, gamma)
+    for r, n in enumerate(_PROMPT_LENS):
+        assert torch.equal(rms_norm_cuda(x[r:r + 1, :_bucket(n)], gamma)[0, :n], whole[r, :n]), n
+    xd = x[:, -1:].contiguous()
+    assert torch.equal(rms_norm_cuda(xd[:4], gamma), rms_norm_cuda(xd, gamma)[:4])

@@ -1,13 +1,16 @@
 """Time the port's Engine.generate at full width on one card.
 
-    python3 tools/e2e_generate.py [--src DIR] [--label NAME]
+    python3 tools/e2e_generate.py [--src DIR] [--label NAME] [--policy w4_kv|w4a4_kv] [--llama-only]
     python3 tools/e2e_generate.py --prompt-len 1024 3968 --max-len 4096 [--new-tokens 32] [--src DIR]
 
 Runs llama3_2_3b (all 28 layers) and dbrx_132b (its published widths, cut
-to 2 of 40 layers) under the packed W4 + RaZeR-KV policy: random weights
-from seed 0, 4 prompts of 8/15/23/32 tokens, max_len 128, 16 new tokens, a
-warm-up generate and a timed one, then torch.profiler over one more
-generate of 4 new tokens for the device time and the idle share.  ``--src``
+to 2 of 40 layers) under the packed W4 + RaZeR-KV policy (``--policy
+w4a4_kv``: W4A4 + KV): random weights from seed 0, 4 prompts of 8/15/23/32
+tokens, max_len 128, 16 new tokens, a warm-up generate and a timed one, then
+torch.profiler over one more generate of 4 new tokens for the device time
+and the idle share, and per decode step the difference between profiles of
+a generate of 5 new tokens and one of 1, over 4 steps (device ms, wall ms,
+idle share and kernel launches per step).  ``--src``
 picks the directory that holds the ``repro_torch`` package (default: this
 checkout's ``src``), so that two checkouts can be timed in turns within one
 call on one card (parent, change, change, parent).  Prints one JSON line;
@@ -18,7 +21,9 @@ instead, on full-width llama3_2_3b under W4 + KV with ServeConfig.max_len
 ``--max-len``: generate of 4 prompts of LO..HI random tokens and serve of 8
 such requests over 4 slots, ``--new-tokens`` each, with exact launch counts,
 decode ms per step, device ms, idle share, the decode-attention kernels'
-share of device time and the serve == generate share.
+share of device time and the serve == generate share.  That mode counts the
+launches of this checkout's ``chip_smoke.py``, so ``--src`` must name a
+package with the same kernels.
 """
 from __future__ import annotations
 
@@ -46,27 +51,55 @@ def _device_profile(run):
     return wall, device, 1.0 - device / wall
 
 
-def _time_generate(cfg, dev):
+def _policy(name):
+    from repro_torch.core.policy import QuantPolicy, TensorSpec
+
+    w4 = QuantPolicy.packed(kv_quant=True)
+    if name == "w4_kv":
+        return w4
+    return QuantPolicy(weight=w4.weight, act=TensorSpec.act("razer"), kv=w4.kv, rules=w4.rules)
+
+
+def _launches(run):
+    """Device kernels launched by one run(), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
+def _time_generate(cfg, dev, policy="w4_kv"):
     import numpy as np
     import torch
 
-    from repro_torch.core.policy import QuantPolicy
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
     raw = init_params(cfg, seed=0, device=dev)
-    eng = Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=QuantPolicy.packed(kv_quant=True)),
-                 device=dev)
+    eng = Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=_policy(policy)), device=dev)
     del raw
     for _ in range(2):  # the first run warms up, the second is timed
         out = eng.generate(prompts)
     assert all(len(o) == len(p) + 16 for o, p in zip(out, prompts))
     st = eng.stats
     wall, device, idle = _device_profile(lambda: eng.generate(prompts, max_new_tokens=4))
-    result = {"prefill_ms": st["prefill_s"] * 1e3, "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
-              "profile_4_new_tokens": {"wall_ms": wall, "device_ms": device, "idle_share": idle}}
+    one, five = (_device_profile(lambda: eng.generate(prompts, max_new_tokens=n)) for n in (1, 5))
+    step_wall, step_device = (five[0] - one[0]) / 4, (five[1] - one[1]) / 4
+    step_launches = (_launches(lambda: eng.generate(prompts, max_new_tokens=5))
+                     - _launches(lambda: eng.generate(prompts, max_new_tokens=1))) / 4
+    result = {"policy": policy, "prefill_ms": st["prefill_s"] * 1e3,
+              "decode_ms_per_step": st["decode_s"] * 1e3 / st["decode_steps"],
+              "profile_4_new_tokens": {"wall_ms": wall, "device_ms": device, "idle_share": idle},
+              "profile_decode_per_step": {"wall_ms": step_wall, "device_ms": step_device,
+                                          "idle_share": 1.0 - step_device / step_wall,
+                                          "kernel_launches": step_launches}}
     del eng
     torch.cuda.empty_cache()
     return result
@@ -99,6 +132,8 @@ def main() -> int:
                     help="long-context mode: prompts of LO..HI random tokens")
     ap.add_argument("--max-len", type=int, default=4096, help="ServeConfig.max_len of the long-context mode")
     ap.add_argument("--new-tokens", type=int, default=32, help="new tokens per prompt in the long-context mode")
+    ap.add_argument("--policy", default="w4_kv", choices=["w4_kv", "w4a4_kv"], help="the short mode's policy")
+    ap.add_argument("--llama-only", action="store_true", help="the short mode without dbrx_132b")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     import torch
@@ -113,8 +148,10 @@ def main() -> int:
     if args.prompt_len:
         out["llama3_2_3b_long_context"] = _long_context(get_config("llama3_2_3b"), dev, args)
     else:
-        out["llama3_2_3b"] = _time_generate(get_config("llama3_2_3b"), dev)
-        out["dbrx_132b_2_layers"] = _time_generate(dataclasses.replace(get_config("dbrx_132b"), num_layers=2), dev)
+        out["llama3_2_3b"] = _time_generate(get_config("llama3_2_3b"), dev, args.policy)
+        if not args.llama_only:
+            out["dbrx_132b_2_layers"] = _time_generate(dataclasses.replace(get_config("dbrx_132b"), num_layers=2),
+                                                       dev, args.policy)
     print(json.dumps(out))
     return 0
 

@@ -16,17 +16,19 @@ for a row does not depend on the rows around it or on the padding:
   unembed_rows_alone  the unembed (one matmul over the batch, whose kernel
                       cuBLAS picks by M) as one M = 1 matmul per row;
   prefill_rows_alone  prefill attention (``models/attention.py``
-                      ``chunked_attention``, batched f32 matmuls over the
-                      padded batch: B 8 at the 128-token bucket in
-                      generate, one request at its own bucket in serve) as
-                      one call per (sequence, query) over exactly the keys
-                      it attends.
+                      ``chunked_attention``: B 8 at the 128-token bucket in
+                      generate, one request at its own bucket in serve; the
+                      prefill kernel K9 since it was added, batched f32
+                      matmuls before) as one call per (sequence, query) over
+                      exactly the keys it attends.
 
 If a variant's share is 1.0, the differences of ``batched`` come from that
 op.  ``probe`` prefills each prompt as generate does (the 8 together) and
-as serve does (alone, at its bucket) and reports, per prompt, the first
-layer at which an input (q, K, V) or the output of prefill attention
-differs between the two, bit for bit, and whether the last logits do.
+as serve does (alone, at its bucket), records the output of every op of
+the prefill in call order (each rms_norm, qlinear and prefill attention,
+and attention's q, K and V), and reports, per prompt, the first op whose
+output differs between the two on the prompt's rows, bit for bit, and
+whether the last logits do.
 ``--src`` picks the directory that holds the ``repro_torch`` package, so
 that two checkouts can be run in turns within one call on one card
 (parent, change, change, parent).  Prints one JSON line; exits non-zero
@@ -76,25 +78,40 @@ def _agreement(cs, cfg, eng):
     return {"share_equal_to_generate": share, "differs_from_generate": diffs}
 
 
-def _probe(cs, cfg, eng, attention):
-    """Per prompt: the first layer whose prefill-attention input or output
-    differs between generate's batched prefill and serve's prefill alone."""
+def _probe(cs, cfg, eng, modules):
+    """Per prompt: the first op of the prefill whose output on the prompt's
+    rows differs between generate's batched prefill and serve's prefill
+    alone.  ``modules``: (attention, layers, transformer), whose rms_norm,
+    qlinear and chunked_attention are wrapped to record, in call order,
+    (layer, op, output)."""
     import torch
 
+    attention, layers, transformer = modules
     calls = []
+    saved = []
 
-    def record(q, k, v, **kw):
-        out = batched(q, k, v, **kw)
-        calls.append((q, k, v, out))
-        return out
+    def wrap(mod, name, label):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
 
-    batched = attention.chunked_attention
+        def record(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((label, out))
+            if name == "chunked_attention":
+                calls.extend((f"attention {n}", t) for n, t in zip(("q", "k", "v"), a[:3]))
+            return out
+        setattr(mod, name, record)
+
     prompts = [r.prompt for r in cs._serve_requests(cfg, 16)]
     lens = np.array([len(p) for p in prompts], np.int32)
     toks = np.zeros((len(prompts), eng._bucket(int(lens.max()), cap=eng.scfg.max_len)), np.int64)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
-    attention.chunked_attention = record
+    wrap(attention, "chunked_attention", "prefill attention")
+    wrap(attention, "qlinear", "qlinear (q, k, v)")
+    wrap(transformer, "qlinear", "qlinear wo")
+    wrap(layers, "qlinear", "qlinear (gate, up, down)")
+    wrap(transformer, "rms_norm", "rms_norm")
     try:
         with torch.no_grad():
             last_all, _ = eng._bucketed_prefill(toks, lens, max_len=eng.scfg.max_len, qdq_kv=eng.kv_quant)
@@ -104,19 +121,17 @@ def _probe(cs, cfg, eng, attention):
                 calls.clear()
                 last_one, _ = eng._serve_prefill(p)
                 first = None
-                for layer, (a, b) in enumerate(zip(together, calls)):
-                    n = len(p)
-                    for name, x, y in zip(("q", "k", "v", "out"), a, b):
-                        if not torch.equal(x[r, :n], y[0, :n]):
-                            first = {"layer": layer, "tensor": name,
-                                     "max_abs_diff": float((x[r, :n].float() - y[0, :n].float()).abs().max())}
-                            break
-                    if first:
+                n = len(p)
+                for i, ((label, a), (_, b)) in enumerate(zip(together, calls)):
+                    x, y = a.reshape(len(prompts), -1, *a.shape[2:])[r, :n], b.reshape(1, -1, *b.shape[2:])[0, :n]
+                    if not torch.equal(x, y):
+                        first = {"call": i, "op": label, "max_abs_diff": float((x.float() - y.float()).abs().max())}
                         break
-                result.append({"rid": r, "len": len(p), "first_difference": first,
+                result.append({"rid": r, "len": n, "calls": len(calls), "first_difference": first,
                                "last_logits_equal": bool(torch.equal(last_all[r], last_one[0]))})
     finally:
-        attention.chunked_attention = batched
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     return result
 
 
@@ -137,7 +152,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.configs import get_config
-    from repro_torch.models import attention, transformer
+    from repro_torch.models import attention, layers, transformer
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
@@ -153,7 +168,8 @@ def main() -> int:
     unembed, chunked = transformer.unembed, attention.chunked_attention
     for variant in args.variant:
         if variant == "probe":
-            out[variant] = {name: _probe(cs, cfg, eng, attention) for name, eng in engines.items()}
+            out[variant] = {name: _probe(cs, cfg, eng, (attention, layers, transformer))
+                            for name, eng in engines.items()}
             continue
         if variant == "unembed_rows_alone":
             transformer.unembed = _rows_alone_unembed
