@@ -610,7 +610,12 @@ def _check_rms_norm(cfg, dev, gen, detail):
     """K10 at llama3_2_3b's d_model: against its plain version (one bf16 ulp
     of the output: rsqrt and the sum's order differ), each prompt's rows
     alone == inside a batch of 8 x 128 and decode's 4 rows == the same rows
-    of 8, bit for bit; timed at M 4 and 1024 (bytes: x and y once, gamma)."""
+    of 8, bit for bit; timed at M 4 and 1024 (bytes: x and y once, gamma)
+    beside F.rms_norm with the gain 1 + gamma (f32, made once: the same
+    function) and, as ``library_bf16_gain_ms``, with the gain in bf16,
+    which PyTorch's fused kernel needs (not the same bits)."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import ref
     from repro_torch.kernels.rms_norm import rms_norm_cuda
 
@@ -625,6 +630,10 @@ def _check_rms_norm(cfg, dev, gen, detail):
         assert torch.equal(rms_norm_cuda(x[r:r + 1, :s], gamma, cfg.norm_eps)[0, :n], got[r, :n]), ("K10 rows", n)
     xd = x[:, -1:].contiguous()
     assert torch.equal(rms_norm_cuda(xd[:4], gamma, cfg.norm_eps), rms_norm_cuda(xd, gamma, cfg.norm_eps)[:4])
+    gain = 1.0 + gamma
+    lib = F.rms_norm(x, (d,), weight=gain, eps=cfg.norm_eps)
+    torch.testing.assert_close(lib.float(), want.float(), rtol=2**-7, atol=1e-6)
+    gain_bf16 = gain.to(torch.bfloat16)
     out = {}
     for m in (4, 1024):
         xm = x.reshape(-1, d)[:m].contiguous()
@@ -632,7 +641,10 @@ def _check_rms_norm(cfg, dev, gen, detail):
         out[m] = _with_device_time(
             {"ms": _cuda_ms(lambda: rms_norm_cuda(xm, gamma, cfg.norm_eps), reps=50),
              "plain_ms": _cuda_ms(lambda: ref.rms_norm_ref(xm, gamma, cfg.norm_eps), reps=50),
-             "library_ms": None, "bound_ms": bound, "bound_by": by},
+             "library_ms": _cuda_ms(lambda: F.rms_norm(xm, (d,), weight=gain, eps=cfg.norm_eps), reps=50),
+             "library_bf16_gain_ms": _cuda_ms(lambda: F.rms_norm(xm, (d,), weight=gain_bf16, eps=cfg.norm_eps),
+                                              reps=50),
+             "bound_ms": bound, "bound_by": by},
             lambda: rms_norm_cuda(xm, gamma, cfg.norm_eps), "rms_norm_kernel", 1)
         detail[f"rms_norm_M{m}"] = out[m]
     return err, out[4]

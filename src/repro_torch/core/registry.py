@@ -103,25 +103,32 @@ def _razer_pack(w, spec):
     return pack_weight(w, sv_magnitudes=spec.sv_magnitudes, block_size=spec.block_size)
 
 
-def _razer_act_svs(x, act):
-    """(x, special values) for the razer GEMM under activation spec ``act``:
-    a razer E4M3 16-block spec goes to the GEMM, which fake-quantizes x
-    itself (fused into its load at decode-sized M); any other spec is
-    applied here first, through its act kernel."""
-    if act is None:
-        return x, None
-    if act.format == "razer" and act.scale_fmt in (None, "e4m3") and act.block_size == 16:
-        return x, act.special_values
-    from .qlinear import qdq_spec
+def _razer_kernels_take(spec) -> bool:
+    """Whether the razer activation kernels compute ``spec``'s fake-quant:
+    a razer spec with E4M3 block scales, which they hardcode (on the card
+    in 16-value blocks: ``kernels.ops`` checks the block).  Both the GEMM's
+    hand-off (``_razer_act_svs``) and the act kernel route by it."""
+    return spec.format == "razer" and spec.scale_fmt in (None, "e4m3")
 
-    return qdq_spec(x, act), None
+
+def _razer_act_svs(x, act):
+    """(x, special values, block) for the razer GEMM under activation spec
+    ``act``: a spec the razer kernels take goes to the GEMM, which
+    fake-quantizes x itself (fused into its load at decode-sized M); any
+    other is applied here first, through its format's act kernel."""
+    if act is None:
+        return x, None, 16
+    if _razer_kernels_take(act):
+        return x, act.special_values, act.block_size
+    entry = act.entry
+    return (entry.act_kernel(x, act) if entry.act_kernel is not None else act.qdq(x, axis=-1)), None, 16
 
 
 def _razer_matmul(x, pw, act=None):
     from repro_torch.kernels import ops
 
-    x, svs = _razer_act_svs(x, act)
-    return ops.razer_matmul(x, pw, act_svs=svs)
+    x, svs, block = _razer_act_svs(x, act)
+    return ops.razer_matmul(x, pw, act_svs=svs, act_block=block)
 
 
 def _razer_pack_stacked(w, spec):
@@ -156,8 +163,8 @@ def _razer_shard_stacked(bank, ep: int, ep_index: int, tp: int = 1, tp_index: in
 def _razer_kshard_matmul(x, pw, group, act=None):
     from repro_torch.kernels import ops
 
-    x, svs = _razer_act_svs(x, act)
-    return ops.razer_matmul_kshard(x, pw, group=group, act_svs=svs)
+    x, svs, block = _razer_act_svs(x, act)
+    return ops.razer_matmul_kshard(x, pw, group=group, act_svs=svs, act_block=block)
 
 
 def _razer_kshard_grouped_matmul(x, pst, group):
@@ -167,8 +174,7 @@ def _razer_kshard_grouped_matmul(x, pst, group):
 
 
 def _razer_act_qdq(x, spec):
-    if spec.scale_fmt not in (None, "e4m3"):
-        # the fused act kernel hardcodes the E4M3 block scale
+    if not _razer_kernels_take(spec):
         return spec.qdq(x, axis=-1)
     from repro_torch.kernels import ops
 

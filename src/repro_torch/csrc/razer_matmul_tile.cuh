@@ -56,18 +56,22 @@
 //    with one quad of threads (razer_act_qdq.cuh, the standalone K2's
 //    arithmetic, so the bits are K2's followed by the GEMM), and writes the
 //    bf16 tiles into a region of their own, which the wgmmas then read.
-//    The region holds the whole K split when it fits in QX_MAX bytes (all
-//    the main path's shapes at decode-sized M), so the block quantizes once,
-//    before its first wgmma, while the prologue's wire bytes are in flight:
-//    the latency of a long dependent chain per block (the scale search,
-//    divisions, three SSE chains) is paid once, not once per step.  A
-//    longer split quantizes chunk after chunk, each after every wgmma has
-//    retired and behind opaque register barriers, so that no chunk
+//    The region holds the whole K split when it fits in QX_MAX bytes, so the
+//    block quantizes once, before its first wgmma, while the prologue's wire
+//    bytes are in flight: the latency of a long dependent chain per block
+//    (the scale search, divisions, three SSE chains) is paid once, not once
+//    per step.  That is every fused launch of the main path: launch_plan
+//    fuses at M <= 16 only (NT 8 or 16: 64 or 32 steps fit), and no packed
+//    (K, N) of the repo's configurations splits K into more than 28 steps
+//    (llama3_2_3b 16).  A longer split (a fused launch forced at a large
+//    NT, which only the checks and the timing tool make) quantizes chunk
+//    after chunk, each after every wgmma has retired and behind opaque
+//    register barriers, so that no chunk
 //    instruction (nor its registers) moves above that retirement while a
-//    wgmma still reads its A registers.  BK is a multiple of 16, so a block never straddles a step or
-//    a K split.  Every column block quantizes its rows again, N / 128 times
-//    the work of one K2 pass: cheap at decode-sized M, not at prefill's
-//    (launch_plan chooses from M).
+//    wgmma still reads its A registers.  BK is a multiple of 16, so a block
+//    never straddles a step or a K split.  Every column block quantizes its
+//    rows again, N / 128 times the work of one K2 pass: cheap at
+//    decode-sized M, not at prefill's (launch_plan chooses from M).
 //  * K is split over up to MAX_SPLITS blocks from (N, K) alone (the Python
 //    plan); a split's blocks form one thread-block cluster, each leaves its
 //    partial tile in its shared memory, and after a cluster barrier block r
@@ -100,14 +104,15 @@ static_assert(razer_act::TABLE * 4 <= ACT_BYTES, "the act table fits its region"
 
 constexpr int QX_MAX = 65536;                      // the fused path's quantized x tiles, at most
 
-// shared memory for NT tokens: the tables, then the ring of STAGES slots,
-// which the split sum's partial tile reuses with the tables; a fused launch
-// adds qx_steps quantized x tiles (at most QX_MAX bytes) after the ring
+// shared memory for NT tokens: the table, then the ring of STAGES slots,
+// which the split sum's partial tile reuses with the table; a fused launch
+// adds the act table and qx_steps quantized x tiles (at most QX_MAX bytes)
+// after the ring
 template <int NT>
 struct Tile {
   static constexpr int STAGE_BYTES = X_OFFSET + NT * BK * 2;
   static constexpr int STAGES = NT <= 32 ? 6 : (NT <= 64 ? 5 : 4);
-  static constexpr int SMEM = TABLE_BYTES + ACT_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = TABLE_BYTES + STAGES * STAGE_BYTES;
   static constexpr int X_TILE = NT * BK * 2;  // one step's quantized x tile
   static constexpr int MAX_QSTEPS = QX_MAX / X_TILE > 0 ? QX_MAX / X_TILE : 1;
   static_assert(BN * NT * 4 <= SMEM, "the partial tile reuses the table and the ring");
@@ -617,7 +622,8 @@ constexpr int min_blocks() { return NT <= 48 ? 3 : (NT <= 96 ? 2 : 1); }
 
 // FUSE: 0 the plain GEMM; 1 the fused activation path with the whole K
 // split's x quantized before the main loop; 2 the fused path in chunks
-// (a split longer than the quantized-x region holds).  Each is a kernel of
+// (a split longer than the quantized-x region holds: a fused launch forced
+// at a large token tile by the checks, never the main path's).  Each is a kernel of
 // its own, so that the plain GEMM and the one-chunk path at decode keep
 // their registers.
 template <typename Tag, int NT, int FUSE>
@@ -625,8 +631,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const _
   using R = Tile<NT>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint2* table = reinterpret_cast<uint2*>(smem);
-  float* act = reinterpret_cast<float*>(smem + TABLE_BYTES);
-  uint8_t* ring = smem + TABLE_BYTES + ACT_BYTES;
+  uint8_t* ring = smem + TABLE_BYTES;
+  float* act = reinterpret_cast<float*>(ring + R::STAGES * R::STAGE_BYTES);  // fused launches only
 
   const int tid = threadIdx.x;
   const int split = blockIdx.z % p.splits, e = blockIdx.z / p.splits;
@@ -648,7 +654,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const _
     if (s < steps) loader.template load<FUSE == 0>(p, ring + s * R::STAGE_BYTES, s);
     cp_async_commit();
   }
-  uint8_t* qx = ring + R::STAGES * R::STAGE_BYTES;  // the fused path's quantized x tiles
+  uint8_t* qx = reinterpret_cast<uint8_t*>(act) + ACT_BYTES;  // the fused path's quantized x tiles
   if constexpr (FUSE != 0) {  // after the prologue's copies are on their way
     for (int i = tid; i < razer_act::TABLE; i += THREADS) act[i] = p.act_table[i];
     __syncthreads();
@@ -754,7 +760,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks<NT>()) gemm_kernel(const _
 template <typename Tag, int NT, int FUSE>
 cudaError_t launch_kernel(const Params& p, dim3 grid, cudaStream_t st) {
   auto kernel = gemm_kernel<Tag, NT, FUSE>;
-  constexpr int MAX_SMEM = Tile<NT>::SMEM + (FUSE ? Tile<NT>::MAX_QSTEPS * Tile<NT>::X_TILE : 0);
+  constexpr int MAX_SMEM = Tile<NT>::SMEM + (FUSE ? ACT_BYTES + Tile<NT>::MAX_QSTEPS * Tile<NT>::X_TILE : 0);
   static unsigned configured = 0;  // devices whose shared-memory limit is raised, as a bit set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -769,7 +775,7 @@ cudaError_t launch_kernel(const Params& p, dim3 grid, cudaStream_t st) {
   cfg.blockDim = dim3(THREADS);
   Params q = p;
   q.qx_steps = FUSE == 0 ? 1 : FUSE == 1 ? p.k_tiles_per_split : Tile<NT>::MAX_QSTEPS & ~1;
-  cfg.dynamicSmemBytes = Tile<NT>::SMEM + (FUSE ? q.qx_steps * Tile<NT>::X_TILE : 0);
+  cfg.dynamicSmemBytes = Tile<NT>::SMEM + (FUSE ? ACT_BYTES + q.qx_steps * Tile<NT>::X_TILE : 0);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -34,25 +34,35 @@ __all__ = ["razer_matmul", "razer_grouped_matmul", "reduce_scatter_epilogue", "r
            "razer_paged_kv_attention_verify", "prefill_attention", "rms_norm"]
 
 
-def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight, *, act_svs=None) -> torch.Tensor:
+def _card_block(block: int) -> None:
+    """The activation kernels (K2, K1/K7's fused x load) quantize 16-value
+    blocks."""
+    if block != 16:
+        raise ValueError(f"the activation kernels quantize 16-element blocks, not {block}")
+
+
+def razer_matmul(x: torch.Tensor, pw: PackedRazerWeight, *, act_svs=None, act_block: int = 16) -> torch.Tensor:
     """y = x @ dequant(pw) for x (..., K) -> (..., N) in x's dtype.
 
     ``act_svs``: under W4A4, the activation's special values; x is
-    fake-quantized first (16-element blocks, E4M3 scales): on the card by
-    K1 in its own x load at decode-sized M, else by K2 before K1 (the same
-    bits); on the CPU by the plain version before the plain matmul."""
+    fake-quantized first (``act_block``-element blocks, E4M3 scales): on
+    the card by K1 in its own x load at decode-sized M, else by K2 before
+    K1 (the same bits); on the CPU by the plain version before the plain
+    matmul."""
     k, n = pw.shape
     if x.shape[-1] != k:
         raise ValueError(f"x {tuple(x.shape)} does not match packed weight {pw.shape}")
     lead = x.shape[:-1]
     xf = x.reshape(-1, k)
     if x.is_cuda:
+        if act_svs is not None:
+            _card_block(act_block)
         y = razer_matmul_cuda(xf.contiguous(), pw.codes, pw.scale_meta,
                               m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1], act_svs=act_svs)
         y = y * pw.tensor_scale
     else:
         if act_svs is not None:
-            xf = ref.razer_act_qdq_ref(xf, svs=act_svs)
+            xf = ref.razer_act_qdq_ref(xf, svs=act_svs, block=act_block)
         y = ref.razer_matmul_ref(xf, pw)  # the tensor scale is inside the f32 weight
     return y.reshape(*lead, n).to(x.dtype)
 
@@ -93,10 +103,11 @@ def _kshard_group(container, group):
     return container.k_shards
 
 
-def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group, act_svs=None) -> torch.Tensor:
+def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group, act_svs=None,
+                        act_block: int = 16) -> torch.Tensor:
     """x (..., K/tp) @ this rank's K/tp shard ``pw`` (``pw.k_shards`` = tp),
     the partials summed over ``group`` -> (..., N/tp), this rank's columns,
-    in x's dtype.  K7 on the card.  ``act_svs`` as ``razer_matmul``'s, on
+    in x's dtype.  K7 on the card.  ``act_svs``, ``act_block`` as ``razer_matmul``'s, on
     this rank's K slice (whole 16-element blocks, so the bits of
     quantizing the full x and slicing it)."""
     tp = _kshard_group(pw, group)
@@ -106,12 +117,14 @@ def razer_matmul_kshard(x: torch.Tensor, pw: PackedRazerWeight, *, group, act_sv
     lead = x.shape[:-1]
     xf = x.reshape(-1, k)
     if x.is_cuda:
+        if act_svs is not None:
+            _card_block(act_block)
         y = razer_matmul_kshard_cuda(xf.contiguous(), pw.codes, pw.scale_meta, m0=pw.sv_magnitudes[0],
                                      m1=pw.sv_magnitudes[1], out_chunks=tp, act_svs=act_svs)
         y = (y * pw.tensor_scale).to(x.dtype)
     else:
         if act_svs is not None:
-            xf = ref.razer_act_qdq_ref(xf, svs=act_svs)
+            xf = ref.razer_act_qdq_ref(xf, svs=act_svs, block=act_block)
         y = _chunked(ref.razer_matmul_ref(xf, pw).to(x.dtype), tp)
     return reduce_scatter_epilogue(y, group).reshape(*lead, n // tp)
 
@@ -135,8 +148,7 @@ def razer_grouped_matmul_kshard(x: torch.Tensor, pst: PackedStackedTensor, *, gr
 def razer_act_qdq(x: torch.Tensor, *, svs=(5.0, -5.0), block: int = 16) -> torch.Tensor:
     """Fused dynamic activation fake-quant over the last dim (any batch shape)."""
     if x.is_cuda:
-        if block != 16:
-            raise ValueError(f"the activation kernel quantizes 16-element blocks, not {block}")
+        _card_block(block)
         return razer_act_qdq_cuda(x.contiguous(), svs)
     return ref.razer_act_qdq_ref(x, svs=svs, block=block)
 

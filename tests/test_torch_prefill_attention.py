@@ -225,3 +225,18 @@ def test_w4a4_qlinear_other_act_formats_quantize_before_the_kernel():
     pol = QuantPolicy(weight=QuantPolicy.packed().weight, act=act)
     xt = torch.from_numpy(x)
     assert torch.equal(qlinear(xt, pw, pol), ops.razer_matmul(act.qdq(xt, axis=-1), pw))
+
+
+@pytest.mark.parametrize("block", [32, 64])
+def test_w4a4_qlinear_other_block_sizes_travel_into_the_matmul(block):
+    """A razer E4M3 activation spec of another block size also goes to the
+    packed matmul with its block (the card's kernels take 16 only): on the
+    CPU the plain qdq in that block, then the plain matmul, and its
+    quantized activations equal the JAX ``qdq_activation``'s bit for bit."""
+    x, _, pw = _w4a4_case(4, 256, 32, seed=block)
+    pol = QuantPolicy(weight=QuantPolicy.packed().weight, act=TensorSpec.act("razer", block_size=block))
+    jpol = JaxQuantPolicy(weight=JaxQuantPolicy.packed().weight, act=JaxTensorSpec.act("razer", block_size=block))
+    xt = torch.from_numpy(x)
+    xq = ref.razer_act_qdq_ref(xt, svs=pol.act.special_values, block=block)
+    np.testing.assert_array_equal(_bits(xq), _bits(np.asarray(jax_qdq_activation(jnp.asarray(x), jpol))))
+    assert torch.equal(qlinear(xt, pw, pol), ref.razer_matmul_ref(xq, pw))

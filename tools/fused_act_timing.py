@@ -2,6 +2,7 @@
 against K2 followed by K1, at the full-width llama3_2_3b linears on one card.
 
     python3 tools/fused_act_timing.py [--m 4 12 32 64 128 1024] [--src DIR] [--label NAME]
+    python3 tools/fused_act_timing.py --k2 [--m 4 128 1024] [--src DIR] [--label NAME]
 
 For each M, one layer's 7 packed linears (random weights from seed 0, x bf16
 x 3 from seed 1) run under the activation set (5, -5) two ways through
@@ -22,6 +23,13 @@ two-launch path's (in every run), and the largest at which its event time
 crossover ``FUSE_ACT_MAX_M`` follows.  Both paths give the same bits
 (checked here at each M).
 ``--src`` picks the directory that holds the ``repro_torch`` package.
+
+``--k2`` times the standalone activation kernel (K2) alone instead: at each
+M and each of llama3_2_3b's two input widths (d_model, d_ff), bf16 x from
+seed 1, its device time per launch from torch.profiler (L2 flushed before
+each run, in turns over 4 runs), beside its byte bound (x read and y
+written once over 3.35 TB/s).  It calls only ``razer_act_qdq_cuda(x,
+svs)``, so ``--src`` may name a checkout from before the fused path.
 Prints one JSON line; exits non-zero without CUDA.
 """
 from __future__ import annotations
@@ -35,11 +43,32 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+def _k2_alone(args, cs, cfg) -> int:
+    """The ``--k2`` mode: K2's device time per launch by (M, K)."""
+    import torch
+
+    from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
+
+    dev = torch.device("cuda", 0)
+    gx = torch.Generator(device=dev).manual_seed(1)
+    out = {"label": args.label, "src": args.src, "card": cs._require_cuda(), "svs": [5.0, -5.0], "k2": {}}
+    for m in args.m:
+        for k in (cfg.d_model, cfg.d_ff):
+            x = (torch.randn((m, k), generator=gx, device=dev) * 3).to(torch.bfloat16)
+            runs = [cs._device_ms(lambda: razer_act_qdq_cuda(x), "razer_act_qdq_kernel", cold=True)[0]
+                    for _ in range(4)]
+            out["k2"][f"M{m}_K{k}"] = {"device_ms_per_launch": runs,
+                                      "bound_ms": cs._bound_ms(2 * 2 * m * k, 0.0)[0]}
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--m", type=int, nargs="+", default=[4, 12, 32, 64, 128, 1024])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
+    ap.add_argument("--k2", action="store_true", help="time the standalone K2 alone at d_model and d_ff")
     args = ap.parse_args()
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
@@ -50,6 +79,9 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.configs import get_config
+
+    if args.k2:
+        return _k2_alone(args, cs, get_config("llama3_2_3b"))
     from repro_torch.core.packing import pack_weight
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
