@@ -18,10 +18,13 @@ Phases, each printing one line (and failing the run with a traceback):
                 K2 rows across M up to 1024 (prefill's 8 x 128 rows); the
                 W4A4 path with x fake-quantized in K1/K7's own load == K2
                 then K1/K7 bit for bit, timed both ways at M 4 and 128; the
-                prefill attention kernel K9 against its plain version, a
-                prompt alone at its bucket == inside a batch at the
-                128-token bucket, timed beside SDPA; the RMSNorm kernel K10
-                against its plain version, its rows alone == in a batch;
+                prefill attention kernel K9 against its plain version with
+                K/V random f32, bf16 and from the KV wire format, a prompt
+                alone at its bucket == inside a batch at the 128-token
+                bucket, timed at B 8 x 128, B 1 x 4096 and B 4 x 4096
+                beside SDPA, each of its kernels profiled by name; the
+                RMSNorm kernel K10 against its plain version, its rows
+                alone == in a batch;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
@@ -41,7 +44,9 @@ Phases, each printing one line (and failing the run with a traceback):
                 prompts of 1024-3968 random tokens and serve of 8 such
                 requests over 4 slots, 32 new tokens each, exact launch
                 counts, decode ms per step, per-step device ms, idle share
-                and decode-attention share, and the serve == generate share;
+                and decode-attention share, the serve == generate share,
+                each request's TTFT and the device and wall ms of
+                generate's prefill and of one long serve prefill;
   4d. dbrx   -- dbrx_132b at full width (d_model 6144, 48/8 heads, 16
                 experts top-4, expert d_ff 10752, capacity factor 1.25, vocab
                 100352; the one cut: 2 of 40 layers), random weights packed on
@@ -545,65 +550,84 @@ def _check_fused_act(cfg, dev, gen, detail):
 PREFILL_TOL = {torch.float32: dict(rtol=2**-7, atol=1e-6), torch.bfloat16: dict(rtol=2**-7, atol=2**-9)}
 
 
+def _wire_kv(shape, gen, dev):
+    """Random K or V through the KV wire format and back, as prefill's
+    ``_qdq_kv`` gives them to K9: f32 values exact in bf16."""
+    from repro_torch.serving.kvcache import kv_dequantize, kv_quantize
+
+    return kv_dequantize(*kv_quantize(torch.randn(shape, generator=gen, device=dev)), shape[-1])
+
+
 def _check_prefill_attention(cfg, dev, gen, detail):
     """K9 at llama3_2_3b heads: against its plain version at B 8 x 128 (the
-    8 serve prompts at generate's bucket) with K/V f32 and bf16; each
-    prompt's rows alone at its own bucket == inside the batch bit for bit;
-    a prefix-cached continuation's rows (q_offset 40) == the same rows of
-    the whole prompt; timed at B 8 x 128 and B 1 x 4096 against the plain
-    version and F.scaled_dot_product_attention (bf16, causal, heads
-    grouped)."""
+    8 serve prompts at generate's bucket) with K/V random f32, bf16 and
+    from the KV wire format (f32, exact in bf16: the serving path's, whose
+    low-part MMAs the kernel skips); each prompt's rows alone at its own
+    bucket == inside the batch bit for bit; a prefix-cached continuation's
+    rows (q_offset 40) == the same rows of the whole prompt; timed at B 8 x
+    128, B 1 x 4096 and B 4 x 4096 (phase 4e's generate prefill), with K/V
+    random f32 and from the wire format, against the plain version and
+    F.scaled_dot_product_attention (bf16, causal, heads grouped)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import prefill_attention as pa
     from repro_torch.kernels import ref
-    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 
+    attend = pa.prefill_attention_cuda
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     lens = (8, 15, 23, 32, 40, 57, 64, 100)
     bucket = lambda n: max(8, 1 << (n - 1).bit_length())  # noqa: E731  Engine._bucket
     max_err = 0.0
     q = torch.randn((8, 128, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-    for kv_dtype in (torch.float32, torch.bfloat16):
-        k = torch.randn((8, 128, kvh, hd), generator=gen, device=dev).to(kv_dtype)
-        v = torch.randn((8, 128, kvh, hd), generator=gen, device=dev).to(kv_dtype)
-        got = prefill_attention_cuda(q, k, v)
+    for kind in ("f32", "bf16", "wire"):
+        if kind == "wire":
+            k, v = (_wire_kv((8, 128, kvh, hd), gen, dev) for _ in range(2))
+        else:
+            dt = torch.float32 if kind == "f32" else torch.bfloat16
+            k, v = (torch.randn((8, 128, kvh, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        got = attend(q, k, v)
         want = ref.chunked_attention_ref(q, k, v)
-        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[kv_dtype])
-        if kv_dtype == torch.float32:
+        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[k.dtype])
+        if kind == "f32":
             max_err = float((got.float() - want.float()).abs().max())
         for r, n in enumerate(lens):
             s = bucket(n)
-            alone = prefill_attention_cuda(q[r:r + 1, :s].contiguous(), k[r:r + 1, :s].contiguous(),
-                                           v[r:r + 1, :s].contiguous())
-            assert torch.equal(alone[0, :n], got[r, :n]), ("prefill attention alone != in batch", n, kv_dtype)
+            alone = attend(q[r:r + 1, :s].contiguous(), k[r:r + 1, :s].contiguous(), v[r:r + 1, :s].contiguous())
+            assert torch.equal(alone[0, :n], got[r, :n]), ("prefill attention alone != in batch", n, kind)
         c, n = 40, lens[6]
         s = bucket(n - c)
-        kv = [torch.zeros((1, 64 + s, kvh, hd), dtype=kv_dtype, device=dev) for _ in range(2)]
+        kv = [torch.zeros((1, 64 + s, kvh, hd), dtype=k.dtype, device=dev) for _ in range(2)]
         for buf, src in zip(kv, (k, v)):
             buf[0, :n] = src[6, :n]
-        sfx = prefill_attention_cuda(q[6:7, c:c + s].contiguous(), *kv, q_offset=c)
-        assert torch.equal(sfx[0, :n - c], got[6, c:n]), ("continuation rows != whole prompt's", kv_dtype)
-    detail["prefill_attention_batch_invariant"] = {"prompt_lens": list(lens), "bucket": 128, "continuation_at": 40}
+        sfx = attend(q[6:7, c:c + s].contiguous(), *kv, q_offset=c)
+        assert torch.equal(sfx[0, :n - c], got[6, c:n]), ("continuation rows != whole prompt's", kind)
+    detail["prefill_attention_batch_invariant"] = {"prompt_lens": list(lens), "bucket": 128, "continuation_at": 40,
+                                                   "kv": ["f32", "bf16", "wire"]}
     out = {}
-    for b, s in ((8, 128), (1, 4096)):
+    names = pa.kernel_names(torch.bfloat16)
+    for b, s, kind in ((8, 128, "f32"), (8, 128, "wire"), (1, 4096, "f32"), (1, 4096, "wire"), (4, 4096, "f32"),
+                       (4, 4096, "wire")):
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-        k = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
-        v = torch.randn((b, s, kvh, hd), generator=gen, device=dev)
+        if kind == "wire":
+            k, v = (_wire_kv((b, s, kvh, hd), gen, dev) for _ in range(2))
+        else:
+            k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=dev) for _ in range(2))
         qb, kb, vb = (t.to(torch.bfloat16).transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = b * s * (s + 1) // 2  # (query, key) pairs a causal prefill needs
         nbytes = q.numel() * 2 * 2 + (k.numel() + v.numel()) * 4
         bound, by = _bound_ms(nbytes, 4 * hd * h * pairs)
         reps = 20 if s <= 128 else 3
-        row = _with_device_time(
-            {"ms": _cuda_ms(lambda: prefill_attention_cuda(q, k, v), reps=reps),
-             "plain_ms": _cuda_ms(lambda: ref.chunked_attention_ref(q, k, v), reps=reps),
-             "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
-                                                                           enable_gqa=True), reps=reps),
-             "bound_ms": bound, "bound_by": by, "shape": [b, s, h, kvh, hd], "kv": "f32"},
-            lambda: prefill_attention_cuda(q, k, v), "prefill_attention_kernel", 1)
-        out[(b, s)] = row
-        detail[f"prefill_attention_B{b}_S{s}"] = row
-    return max_err, out[(8, 128)]
+        row = {"ms": _cuda_ms(lambda: attend(q, k, v), reps=reps),
+               "plain_ms": _cuda_ms(lambda: ref.chunked_attention_ref(q, k, v), reps=reps),
+               "library_ms": _cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True,
+                                                                             enable_gqa=True), reps=reps),
+               "bound_ms": bound, "bound_by": by, "shape": [b, s, h, kvh, hd], "kv": kind}
+        # a call's kernels, each profiled under its own name; per launch = per call (all of them)
+        row["device_ms_by_kernel"] = {n: _device_ms(lambda: attend(q, k, v), n)[0] for n in names}
+        row["device_ms"] = row["device_ms_per_launch"] = sum(row["device_ms_by_kernel"].values())
+        out[(b, s, kind)] = row
+        detail[f"prefill_attention_B{b}_S{s}" + ("_wire" if kind == "wire" else "")] = row
+    return max_err, out[(8, 128, "f32")]
 
 
 def _check_rms_norm(cfg, dev, gen, detail):
@@ -1484,7 +1508,10 @@ def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
     prompts, and a serve of 4 of the requests, with 5 new tokens less one
     with 1); the share of requests whose serve tokens equal a batch-8
     generate's, with the first differing step and the generate's top-2
-    logit gap there for each that differs."""
+    logit gap there for each that differs; torch.profiler's wall ms, device
+    ms and idle share of generate's prefill (a generate of 1 new token) and
+    of serve's prefill of its longest prompt alone, and each request's TTFT
+    with the mean prefill span of serve."""
     from repro_torch.obs import Tracer
     from repro_torch.serving.pagepool import PagePoolConfig
     from repro_torch.serving.scheduler import Request, SchedulerConfig
@@ -1503,7 +1530,8 @@ def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
     st = eng.stats
     out["generate"] = {"prefill_ms": st["prefill_s"] * 1e3, "decode_ms_per_step": st["decode_s"] * 1e3 / steps,
                        "decode_steps": steps, "launches": counts,
-                       "profile_decode_per_step": _decode_profile(lambda n: eng.generate(gen_prompts, max_new_tokens=n))}
+                       "profile_decode_per_step": _decode_profile(lambda n: eng.generate(gen_prompts, max_new_tokens=n)),
+                       "profile_prefill": _profile(lambda: eng.generate(gen_prompts, max_new_tokens=1))}
     ref = eng.generate(serve_prompts, max_new_tokens=n_new)
     sched_cfg = SchedulerConfig(max_slots=4)
     pool_cfg = PagePoolConfig(num_pages=4 * (eng.scfg.max_len // ps), page_size=ps, max_len=eng.scfg.max_len)
@@ -1517,8 +1545,12 @@ def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
     assert all(r.state == "finished" and len(r.out_tokens) == n_new for r in rep.requests)
     want = _serve_want(cfg, 1, eng.policy, _serve_prefill_m(eng, rep.requests), rep.decode_steps)
     assert counts == want, (counts, want)
+    longest = max(serve_prompts, key=len)
     out["serve"] = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time, "ttft_p50_s": rep.ttft_p50,
-                    "ttft_p95_s": rep.ttft_p95, "decode_steps": rep.decode_steps,
+                    "ttft_p95_s": rep.ttft_p95, "ttft_s": rep.ttft_values(), "decode_steps": rep.decode_steps,
+                    "prefill_ms_per_request": _span_ms(tracer, "prefill"),
+                    "profile_prefill_longest": dict(_profile(lambda: eng._serve_prefill(longest)),
+                                                    prompt_len=len(longest)),
                     "decode_ms_per_step": _span_ms(tracer, "decode_step"), "launches": counts,
                     "profile_decode_per_step": _decode_profile(lambda n: eng.serve(
                         [Request(rid=i, prompt=p, max_new_tokens=n) for i, p in enumerate(serve_prompts[:4])],

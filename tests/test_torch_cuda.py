@@ -19,7 +19,7 @@ from repro_torch.kernels.razer_grouped_matmul import razer_grouped_matmul_cuda, 
 from repro_torch.kernels.razer_kv_attention import razer_kv_attention_cuda
 from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
 from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
-from repro_torch.serving.kvcache import kv_quantize
+from repro_torch.serving.kvcache import kv_dequantize, kv_quantize
 
 
 @pytest.fixture
@@ -577,6 +577,73 @@ def test_cuda_prefill_attention_alone_equals_batched(cuda_device, kv_dtype):
         buf[0, :n] = src[6, :n]
     sfx = prefill_attention_cuda(q[6:7, c:c + s].contiguous(), *kv, q_offset=c)
     assert torch.equal(sfx[0, :n - c], batched[6, c:n])
+
+
+def _wire_kv(device, b, s, kvh, hd, seed):
+    """K and V as prefill's ``_qdq_kv`` gives them: random values through the
+    KV wire format and back (f32, every value exact in bf16)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [kv_dequantize(*kv_quantize(torch.randn((b, s, kvh, hd), generator=g, device=device)), hd)
+            for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hd", [(1, 16), (3, 32), (4, 64), (3, 128), (6, 128)])
+@pytest.mark.parametrize("sq,q_offset", [(70, 0), (8, 40), (37, 1000)])
+def test_cuda_prefill_attention_wire_kv_matches_plain(cuda_device, g, hd, sq, q_offset):
+    """The serving path's regime: q bf16 with K/V from the KV wire format
+    (f32, exact in bf16), against the plain version within the f32-K/V
+    tolerance of ``chip_smoke.py``'s PREFILL_TOL (rtol 2^-7, atol 1e-6: one
+    bf16 ulp of the output, where the f32 values before the cast may fall on
+    the two sides of a rounding edge)."""
+    q, _, _ = _prefill_inputs(cuda_device, 2, sq, 2 * g, 2, hd, torch.bfloat16, seed=hd + sq)
+    k, v = _wire_kv(cuda_device, 2, sq + q_offset, 2, hd, seed=hd + sq + 1)
+    got = prefill_attention_cuda(q, k, v, causal=True, q_offset=q_offset)
+    want = ref.chunked_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_dtype,v_dtype", [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_cuda_prefill_attention_mixed_kv_dtypes_match_plain(cuda_device, k_dtype, v_dtype):
+    """q bf16 with K and V in different dtypes (the split writes low tiles
+    for the f32 one only): against the plain version within the tolerance
+    of V's dtype, which decides whether P is rounded to bf16 (rtol 2^-7;
+    atol 1e-6 with f32 V, 2^-9 with bf16 V)."""
+    q, k, _ = _prefill_inputs(cuda_device, 2, 70, 6, 2, 128, k_dtype, seed=31)
+    _, _, v = _prefill_inputs(cuda_device, 2, 70, 6, 2, 128, v_dtype, seed=32)
+    got = prefill_attention_cuda(q, k, v)
+    want = ref.chunked_attention_ref(q, k, v)
+    atol = 1e-6 if v_dtype == torch.float32 else 2**-9
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["wire", "f32"])
+def test_cuda_prefill_attention_long_alone_equals_batched(cuda_device, kv):
+    """A 3000-token prompt alone at the 4096 bucket (other values in its
+    padding) equals its rows inside B 2 x 4096, bit for bit (llama3_2_3b
+    heads; K/V from the wire format, which skips the low-part MMAs, and
+    random f32, which takes them); and a continuation's rows at q_offset
+    1000 (not a multiple of 16 or 64: rows move to other fragment slots)
+    over [the 1000 cached keys, padded to 1008 | its 2048 bucket] equal
+    the same rows of the whole prompt."""
+    n, s, c = 3000, 4096, 1000
+    q, k, v = _prefill_inputs(cuda_device, 2, s, 24, 8, 128, torch.float32, seed=7)
+    if kv == "wire":
+        k, v = _wire_kv(cuda_device, 2, s, 8, 128, seed=8)
+    batched = prefill_attention_cuda(q, k, v)
+    pq, pk, pv = _prefill_inputs(cuda_device, 1, s, 24, 8, 128, torch.float32, seed=9)
+    alone_in = [torch.cat([t[:1, :n], pad[:, n:]], dim=1) for t, pad in ((q, pq), (k, pk), (v, pv))]
+    alone = prefill_attention_cuda(*alone_in)
+    assert torch.equal(alone[0, :n], batched[0, :n])
+    sb = _bucket(n - c)
+    buf = [torch.zeros((1, 1008 + sb, 8, 128), dtype=torch.float32, device=cuda_device) for _ in range(2)]
+    for b_, src in zip(buf, (k, v)):
+        b_[0, :n] = src[0, :n]
+    sfx = prefill_attention_cuda(q[0:1, c:c + sb].contiguous(), *buf, q_offset=c)
+    assert torch.equal(sfx[0, :n - c], batched[0, c:n])
 
 
 # --- RMSNorm (K10) ----------------------------------------------------------------------------------
