@@ -43,7 +43,15 @@
 //    to 2^-16 of x, which does not hold the f32-K/V tolerance against the
 //    plain version (tests/test_torch_prefill_split.py emulates the three).
 //    Products of bf16 parts are exact in the f32 accumulators, so only the
-//    order of the f32 sums differs from the plain version:
+//    order of the f32 sums differs from the plain version -- and how the
+//    tensor cores round them: an accumulation of products onto a large
+//    running sum there drifts much further from the f32 sum than a sum
+//    rounded to nearest (on an H100 at B 1 x 4096 with random f32 K/V, up
+//    to 1.4e-6 where the output is near zero: outside the f32-K/V
+//    tolerance; PERF.md, section 6).  So no tensor-core sum
+//    outlives a chunk: each chunk's P V is summed from zero, a slice of NS
+//    output dims at a time, and added to o on the CUDA cores, o = o alpha +
+//    slice, with one rounding (fma);
 //      S = q K^T = q hi(K)^T + q mid(K)^T + q lo(K)^T  (q is bf16: exact);
 //      P V for f32 V: the part pairs (hi, hi), (mid, hi), (lo, hi), (hi,
 //      mid), (mid, mid), (hi, lo) of (P, V); for bf16 V, P is rounded to
@@ -82,9 +90,13 @@
 //    block barrier in the loop: one warpgroup's softmax runs beside
 //    another's wgmmas.
 //  * Math: wgmma, bf16 -> f32.  S = q K^T: m64n64k16 with q and K from
-//    shared memory (descriptors, no swizzle); o += P V: m64n{hd}k16 with P
-//    from registers -- the score accumulators' layout is the A fragment's
-//    -- and V^T from shared memory.  The k-steps over hd and over a chunk's
+//    shared memory (descriptors, no swizzle); a chunk's P V: m64n{NS}k16
+//    per slice of NS = min(hd, 64) output dims (NS / 2 accumulators a
+//    thread beside o's hd / 2: three warpgroups leave no room for a second
+//    full-width accumulator; slices of 32 were slower) with P from
+//    registers -- the score
+//    accumulators' layout is the A fragment's -- and V^T from shared
+//    memory.  The k-steps over hd and over a chunk's
 //    keys run in a fixed order, and an accumulator element sums only its
 //    own row's q and P, so a row's bits do not move with its slot in the
 //    64-row tile (the continuation checks at q_offset 40 and 1000 move rows
@@ -93,9 +105,8 @@
 //    lanes of a quad, 16 each; each lane folds its 16 in key order, then
 //    the quad combines by xor-shuffles 1 and 2 (fadd and fmax commute, so
 //    all four lanes get the same bits).  Exponentials are base 2 on scores
-//    scaled by scale x log2 e.  Two shortcuts, both exact: a warp whose
-//    rows all see the whole chunk skips the mask's compares, and one where
-//    no row's max moved skips o x 1.
+//    scaled by scale x log2 e.  One shortcut, exact: a warp whose rows all
+//    see the whole chunk skips the mask's compares.
 //
 // The f32 body (prefill_attention_f32_kernel): a block owns 64 query
 // positions of one head; it stages the chunk's K and V in shared memory as
@@ -243,6 +254,7 @@ struct Geo {
   static constexpr int CHUNK = 6 * KT;     // a chunk in the workspace: K hi, V^T hi, K mid, K lo, V^T mid, V^T lo
   static constexpr int NU = W * HD / 256;  // stmatrix x4 units (four 8 x 8 blocks) of one tensor's chunk
   static constexpr int NST = 3;            // stages of the hi tiles' ring
+  static constexpr int NS = HD < 64 ? HD : 64;  // output dims per P V slice (its accumulators: NS / 2 a thread)
   // the attention kernel's dynamic shared memory for gb heads: q tiles, the
   // ring of (K hi, V^T hi) stages, one chunk's four low tiles, the
   // stages' and the low tiles' mbarriers and release counts
@@ -475,17 +487,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
     l[0] = __fadd_rn(__fmul_rn(l[0], al0), sum0);
     l[1] = __fadd_rn(__fmul_rn(l[1], al1), sum1);
     m[0] = mn0, m[1] = mn1;
-    if (__any_sync(0xFFFFFFFFu, al0 != 1.0f || al1 != 1.0f)) {  // x 1 is exact: skipped where no row's max moved
-#pragma unroll
-      for (int j = 0; j < NO; j += 4) {
-        o[j] = __fmul_rn(o[j], al0);
-        o[j + 1] = __fmul_rn(o[j + 1], al0);
-        o[j + 2] = __fmul_rn(o[j + 2], al1);
-        o[j + 3] = __fmul_rn(o[j + 3], al1);
-      }
-    }
 
-    // ---- o += P V over the chunk: 4 k-steps of 16 keys, P's A fragments from the scores ----
+    // ---- o = o alpha + P V over the chunk, in slices of NS dims: a slice's products over the chunk's
+    //      4 k-steps of 16 keys summed from zero on the tensor cores (P's A fragments from the scores),
+    //      then added to o with one rounding on the CUDA cores ----
     uint32_t ph[4][4], pm[4][4], pl[4][4];  // [k-step][register]: keys 16 kk .., n-tiles 2 kk and 2 kk + 1
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -499,26 +504,41 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
           split3(x0, x1, ph[kk][r], pm[kk][r], pl[kk][r]);
         }
       }
-    fence_operands(o);
-    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // (P, V) parts (hi, hi), (mid, hi), (lo, hi); (hi, mid), (mid, mid), (hi, lo)
-      const uint64_t dv = desc(vt + 256 * kk, W);
-      razer_tile::Wgmma<HD>::mma(o, ph[kk], dv);
-      if (!p.v_bf16) {
-        razer_tile::Wgmma<HD>::mma(o, pm[kk], dv);
-        razer_tile::Wgmma<HD>::mma(o, pl[kk], dv);
-        if (v_low) {
-          const uint64_t dm = desc(lows + 2 * Gm::KT + 256 * kk, W), dl = desc(lows + 3 * Gm::KT + 256 * kk, W);
-          razer_tile::Wgmma<HD>::mma(o, ph[kk], dm);
-          razer_tile::Wgmma<HD>::mma(o, pm[kk], dm);
-          razer_tile::Wgmma<HD>::mma(o, ph[kk], dl);
+    for (int sl = 0; sl < HD / Gm::NS; ++sl) {
+      float a[Gm::NS / 2];
+#pragma unroll
+      for (int j = 0; j < Gm::NS / 2; ++j) a[j] = 0.0f;
+      fence_operands(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // (P, V) parts (hi, hi), (mid, hi), (lo, hi); (hi, mid), (mid, mid), (hi, lo)
+        const int off = sl * Gm::NS * W * 2 + 256 * kk;  // V^T rows (dims) sl NS .., keys 16 kk ..
+        const uint64_t dv = desc(vt + off, W);
+        razer_tile::Wgmma<Gm::NS>::mma(a, ph[kk], dv);
+        if (!p.v_bf16) {
+          razer_tile::Wgmma<Gm::NS>::mma(a, pm[kk], dv);
+          razer_tile::Wgmma<Gm::NS>::mma(a, pl[kk], dv);
+          if (v_low) {
+            const uint64_t dm = desc(lows + 2 * Gm::KT + off, W), dl = desc(lows + 3 * Gm::KT + off, W);
+            razer_tile::Wgmma<Gm::NS>::mma(a, ph[kk], dm);
+            razer_tile::Wgmma<Gm::NS>::mma(a, pm[kk], dm);
+            razer_tile::Wgmma<Gm::NS>::mma(a, ph[kk], dl);
+          }
         }
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(a);
+#pragma unroll
+      for (int j = 0; j < Gm::NS / 2; j += 4) {
+        float* oj = o + sl * (Gm::NS / 2) + j;
+        oj[0] = __fmaf_rn(oj[0], al0, a[j]);
+        oj[1] = __fmaf_rn(oj[1], al0, a[j + 1]);
+        oj[2] = __fmaf_rn(oj[2], al1, a[j + 2]);
+        oj[3] = __fmaf_rn(oj[3], al1, a[j + 3]);
+      }
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(o);
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + hs) : "memory");  // the warpgroup's four warps are done
     if ((tid & 127) == 0) {
       if (atomicAdd(done + c % Gm::NST, 1) == GB - 1) {

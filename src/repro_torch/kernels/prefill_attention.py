@@ -12,8 +12,10 @@ prompt generated inside a padded batch.
 It has two bodies, chosen by q's dtype alone (``kernel_body``): a bf16 q,
 the serving path's, runs on the tensor cores with f32 K/V/P split into
 three bf16 parts (products exact, only the f32 summation order differs
-from the plain version; the parts of bf16-exact K/V, as the KV wire format
-gives them, are zero and their products skipped); an f32 q
+from the plain version: each chunk's P V is summed from zero on the tensor
+cores and added to the running output by an f32 fma; the parts of
+bf16-exact K/V, as the KV wire format gives them, are zero and their
+products skipped); an f32 q
 runs on the CUDA cores in f32, because the split arithmetic does not reach
 the f32 tolerance against the plain version.  The choice is by dtype, not a
 fallback: a build or launch failure raises.

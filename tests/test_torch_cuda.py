@@ -646,6 +646,42 @@ def test_cuda_prefill_attention_long_alone_equals_batched(cuda_device, kv):
     assert torch.equal(sfx[0, :n - c], batched[0, c:n])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["wire", "f32"])
+def test_cuda_prefill_attention_long_matches_plain(cuda_device, kv):
+    """B 1 x 4096 at llama3_2_3b heads (64 query blocks, the heaviest first,
+    each walking up to 64 chunks through the ring) against the plain version
+    within PREFILL_TOL's f32-K/V tolerance (rtol 2^-7, atol 1e-6); K/V from
+    the wire format (the main path's: hi tiles only) and random f32 (every
+    chunk takes the low-part MMAs)."""
+    q, k, v = _prefill_inputs(cuda_device, 1, 4096, 24, 8, 128, torch.float32, seed=11)
+    if kv == "wire":
+        k, v = _wire_kv(cuda_device, 1, 4096, 8, 128, seed=12)
+    got = prefill_attention_cuda(q, k, v)
+    want = ref.chunked_attention_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,q_offset", [(2048, 0), (1048, 1000)])
+def test_cuda_prefill_attention_gapped_low_chunks_match_plain(cuda_device, sq, q_offset):
+    """Wire K/V in which a few 64-key chunks, with unflagged chunks between
+    them, hold random f32 values (K in chunks 1, 4, 9; V in 4, 12, 13, 30):
+    the low tiles are loaded for the flagged chunks only, skipping those
+    between, and the result is held against the plain version within
+    PREFILL_TOL's f32-K/V tolerance (rtol 2^-7, atol 1e-6)."""
+    skv = sq + q_offset
+    q, _, _ = _prefill_inputs(cuda_device, 2, sq, 24, 8, 128, torch.bfloat16, seed=13)
+    k, v = _wire_kv(cuda_device, 2, skv, 8, 128, seed=14)
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    for t, chunks in ((k, (1, 4, 9)), (v, (4, 12, 13, 30))):
+        for c in chunks:
+            t[:, 64 * c:64 * (c + 1)] = torch.randn((2, 64, 8, 128), generator=g, device=cuda_device)
+    got = prefill_attention_cuda(q, k, v, q_offset=q_offset)
+    want = ref.chunked_attention_ref(q, k, v, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-6)
+
+
 # --- RMSNorm (K10) ----------------------------------------------------------------------------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 3072])

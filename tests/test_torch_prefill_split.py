@@ -100,7 +100,9 @@ def _emulate(q, k, v, parts: int, chunk: int = 64):
     ``parts`` bf16 parts (P rounded to bf16 for bf16 V), the part products
     (exact) summed per 16-deep k-step in f64 and rounded to f32 after each,
     base-2 exponentials of scores scaled by scale x log2 e, the chunk walk
-    of 64 keys.  -> (B, Sq, H, hd) bf16."""
+    of 64 keys, each chunk's P V summed from zero and added to the output
+    as acc alpha + chunk with one rounding (the kernel's fma).  -> (B, Sq,
+    H, hd) bf16."""
     b, s, h, hd = q.shape
     kvh, g = k.shape[2], h // k.shape[2]
     qd = q.double().reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4)
@@ -124,13 +126,14 @@ def _emulate(q, k, v, parts: int, chunk: int = 64):
         p = _f32(torch.exp2(_f32(sco - mn[..., None])))
         al = _f32(torch.exp2(_f32(m - mn)))
         l = _f32(_f32(l * al) + _f32(p.sum(-1)))
-        acc = _f32(acc * al[..., None])
         pp = [p.float().to(torch.bfloat16).double()] if v.dtype == torch.bfloat16 else split_bf16(p.float(), parts)
+        pv_sum = torch.zeros_like(acc)
         for j0 in range(0, w, 16):
             for pi, pv in enumerate(pp):
                 for vi, vv in enumerate(vp):
                     if pi + vi < parts:
-                        acc = _f32(acc + pv.double()[..., j0:j0 + 16] @ vv[:, :, None, c0 + j0:c0 + j0 + 16, :])
+                        pv_sum = _f32(pv_sum + pv.double()[..., j0:j0 + 16] @ vv[:, :, None, c0 + j0:c0 + j0 + 16, :])
+        acc = _f32(acc * al[..., None] + pv_sum)
         m = mn
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(torch.bfloat16)

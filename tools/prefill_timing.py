@@ -9,8 +9,9 @@ on one card (parent, change, change, parent).  Every check of that function
 runs too: the plain version within PREFILL_TOL with K/V random f32, bf16
 and from the KV wire format, a prompt alone at its bucket == inside the
 batch of 8 at 128, and the continuation at q_offset 40, bit for bit.  Then
-it times B 8 x 128, B 1 x 4096 and B 4 x 4096 with K/V random f32 and from
-the wire format.  Prints one JSON line: each shape's CUDA-event time,
+it holds against the plain version and times B 8 x 128, B 1 x 4096 and B 4
+x 4096 with K/V random f32 and from the wire format.  Prints one JSON line:
+the largest |error| over those shapes, each shape's |error|, CUDA-event time,
 device time per launch (torch.profiler), plain-version time, library time
 (F.scaled_dot_product_attention, bf16, causal, heads grouped) and bound;
 exits non-zero without CUDA.  A package whose wrapper does not name its
@@ -55,7 +56,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     max_err, _ = cs._check_prefill_attention(get_config("llama3_2_3b"), dev, gen, detail)
-    out = {"label": args.label, "src": args.src, "card": card, "max_abs_err_f32_kv": max_err,
+    out = {"label": args.label, "src": args.src, "card": card, "max_abs_err": max_err,
            **{k: v for k, v in detail.items() if k.startswith("prefill_attention")}}
     line = json.dumps(out)
     print(line)
