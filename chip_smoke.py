@@ -24,7 +24,16 @@ Phases, each printing one line (and failing the run with a traceback):
                 bucket, timed at B 8 x 128, B 1 x 4096 and B 4 x 4096
                 beside SDPA, each of its kernels profiled by name; the
                 RMSNorm kernel K10 against its plain version, its rows
-                alone == in a batch;
+                alone == in a batch; then at the shapes of the paper's
+                dense models: K1 (with K2 and the fused path) at
+                llama3_1_8b's seven linears timed at M 4 and 128, K1/K7
+                at every new (K, N) (plain, rows across M, fused ==
+                K2 then K1, K7 == K1 permuted), K1 rows across M on the
+                25600- and 19200-deep down-projections beside
+                torch.matmul, K2 at K 5120 and 7168, K9 and K3-K5 at G 4,
+                8, 7 and 1 with hd 128 (K5 at T 6: two launches at G 7
+                and 8), K10 at d 4096, 5120, 7168 and on hd-128 qk-norm
+                rows;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
@@ -39,7 +48,16 @@ Phases, each printing one line (and failing the run with a traceback):
                 with speculate_k=2 and a bf16 draft, with exact launch counts,
                 tokens/s, TTFT, decode ms per step, the pool and cache stats,
                 the accept rate, the share of requests whose tokens equal
-                generate's (and vanilla serve's), and the device idle share;
+                generate's (and vanilla serve's), asserted at 1.0, and the
+                device idle share;
+  4f. disagg -- phase 4c's 8 requests under both policies through
+                serve_disagg on 2 prefill + 2 decode replicas on the one
+                card, at chunk_tokens 64 and 16, and phase 4e's 8 long
+                requests (W4 + KV) at chunk_tokens 512: outputs == the
+                single-engine serve's, the transfer ratio 0.28125 and each
+                shipment's bytes == its pages', asserted; per-stage
+                tokens/s, TTFT, the makespan and one shipment's device ->
+                host -> device ms (run right after 4c and 4e);
   4e. long   -- the llama W4 + KV engine at max_len 4096: generate of 4
                 prompts of 1024-3968 random tokens and serve of 8 such
                 requests over 4 slots, 32 new tokens each, exact launch
@@ -76,7 +94,16 @@ Phases, each printing one line (and failing the run with a traceback):
                 1 layer on the (1, 2) mesh (K7, K8) and the (2, 1) mesh (K6
                 on E/2, all-to-all and replicated tokens), W4 + KV, against
                 the meshless engine at capacity factor 1.25 (reported) and
-                at the no-drop n_experts / topk (logits asserted).
+                at the no-drop n_experts / topk (logits asserted);
+  7. paper   -- the paper's dense models at full width, random weights
+                with the qkv biases and qk-norm gains drawn nonzero:
+                llama3_1_8b at full depth (32 layers) through generate and
+                serve under both policies, vanilla and speculate_k=2 with
+                a bf16 draft; llama2_7b, qwen3_8b, qwen3_32b,
+                codeqwen1_5_7b and deepseek_coder_33b cut to 2 layers
+                through generate and vanilla serve; exact launch counts,
+                serve == generate (and speculative == vanilla) asserted for
+                every request, times, idle share and peak memory.
 Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
 (dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
 shard, permuted, bit for bit; rows bit-identical across M.  Each kernel's
@@ -341,7 +368,7 @@ def _linear_shapes(cfg):
 ROW_INVARIANT_M = [1, 4, 8, 24, 128, 1024]  # 1024: prefill's 8 prompts at the 128-token bucket
 
 
-def _check_matmul(cfg, dev, gen, detail):
+def _check_matmul(cfg, dev, gen, detail, tag=""):
     from repro_torch.core.packing import pack_weight
     from repro_torch.kernels import ref
     from repro_torch.kernels.razer_matmul import razer_matmul_cuda
@@ -400,7 +427,7 @@ def _check_matmul(cfg, dev, gen, detail):
             {"ms": _cuda_ms(kernel_all, reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
              "library_ms": _cuda_ms(library_all, reps=10) / 4, "bound_ms": bound, "bound_by": by},
             kernel_all, "gemm_kernel<K1,", 7)
-        detail[f"razer_matmul_layer_M{m}"] = out[m]
+        detail[f"razer_matmul_layer_M{m}{tag}"] = out[m]
     return max_err, out[4]
 
 
@@ -442,7 +469,7 @@ def _split_k_cost(cfg, dev, gen, detail, m: int = 128):
     return out
 
 
-def _check_act_qdq(cfg, dev, gen, detail):
+def _check_act_qdq(cfg, dev, gen, detail, tag=""):
     from repro_torch.kernels import ref
     from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
 
@@ -470,11 +497,11 @@ def _check_act_qdq(cfg, dev, gen, detail):
              "plain_ms": _cuda_ms(lambda: [ref.razer_act_qdq_ref(xs[k]) for k in ks], reps=3),
              "library_ms": None, "bound_ms": bound, "bound_by": by},
             lambda: [razer_act_qdq_cuda(xs[k]) for k in ks], "razer_act_qdq_kernel", len(ks))
-        detail[f"razer_act_qdq_layer_M{m}"] = out[m]
+        detail[f"razer_act_qdq_layer_M{m}{tag}"] = out[m]
     return 0.0, out[4]
 
 
-def _check_fused_act(cfg, dev, gen, detail):
+def _check_fused_act(cfg, dev, gen, detail, tag=""):
     """K1 and K7 fake-quantizing x in their own load (the W4A4 path at
     decode-sized M) against K2 followed by K1 / K7: bit for bit at M 1, 4,
     12, 128 and 1024, bf16 and f32 x, the activation set (5, -5) and a set
@@ -538,7 +565,7 @@ def _check_fused_act(cfg, dev, gen, detail):
                    two_launch_k1_device_ms=k1_ms, two_launch_k2_device_ms=k2_ms, k2_launches_per_layer_fused=0,
                    k2_launches_per_layer_two_launch=7)
         out[m] = row
-        detail[f"razer_matmul_fused_act_layer_M{m}"] = row
+        detail[f"razer_matmul_fused_act_layer_M{m}{tag}"] = row
     return 0.0, out[4]
 
 
@@ -558,7 +585,11 @@ def _wire_kv(shape, gen, dev):
     return kv_dequantize(*kv_quantize(torch.randn(shape, generator=gen, device=dev)), shape[-1])
 
 
-def _check_prefill_attention(cfg, dev, gen, detail):
+PREFILL_TIMED = ((8, 128, "f32"), (8, 128, "wire"), (1, 4096, "f32"), (1, 4096, "wire"), (4, 4096, "f32"),
+                 (4, 4096, "wire"))
+
+
+def _check_prefill_attention(cfg, dev, gen, detail, tag="", timed=PREFILL_TIMED, kinds=("f32", "bf16", "wire")):
     """K9 at llama3_2_3b heads: against its plain version at B 8 x 128 (the
     8 serve prompts at generate's bucket) with K/V random f32, bf16 and
     from the KV wire format (f32, exact in bf16: the serving path's, whose
@@ -569,7 +600,9 @@ def _check_prefill_attention(cfg, dev, gen, detail):
     random f32 and from the wire format, against the plain version and
     F.scaled_dot_product_attention (bf16, causal, heads grouped); at each
     timed shape also held against the plain version within PREFILL_TOL, its
-    largest |error| kept in the row."""
+    largest |error| kept in the row.  ``timed`` picks the (B, S, K/V) shapes
+    timed and ``kinds`` the K/V of the B 8 x 128 checks; the heads are
+    ``cfg``'s."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention as pa
@@ -581,7 +614,7 @@ def _check_prefill_attention(cfg, dev, gen, detail):
     bucket = lambda n: max(8, 1 << (n - 1).bit_length())  # noqa: E731  Engine._bucket
     max_err = 0.0
     q = torch.randn((8, 128, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-    for kind in ("f32", "bf16", "wire"):
+    for kind in kinds:
         if kind == "wire":
             k, v = (_wire_kv((8, 128, kvh, hd), gen, dev) for _ in range(2))
         else:
@@ -603,12 +636,11 @@ def _check_prefill_attention(cfg, dev, gen, detail):
             buf[0, :n] = src[6, :n]
         sfx = attend(q[6:7, c:c + s].contiguous(), *kv, q_offset=c)
         assert torch.equal(sfx[0, :n - c], got[6, c:n]), ("continuation rows != whole prompt's", kind)
-    detail["prefill_attention_batch_invariant"] = {"prompt_lens": list(lens), "bucket": 128, "continuation_at": 40,
-                                                   "kv": ["f32", "bf16", "wire"]}
+    detail["prefill_attention_batch_invariant" + tag] = {"prompt_lens": list(lens), "bucket": 128, "continuation_at": 40,
+                                                   "kv": list(kinds)}
     out = {}
     names = pa.kernel_names(torch.bfloat16)
-    for b, s, kind in ((8, 128, "f32"), (8, 128, "wire"), (1, 4096, "f32"), (1, 4096, "wire"), (4, 4096, "f32"),
-                       (4, 4096, "wire")):
+    for b, s, kind in timed:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
         if kind == "wire":
             k, v = (_wire_kv((b, s, kvh, hd), gen, dev) for _ in range(2))
@@ -634,11 +666,11 @@ def _check_prefill_attention(cfg, dev, gen, detail):
         row["device_ms"] = row["device_ms_per_launch"] = sum(row["device_ms_by_kernel"].values())
         row["launches_per_call"] = len(names)
         out[(b, s, kind)] = row
-        detail[f"prefill_attention_B{b}_S{s}" + ("_wire" if kind == "wire" else "")] = row
-    return max([max_err] + [r["max_abs_err"] for r in out.values()]), out[(8, 128, "f32")]
+        detail[f"prefill_attention_B{b}_S{s}" + ("_wire" if kind == "wire" else "") + tag] = row
+    return max([max_err] + [r["max_abs_err"] for r in out.values()]), out[timed[0]]
 
 
-def _check_rms_norm(cfg, dev, gen, detail):
+def _check_rms_norm(cfg, dev, gen, detail, tag=""):
     """K10 at llama3_2_3b's d_model: against its plain version (one bf16 ulp
     of the output: rsqrt and the sum's order differ), each prompt's rows
     alone == inside a batch of 8 x 128 and decode's 4 rows == the same rows
@@ -678,7 +710,7 @@ def _check_rms_norm(cfg, dev, gen, detail):
                                               reps=50),
              "bound_ms": bound, "bound_by": by},
             lambda: rms_norm_cuda(xm, gamma, cfg.norm_eps), "rms_norm_kernel", 1)
-        detail[f"rms_norm_M{m}"] = out[m]
+        detail[f"rms_norm_M{m}{tag}"] = out[m]
     return err, out[4]
 
 
@@ -870,7 +902,7 @@ def _attention_case(cfg, dev, gen, lengths, ps=16):
     return pool, table, caches, q, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
-def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify: int = 3):
+def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify: int = 3, tag=""):
     """K3, K4 and K5 (T = 3) at the long shapes: each within 1e-4 of its
     plain version; K4 == K3 on the gathered bytes, K5's query t == K4 at
     cur_len + t + 1, and the first sequence's output alone == inside the
@@ -978,7 +1010,7 @@ def _check_attention_long(cfg, dev, gen, detail, shapes=LONG_ATTENTION, t_verify
                  "lengths": sorted(set(lengths))},
                 fn, "kv_attention_kernel", 1, cold=True)
         out[name] = rows
-        detail[f"attention_{name}"] = rows
+        detail[f"attention_{name}{tag}"] = rows
         del pool, caches, q, qt
         torch.cuda.empty_cache()
     return out
@@ -1229,6 +1261,143 @@ def _check_kshard_grouped(dev, gen, detail, banks):
 
 
 # ---------------------------------------------------------------------------
+# phase 3 at the shapes of the paper's dense models
+# ---------------------------------------------------------------------------
+PAPER_DENSE = ("llama3_1_8b", "llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b", "deepseek_coder_33b")
+
+
+def _gemm_shapes_new():
+    """{(K, N): [models]} of the six dense models' linears that llama3_2_3b
+    does not have."""
+    from repro_torch.configs import get_config
+
+    seen = {(k, n) for _, k, n in _linear_shapes(get_config("llama3_2_3b"))}
+    out = {}
+    for arch in PAPER_DENSE:
+        for _, k, n in _linear_shapes(get_config(arch)):
+            if (k, n) not in seen and arch not in out.get((k, n), []):
+                out.setdefault((k, n), []).append(arch)
+    return out
+
+
+def _check_gemm_shapes(dev, gen, detail):
+    """K1 and K7 at every (K, N) of the six dense models' linears: K1 within
+    its bound of the plain version at M 4 and 128; row 0 bit-identical
+    across M up to 1024, plain and with x fake-quantized (fused, and K2
+    then K1); the fused W4A4 load == K2 then K1 bit for bit at M 1, 4, 12
+    and 16, x bf16 and f32; K7 on both tp 2 shards (local K = K / 2) at M 4
+    == K1 on the same shard, permuted, plain and fused.  Returns
+    (largest |error| of K1, rows)."""
+    from repro_torch.core.packing import pack_weight, take_shard
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
+    from repro_torch.kernels.razer_quantize import razer_act_qdq_cuda
+
+    svs = (5.0, -5.0)
+    max_err, rows = 0.0, {}
+    for (k, n), archs in _gemm_shapes_new().items():
+        pw = pack_weight(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
+        mm = dict(m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1])
+        err_kn = 0.0
+        for m in (4, 128):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            got = razer_matmul_cuda(x, pw.codes, pw.scale_meta, **mm) * pw.tensor_scale
+            want = ref.razer_matmul_ref(x, pw)
+            err = (got - want).abs()
+            assert bool((err <= 1e-5 * (x.float().abs() @ pw.dequantize().abs()) + 1e-6).all()), \
+                f"razer_matmul K={k} N={n} M={m}: {float(err.max())}"
+            err_kn = max(err_kn, float(err.max()))
+        x = (torch.randn((1024, k), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        for act in ({}, {"act_svs": svs, "fused": True}, {"act_svs": svs, "fused": False}):
+            r = [razer_matmul_cuda(x[:m].contiguous(), pw.codes, pw.scale_meta, **mm, **act)[:1] for m in ROW_INVARIANT_M]
+            assert all(torch.equal(a, r[0]) for a in r[1:]), f"razer_matmul K={k} N={n} {act}: row 0 moves with M"
+        for m in (1, 4, 12, 16):
+            for dtype in (torch.bfloat16, torch.float32):
+                xm = x[:m].to(dtype)
+                two = razer_matmul_cuda(razer_act_qdq_cuda(xm, svs), pw.codes, pw.scale_meta, **mm)
+                got = razer_matmul_cuda(xm, pw.codes, pw.scale_meta, act_svs=svs, fused=True, **mm)
+                assert torch.equal(got, two), ("fused K1 != K2 then K1", k, n, m, dtype)
+        for j in range(2):
+            shard = take_shard(pw, tp=2, tp_index=j)
+            xs = x[:4, j * k // 2:(j + 1) * k // 2].contiguous()
+            for act in ({}, {"act_svs": svs, "fused": True}):
+                got = razer_matmul_kshard_cuda(xs, shard.codes, shard.scale_meta, out_chunks=2, **mm, **act)
+                one = razer_matmul_cuda(xs, shard.codes, shard.scale_meta, **mm, **act)
+                assert torch.equal(_unchunk(got), one), f"K7 K={k} N={n} rank {j} {act}: not K1 permuted"
+        rows[f"{k}x{n}"] = {"models": archs, "max_abs_err": err_kn}
+        max_err = max(max_err, err_kn)
+        del pw, x
+    torch.cuda.empty_cache()
+    detail["razer_matmul_paper_shapes"] = rows
+    return max_err, rows
+
+
+def _time_down_rows(dev, gen, detail):
+    """K1 on qwen3_32b's and deepseek_coder_33b's down-projections (K 25600
+    and 19200) at M 4, 16, 128 and 1024 beside torch.matmul on the
+    dequantized bf16 weight and the bound (x, the wire bytes and the f32
+    output once; 2 M K N operations): a row across M on the card's widest
+    K.  Device time per launch from the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.packing import pack_weight
+    from repro_torch.kernels.razer_matmul import razer_matmul_cuda
+
+    out = {}
+    for arch in ("qwen3_32b", "deepseek_coder_33b"):
+        cfg = get_config(arch)
+        k, n = cfg.d_ff, cfg.d_model
+        pw = pack_weight(torch.randn((k, n), generator=gen, device=dev) / k**0.5)
+        dense = pw.dequantize().to(torch.bfloat16)
+        mm = dict(m0=pw.sv_magnitudes[0], m1=pw.sv_magnitudes[1])
+        for m in (4, 16, 128, 1024):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            bound, by = _bound_ms(m * k * 2 + k * n // 2 + k * n // 16 + m * n * 4, 2 * m * k * n)
+            out[f"{arch}_down_{k}x{n}_M{m}"] = _with_device_time(
+                {"ms": _cuda_ms(lambda: razer_matmul_cuda(x, pw.codes, pw.scale_meta, **mm)),
+                 "library_ms": _cuda_ms(lambda: torch.matmul(x, dense)), "bound_ms": bound, "bound_by": by},
+                lambda: razer_matmul_cuda(x, pw.codes, pw.scale_meta, **mm), "gemm_kernel<K1,", 1)
+        del pw, dense
+    torch.cuda.empty_cache()
+    detail["razer_matmul_down_rows"] = out
+    return out
+
+
+def _paper_shapes(dev, gen, detail):
+    """Phase 3 at the shapes of the paper's dense models: K1 (with K2 and
+    the fused path) at llama3_1_8b's seven linears, timed at M 4 and 128;
+    K1/K7 at every new (K, N); K1 rows across M on the 25600- and
+    19200-deep down-projections; K2 at K 5120, 7168, 8192, 19200 and 25600;
+    K9 and K3-K5 at G 4, 8, 7 and 1 (hd 128); K10 at d 4096, 5120, 7168 and
+    on the qk-norm's hd-128 rows.  Returns {check: result}."""
+    from repro_torch.configs import get_config
+
+    c8 = get_config("llama3_1_8b")
+    out = {"llama3_1_8b_linears": _check_matmul(c8, dev, gen, detail, tag="_llama3_1_8b"),
+           "llama3_1_8b_fused_act": _check_fused_act(c8, dev, gen, detail, tag="_llama3_1_8b")}
+    torch.cuda.empty_cache()
+    out["new_gemm_shapes"] = _check_gemm_shapes(dev, gen, detail)
+    out["down_rows_across_M"] = _time_down_rows(dev, gen, detail)
+    for arch in ("qwen3_32b", "deepseek_coder_33b"):
+        out[f"act_qdq_{arch}"] = _check_act_qdq(get_config(arch), dev, gen, detail, tag=f"_{arch}")
+    for arch in ("llama3_1_8b", "qwen3_32b", "deepseek_coder_33b", "llama2_7b"):  # G 4, 8, 7, 1
+        cfg = get_config(arch)
+        g = f"G{cfg.num_heads // cfg.num_kv_heads}"
+        # the serving path's K/V (wire format) and random f32 K/V
+        out[f"prefill_attention_{g}"] = _check_prefill_attention(
+            cfg, dev, gen, detail, tag=f"_{arch}", timed=((1, 4096, "wire"), (1, 4096, "f32")), kinds=("f32", "wire"))
+        # K5 at T = 6: 32 // G queries a launch, so two launches at G 7 and 8
+        out[f"decode_attention_{g}"] = _check_attention_long(
+            cfg, dev, gen, detail, shapes={"B4_mixed": [4001, 97, 1000, 4096]}, t_verify=6, tag=f"_{arch}")
+        torch.cuda.empty_cache()
+    for arch in ("llama3_1_8b", "qwen3_32b", "deepseek_coder_33b"):
+        out[f"rms_norm_d{get_config(arch).d_model}"] = _check_rms_norm(get_config(arch), dev, gen, detail,
+                                                                       tag=f"_{arch}")
+    qk = dataclasses.replace(get_config("qwen3_8b"), d_model=get_config("qwen3_8b").hd)
+    out["rms_norm_qk_norm_hd128"] = _check_rms_norm(qk, dev, gen, detail, tag="_qk_norm_hd128")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 def _policies():
@@ -1239,15 +1408,37 @@ def _policies():
     return {"w4_kv": w4, "w4a4_kv": w4a4}
 
 
+def _draw_qk_extras(raw, cfg, seed: int = 7):
+    """Draw the qkv biases and the qk-norm gains nonzero from a seeded
+    torch.Generator on the card, in place: ``init_params`` leaves them zero,
+    which would not exercise the bias add or the qk-norm's gain.  A model
+    with neither keeps its weights."""
+    from repro_torch.models.transformer import layer_groups
+
+    if not (cfg.qkv_bias or cfg.qk_norm):
+        return
+    dev = raw["embed"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for gi in range(len(layer_groups(cfg))):
+        for lp in raw[f"layers_{gi}"]:
+            mixer = lp["mixer"]
+            for name, std in (("bq", 0.5), ("bk", 0.5), ("bv", 0.5), ("q_norm", 0.2), ("k_norm", 0.2)):
+                if name in mixer:
+                    mixer[name] = torch.randn(mixer[name].shape, generator=gen, device=dev) * std
+
+
 def _engines(cfg, dev):
-    """Random full-width weights (seed 0) on the card and one Engine per
-    policy, each packing them; the engines keep the dense tree for the
-    speculative bf16 draft.  Returns (engines, seconds spent packing)."""
+    """Random full-width weights (seed 0; nonzero qkv biases and qk-norm
+    gains where the model has them) on the card and one Engine per policy,
+    each packing them; the engines keep the dense tree for the speculative
+    bf16 draft.  Returns (engines, seconds spent packing)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
     torch.cuda.reset_peak_memory_stats()
     raw = init_params(cfg, seed=0, device=dev)
+    _draw_qk_extras(raw, cfg)
     t0 = time.perf_counter()
     engines = {name: Engine(raw, cfg, ServeConfig(max_len=128, max_new_tokens=16, quant=policy), device=dev)
                for name, policy in _policies().items()}
@@ -1396,15 +1587,7 @@ def _agreement(eng, reqs, ref_outputs):
     return (len(reqs) - len(diffs)) / len(reqs), diffs
 
 
-# serve == generate (and speculative == vanilla), asserted where the port's
-# row-invariant prefill (K9, K10) and decode make it hold on the card:
-# phase 4c's llama serve under both policies, vanilla and with
-# speculate_k=2, and phase 4e's long-context serve.  dbrx's are reported:
-# at capacity factor 1.25 capacity drops depend on the dispatch groups.
-SERVE_EQUALS_GENERATE = {("llama3_2_3b", policy, k) for policy in ("w4_kv", "w4a4_kv") for k in (0, 2)}
-
-
-def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
+def _serve_full_width(cfg, engines, detail, key="serve", runs=None, equal_to_generate=True):
     """Engine.serve at full width: 8 requests over 4 slots, max_len 256,
     pages of 16, 16 new tokens, prefix cache on.  ``runs`` maps an engine's
     name to its (speculate_k, draft_policy) runs, by default vanilla, then
@@ -1412,7 +1595,13 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
     fakequant draft).  Launch counts are checked exactly: K4 = layers x
     (decode + draft steps), K5 = layers x verify steps, K3 = 0, K1 (and K2
     under W4A4) and K6 = their per-forward counts x (prefill passes + target
-    decode/verify passes).  Each run records its peak device memory."""
+    decode/verify passes).  Each run records its peak device memory.
+
+    ``equal_to_generate`` asserts serve == generate (and speculative ==
+    vanilla) for every request, where the port's row-invariant prefill (K9,
+    K10) and decode make it hold on the card: the dense models under both
+    policies, vanilla and speculative.  dbrx's shares are reported: at
+    capacity factor 1.25 capacity drops depend on the dispatch groups."""
     from repro_torch.obs import Tracer
     from repro_torch.serving.pagepool import PagePoolConfig
     from repro_torch.serving.scheduler import SchedulerConfig
@@ -1445,7 +1634,7 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
             assert rep.cache_hits >= 1 and rep.requests[6].cached_tokens == 40, \
                 (rep.cache_hits, rep.requests[6].cached_tokens)
             same_gen, gen_diffs = _agreement(eng, rep.requests, ref)
-            if (cfg.name, name, k) in SERVE_EQUALS_GENERATE:
+            if equal_to_generate:
                 assert same_gen == 1.0, ("serve != generate", cfg.name, name, k, gen_diffs)
             row = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time,
                    "ttft_p50_s": rep.ttft_p50, "ttft_p95_s": rep.ttft_p95,
@@ -1460,7 +1649,7 @@ def _serve_full_width(cfg, engines, detail, key="serve", runs=None):
                 row["draft_steps"] = rep.draft_steps
                 share, diffs = _agreement(eng, rep.requests, vanilla)
                 row["share_equal_to_vanilla_serve"], row["differs_from_vanilla_serve"] = share, diffs
-                if (cfg.name, name, k) in SERVE_EQUALS_GENERATE:
+                if equal_to_generate:
                     assert share == 1.0, ("speculative != vanilla serve", cfg.name, name, k, diffs)
             else:
                 row["decode_ms_per_step"] = _span_ms(tracer, "decode_step")
@@ -1565,6 +1754,7 @@ def _long_context(cfg, eng, lo=1024, hi=3968, n_new=32, ps=16):
                         sched_cfg=sched_cfg, pool_cfg=pool_cfg))}
     share, diffs = _agreement(eng, rep.requests, ref)
     out["serve"].update(share_equal_to_generate=share, differs_from_generate=diffs)
+    MESHLESS[(cfg.name, "serve_long")] = rep.outputs
     return out
 
 
@@ -1600,7 +1790,7 @@ def _dbrx_full_width(dev, detail):
     e2e["cut"] = cut
     print("e2e dbrx_132b full width, cut num_layers 40 -> 2: " + json.dumps(e2e))
     serve = _serve_full_width(cfg, engines, detail, key="serve_dbrx", runs={
-        "w4_kv": ((0, None), (2, "bf16"), (2, None)), "w4a4_kv": ((0, None),)})
+        "w4_kv": ((0, None), (2, "bf16"), (2, None)), "w4a4_kv": ((0, None),)}, equal_to_generate=False)
     serve["cut"] = cut
     print("serve dbrx_132b full width, cut num_layers 40 -> 2: " + json.dumps(serve))
 
@@ -1610,10 +1800,154 @@ def _dbrx_full_width(dev, detail):
     no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.topk)
     eng = Engine(raw, no_drop, ServeConfig(max_len=128, max_new_tokens=16, quant=_policies()["w4_kv"]), device=dev)
     control = _serve_full_width(no_drop, {"w4_kv": eng}, detail, key="serve_dbrx_no_drop",
-                                runs={"w4_kv": ((0, None), (2, "bf16"))})
+                                runs={"w4_kv": ((0, None), (2, "bf16"))}, equal_to_generate=False)
     control["cut"], control["capacity_factor"] = cut, no_drop.capacity_factor
     print("serve dbrx_132b full width, no capacity drops (capacity factor "
           f"{no_drop.capacity_factor}), cut num_layers 40 -> 2: " + json.dumps(control))
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: disaggregated serving
+# ---------------------------------------------------------------------------
+DISAGG_FLEET = dict(n_prefill=2, n_decode=2, max_slots=4, page_size=16)
+
+
+def _run_disagg(cfg, eng, reqs, want, chunk_tokens):
+    """serve_disagg of ``reqs`` on the fleet with a Tracer: outputs ==
+    ``want`` (single-engine serve's), the shipped bytes 0.28125 of bf16 and
+    each shipment's bytes == its prompt's pages x the pool's page bytes (the
+    prefill and decode pools share the arch and the page size).  Returns
+    the report's row."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.disagg import serve_disagg
+
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    _reset_counts()
+    rep = serve_disagg(eng, reqs, chunk_tokens=chunk_tokens, trace=tracer, **DISAGG_FLEET)
+    torch.cuda.synchronize()
+    counts = _main_path_counts()
+    share = _share_equal(rep.outputs, want)
+    assert share == 1.0, ("disagg != serve", cfg.name, eng.policy.act is not None, chunk_tokens, share)
+    assert rep.transfer_ratio == 0.28125, rep.transfer_ratio
+    ps = DISAGG_FLEET["page_size"]
+    lens = {r.rid: len(r.prompt) for r in rep.requests}
+    ships = [attrs for ph, name, ts, pid, tid, attrs in tracer.events if name == "ship"]
+    assert len(ships) == len(reqs) == rep.shipments
+    assert all(a["nbytes"] == -(-lens[a["rid"]] // ps) * rep.page_bytes for a in ships), ships
+    return {"chunk_tokens": chunk_tokens, "share_equal_to_serve": share, "transfer_ratio": rep.transfer_ratio,
+            "shipment_bytes": [a["nbytes"] for a in ships], "transfer_bytes": rep.transfer_bytes,
+            "transfer_bf16_bytes": rep.transfer_bf16_bytes, "page_bytes": rep.page_bytes,
+            "prefill_tokens_per_s": rep.prefill_tokens_per_s, "decode_tokens_per_s": rep.decode_tokens_per_s,
+            "ttft_p50_s": rep.ttft_p50, "ttft_p95_s": rep.ttft_p95, "makespan_s": rep.wall_time,
+            "decode_stage_p50_s": rep.decode_stage_percentile(50), "prefill_busy_s": rep.prefill_busy,
+            "decode_busy_s": rep.decode_busy, "decode_steps": rep.decode_steps, "cached_tokens": rep.cached_tokens,
+            "router_hit_rate": rep.router_hit_rate, "launches": counts}
+
+
+def _shipment_round_trip(cfg, eng, prompt, reps: int = 5):
+    """Device -> host -> device ms of one shipment: ``prompt`` prefilled
+    into one pool, its pages exported to the host and imported into another
+    pool (a device sync ends each), the bytes landing equal."""
+    from repro_torch.serving.pagepool import KVPagePool, PagePoolConfig
+
+    ps = DISAGG_FLEET["page_size"]
+    pool_cfg = PagePoolConfig(num_pages=2 * (eng.scfg.max_len // ps), page_size=ps, max_len=eng.scfg.max_len)
+    src, dst = (KVPagePool(cfg, pool_cfg, device=eng.device) for _ in range(2))
+    pages = src.allocate(0, len(prompt))
+    _, caches = eng._serve_prefill(prompt)
+    src.write_prefill(0, caches, len(prompt))
+    d2h, h2d = [], []
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ship = src.export_pages(0)
+        t1 = time.perf_counter()
+        got = dst.import_pages(ship, seq_id=i)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        d2h.append((t1 - t0) * 1e3)
+        h2d.append((t2 - t1) * 1e3)
+        for a, b in zip(src.caches, dst.caches):
+            for name in a:
+                assert torch.equal(a[name][:, pages], b[name][:, got[:len(pages)]]), "shipment bytes moved"
+        dst.release(i)
+    return {"prompt_len": len(prompt), "pages": len(pages), "nbytes": ship.nbytes, "bf16_bytes": ship.bf16_bytes,
+            "device_to_host_ms": d2h, "host_to_device_ms": h2d}
+
+
+def _disagg(cfg, engines, detail):
+    """Phase 4f: phase 4c's 8 requests (16 new tokens) under both policies
+    through serve_disagg on 2 prefill + 2 decode replicas of 4 slots on the
+    one card, at chunk_tokens 64 and 16: outputs == phase 4c's single-engine
+    serve for every request, the transfer ratio 0.28125 and each shipment's
+    bytes its pages'; prefill and decode-stage tokens/s, TTFT p50/p95, the
+    makespan and the shipments; and one shipment's device -> host -> device
+    ms (the 100-token prompt)."""
+    out = {}
+    for name, eng in engines.items():
+        want = MESHLESS[(cfg.name, name, "serve")]
+        for chunk in (64, 16):
+            out[f"{name}_chunk{chunk}"] = _run_disagg(cfg, eng, _serve_requests(cfg, 16), want, chunk)
+    out["shipment_round_trip"] = _shipment_round_trip(cfg, engines["w4_kv"], _serve_requests(cfg, 1)[7].prompt)
+    out["fleet"] = DISAGG_FLEET
+    detail["disagg"] = out
+    return out
+
+
+def _disagg_long(cfg, eng, detail, long_context, chunk_tokens=512, n_new=32):
+    """Phase 4f on phase 4e's 8 long requests (W4 + KV, max_len 4096, 32 new
+    tokens) at chunk_tokens 512: outputs == phase 4e's single-engine serve,
+    and the decode stage's tokens/s beside the single-engine serve's."""
+    from repro_torch.serving.scheduler import Request
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n_new)
+            for i, p in enumerate(_long_prompts(cfg, 8, 1024, 3968, 3))]
+    row = _run_disagg(cfg, eng, reqs, MESHLESS[(cfg.name, "serve_long")], chunk_tokens)
+    single = long_context["serve"]
+    row.update(single_serve_tokens_per_s=single["tokens_per_s"],
+               single_serve_decode_ms_per_step=single["decode_ms_per_step"],
+               single_serve_ttft_p50_s=single["ttft_p50_s"], single_serve_ttft_p95_s=single["ttft_p95_s"])
+    detail["disagg_long"] = row
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's dense models at full width
+# ---------------------------------------------------------------------------
+PAPER_CUT = ("llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b", "deepseek_coder_33b")
+
+
+def _paper_models(dev, detail):
+    """Phase 7: llama3_1_8b at full width and depth (32 layers), then the
+    other five dense models of the paper's evaluation at full width cut to
+    2 layers, random weights (seed 0) with the qkv biases and qk-norm gains
+    drawn nonzero, each under W4 + KV and W4A4 + KV: generate of phase 4's
+    prompts and serve of phase 4c's 8 requests over 4 slots (llama3_1_8b
+    also with speculate_k=2 and a bf16 draft), exact launch counts, serve ==
+    generate asserted for every request, times, the device idle share and
+    peak memory.  Each model's engines are freed before the next."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch in ("llama3_1_8b",) + PAPER_CUT:
+        cfg = get_config(arch)
+        cut = None
+        if arch in PAPER_CUT:
+            cut = {"num_layers": [cfg.num_layers, 2]}
+            cfg = dataclasses.replace(cfg, num_layers=2)
+        engines, pack_s = _engines(cfg, dev)
+        e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
+        runs = None if cut is None else {name: ((0, None),) for name in engines}
+        serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve", runs=runs)
+        row = {"generate": e2e, "serve": serve, "cut": cut}
+        print(f"paper model {arch} full width" + (f", cut num_layers {cut['num_layers'][0]} -> 2" if cut else
+                                                 ", full depth") + ": " + json.dumps(row))
+        out[arch] = row
+        del engines, e2e, serve
+        torch.cuda.empty_cache()
+    detail["paper_models"] = {arch: {"cut": row["cut"]} for arch, row in out.items()}
+    return out
 
 
 def _card_vs_cpu(dev, detail):
@@ -2109,7 +2443,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     detail = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
+    phase_s, last = {}, [time.perf_counter()]
+
+    def mark(phase):  # seconds since the previous mark, by phase
+        now = time.perf_counter()
+        phase_s[phase] = now - last[0]
+        last[0] = now
+
+    detail["phase_s"] = phase_s
     build_s = build.build_all()
+    mark("1-2 device, build")
     ptxas = {n: _ptxas_report(log) for n, log in build.build_log.items()}
     detail["build_s"], detail["ptxas"] = build_s, ptxas
     print(f"build: {build_s:.1f} s for {sorted(ptxas)}; ptxas: {json.dumps(ptxas)}")
@@ -2143,6 +2486,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("kernels vs plain: " + json.dumps({k: {"max_abs_err": v[0], **v[1]} for k, v in checks.items()}))
     print("K1 split-K from (N, K) vs one split at M=128: " + json.dumps(_split_k_cost(cfg, dev, gen, detail)))
+    mark("3 kernels")
+    print("kernels at the paper models' shapes: " + json.dumps(_paper_shapes(dev, gen, detail)))
+    torch.cuda.empty_cache()
+    mark("3 kernels at the paper models' shapes")
 
     engines, pack_s = _engines(cfg, dev)
     e2e = _full_width(cfg, engines, detail, pack_s)
@@ -2153,6 +2500,10 @@ def main() -> int:
           + json.dumps(_decode_forward_counts(cfg, engines["w4a4_kv"], detail)))
     serve = _serve_full_width(cfg, engines, detail)
     print("serve llama3_2_3b full width: " + json.dumps(serve))
+    mark("4, 4b, 4c llama3_2_3b generate, paged, serve")
+    print("disaggregated serve llama3_2_3b full width, 2 prefill + 2 decode replicas: "
+          + json.dumps(_disagg(cfg, engines, detail)))
+    mark("4f disagg")
     eng = engines["w4_kv"]
     short_cfg = eng.scfg
     eng.scfg = dataclasses.replace(short_cfg, max_len=4096)
@@ -2160,8 +2511,13 @@ def main() -> int:
     long_serve = detail["long_context"]["serve"]
     assert long_serve["share_equal_to_generate"] == 1.0, ("long-context serve != generate",
                                                           long_serve["differs_from_generate"])
-    eng.scfg = short_cfg
     print("long context llama3_2_3b full width, W4 + KV, max_len 4096: " + json.dumps(detail["long_context"]))
+    mark("4e long context")
+    print("disaggregated serve of the long requests, W4 + KV, chunk_tokens 512: "
+          + json.dumps(_disagg_long(cfg, eng, detail, detail["long_context"])))
+    eng.scfg = short_cfg
+    del eng  # the engines go with ``engines`` below: phase 7 needs the card's memory
+    mark("4f disagg, long requests")
     print("parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width: "
           + json.dumps(_world1_nccl(cfg, engines, detail)))
     f32_ref = _f32_prefill_logits(engines["w4_kv"]._raw_params, cfg, _generate_prompts(cfg), device=dev)
@@ -2169,13 +2525,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("parallel, llama3_2_3b full width on the (1, 2) mesh, two ranks on one card over gloo: "
           + json.dumps(_parallel_llama(cfg, detail, f32_ref)))
+    mark("6a, 6b mesh llama3_2_3b")
     _dbrx_full_width(dev, detail)
+    mark("4d dbrx_132b")
     torch.cuda.empty_cache()
     print("parallel, dbrx_132b full width cut to 1 layer on the (1, 2) and (2, 1) meshes, two ranks on one "
           "card over gloo: " + json.dumps(_parallel_dbrx(dev, detail)))
     torch.cuda.empty_cache()
     parity = _card_vs_cpu(dev, detail)
     print("card vs cpu (reduced llama3_2_3b and dbrx_132b): " + json.dumps(parity))
+    mark("6c mesh dbrx_132b, 5 parity")
+    _paper_models(dev, detail)
+    mark("7 paper models")
+    print("seconds by phase: " + json.dumps(phase_s))
 
     meta = {
         "razer_matmul": ("src/repro_torch/csrc/razer_matmul.cu", "src/repro/kernels/razer_matmul.py:112",

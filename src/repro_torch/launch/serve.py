@@ -11,8 +11,20 @@ and rank 0 prints.  ``--ep``/``--tp`` build the mesh (``--ep 0``: no mesh
 unless ``--tp`` > 1); the packed weights' divisibility is checked first, with
 the ``expert_shard_size`` / ``kshard_size`` errors.  ``--backend`` names the
 process group's backend: NCCL with one rank per card, gloo where ranks share
-a card or run on the CPU.  The reference launcher's disaggregated serving,
-metrics, trace, quantization report and checkpoint flags are not ported.
+a card or run on the CPU.
+
+``--disagg`` serves the request stream on prefill and decode replicas behind
+a prefix-aware router (``serving.disagg.serve_disagg``), the KV pages
+shipped between them in the 4.5-bit wire format (0.28125 of bf16), and
+prints the ``DisaggReport``:
+
+    python -m repro_torch.launch.serve --arch llama3_2_3b --packed --kv-quant \
+        --disagg --prefill-replicas 2 --decode-replicas 2 --requests 12 --rate 20
+
+``--rate`` draws Poisson arrivals (req/s) for ``--continuous`` and
+``--disagg``; ``--trace-out`` writes their Chrome trace-event JSON.  The
+reference launcher's metrics, quantization-report, KV-audit, checkpoint and
+profile flags are not ported.
 """
 from __future__ import annotations
 
@@ -46,6 +58,19 @@ def _parser() -> argparse.ArgumentParser:
                          "(continuous mode)")
     ap.add_argument("--draft-policy", default=None,
                     help="draft-side quantization: a format name (nvfp4) or 'bf16' (default: nvfp4)")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson request arrival rate, req/s (0: all at t=0; --continuous and --disagg)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated prefill/decode serving over wire-format KV page shipments")
+    ap.add_argument("--prefill-replicas", type=int, default=1,
+                    help="prefill workers, each with its own pool and prefix cache (--disagg)")
+    ap.add_argument("--decode-replicas", type=int, default=1,
+                    help="decode workers, each with its own pool and slots (--disagg)")
+    ap.add_argument("--chunk-tokens", type=int, default=64, help="max prompt tokens per prefill chunk (--disagg)")
+    ap.add_argument("--transfer-gbps", type=float, default=0.0,
+                    help="modelled prefill -> decode wire bandwidth (0: instantaneous; --disagg)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome trace-event JSON of the serve run (--continuous or --disagg)")
     ap.add_argument("--backend", default="nccl", help="torch.distributed backend of the mesh (nccl, gloo)")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--init-method", default="env://",
@@ -62,7 +87,10 @@ def main(argv=None):
     from repro_torch.serving.engine import Engine, ServeConfig
 
     if args.speculate_k and not args.continuous:
-        raise SystemExit("--speculate-k applies to --continuous serving")
+        raise SystemExit("--speculate-k applies to --continuous serving; disaggregated decode workers do not "
+                         "speculate")
+    if (args.trace_out or args.rate) and not (args.continuous or args.disagg):
+        raise SystemExit("--trace-out and --rate apply to --continuous or --disagg serving")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -100,12 +128,34 @@ def main(argv=None):
     reqs = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 16))).tolist() for _ in range(args.requests)]
     say = print if rank == 0 else (lambda *a, **k: None)
     where = f"mesh (ep={mesh.ep}, tp={mesh.tp}, {mesh.backend})" if mesh is not None else "one rank"
-    if args.continuous:
+    if args.continuous or args.disagg:
+        from repro_torch.obs import Tracer
         from repro_torch.serving.scheduler import Request, SchedulerConfig
 
-        stream = [Request(rid=i, prompt=p, max_new_tokens=args.max_new) for i, p in enumerate(reqs)]
+        tracer = Tracer() if args.trace_out else None
+        # Poisson arrivals: exponential inter-arrival gaps at --rate req/s
+        gaps = rng.exponential(1.0 / args.rate, size=len(reqs)) if args.rate > 0 else np.zeros(len(reqs))
+        arrivals = np.cumsum(gaps)
+        stream = [Request(rid=i, prompt=p, max_new_tokens=args.max_new, arrival=float(arrivals[i]))
+                  for i, p in enumerate(reqs)]
+    if args.disagg:
+        from repro_torch.serving.disagg import serve_disagg
+
+        rep = serve_disagg(eng, stream, trace=tracer, n_prefill=args.prefill_replicas,
+                           n_decode=args.decode_replicas, chunk_tokens=args.chunk_tokens, max_slots=args.slots,
+                           prefix_cache=args.prefix_cache, transfer_gbps=args.transfer_gbps)
+        say(f"{rep.new_tokens} tokens / {rep.wall_time:.2f}s makespan | {rep.n_prefill}P x {rep.n_decode}D | "
+            f"prefill {rep.prefill_tokens_per_s:.1f} tok/s, decode {rep.decode_tokens_per_s:.1f} tok/s ({where})")
+        say(f"  mean TTFT {rep.mean_ttft * 1e3:.1f} ms | mean latency {rep.mean_latency * 1e3:.1f} ms | "
+            f"{rep.shipments} shipments, {rep.transfer_bytes / 1024:.1f} KiB shipped "
+            f"({rep.transfer_ratio:.5f}x of bf16)")
+        say(f"  router: {rep.router_placements} placements, {rep.router_hit_rate:.0%} predicted hit rate | "
+            f"realized {rep.cache_hit_rate:.0%} ({rep.cached_tokens} cached vs {rep.prefill_tokens} computed "
+            f"prompt tokens)")
+        outputs = [r.out_tokens for r in rep.requests]
+    elif args.continuous:
         rep = eng.serve(stream, sched_cfg=SchedulerConfig(max_slots=args.slots), prefix_cache=args.prefix_cache,
-                        speculate_k=args.speculate_k, draft_policy=args.draft_policy)
+                        speculate_k=args.speculate_k, draft_policy=args.draft_policy, trace=tracer)
         say(f"{rep.new_tokens} tokens / {rep.wall_time:.2f}s = {rep.tokens_per_s:.1f} tok/s over "
             f"{rep.decode_steps} decode steps (slots={args.slots}, packed={args.packed}, {where})")
         if rep.speculate_k:
@@ -121,6 +171,9 @@ def main(argv=None):
             f"kv_quant={args.kv_quant}, {where})")
     for o, r in zip(outputs[:3], reqs[:3]):
         say(f"  prompt[{len(r)}] -> {list(o)}")
+    if (args.continuous or args.disagg) and tracer is not None and rank == 0:
+        tracer.export(args.trace_out)
+        say(f"  trace: {args.trace_out} ({len(tracer.events)} events)")
     if joined:  # leave a process group the caller set up to the caller
         dist.destroy_process_group()
     return outputs

@@ -275,6 +275,18 @@ class Engine:
         return tf.prefill_paged_suffix(self.params, torch.as_tensor(toks, device=self.device), pool.layers, row,
                                        c, s, self.cfg, self.policy)
 
+    @torch.no_grad()
+    def _paged_decode_step(self, tokens, pool, page_table: torch.Tensor, cur_lens) -> List[int]:
+        """One decode step of the slots' ``tokens`` at ``cur_lens`` over
+        ``pool`` through ``page_table`` (idle slots: token 0, length 0, an
+        all-null row); writes the new K/V into the pool and returns each
+        slot's greedy token."""
+        logits, _ = tf.decode_step(
+            self.params, torch.as_tensor(tokens, device=self.device), pool.layers,
+            torch.as_tensor(np.asarray(cur_lens, np.int32), device=self.device), self.cfg,
+            self.policy, pages=page_table)
+        return torch.argmax(logits, dim=-1).tolist()
+
     def _as_requests(self, requests, n_new: int):
         """Normalize a request stream (``scheduler.Request`` or raw token-id
         prompts, freely mixed) into a list of ``Request``; raw prompts get
@@ -454,11 +466,7 @@ class Engine:
             with tracer.span("decode_step", batch=len(sched.running)):
                 if page_table is None:
                     page_table = pool.page_table(seq_ids)
-                logits, _ = tf.decode_step(
-                    self.params, torch.as_tensor(tokens, device=self.device), pool.layers,
-                    torch.as_tensor(np.asarray(cur_lens, np.int32), device=self.device), self.cfg,
-                    self.policy, pages=page_table)
-                toks = torch.argmax(logits, dim=-1).tolist()
+                toks = self._paged_decode_step(tokens, pool, page_table, cur_lens)
             decode_steps += 1
             if sched.post_decode(toks, now()):
                 page_table = None  # a retirement freed a slot

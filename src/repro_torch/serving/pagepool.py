@@ -22,8 +22,9 @@ holds each layer's ``(P, ps, KVH, ...)`` views of them, in layer order,
 which the decode step updates in place.  Allocation
 (free list, refcounts, page lists) is host-side Python.
 
-Not ported yet: ``export_pages`` / ``import_pages`` / ``PageShipment`` /
-``gather_sequence`` (disaggregated serving), the metrics installer and the
+``export_pages`` / ``import_pages`` move a sequence's pages between pools as
+a ``PageShipment`` of host tensors in the wire format (disaggregated
+serving, ``serving.disagg``).  Not ported yet: the metrics installer and the
 numerics-audit hook (observability).
 """
 from __future__ import annotations
@@ -38,7 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import layer_groups
 
-__all__ = ["NULL_PAGE", "PagePoolConfig", "KVPagePool"]
+__all__ = ["NULL_PAGE", "PagePoolConfig", "PageShipment", "KVPagePool"]
 
 NULL_PAGE = 0
 _KV_NAMES = ("k_codes", "k_meta", "v_codes", "v_meta")
@@ -67,6 +68,41 @@ class PagePoolConfig:
     def pages_per_seq(self) -> int:
         """Page-table width: worst-case pages one sequence can touch."""
         return -(-self.max_len // self.page_size)
+
+
+@dataclasses.dataclass
+class PageShipment:
+    """Wire-format KV pages of one sequence on the host, ready to cross a
+    process or host boundary (``serving.disagg``).
+
+    ``buffers`` mirrors the pool's per-layer-group ``caches``: one
+    ``{"k_codes": (count, n_pages, ps, KVH, hd/2) uint8, "k_meta": ...}``
+    dict of CPU tensors per group, in LOGICAL page order (entry ``i`` along
+    the page axis holds tokens ``[i * ps, (i + 1) * ps)``).  The payload is
+    the App. C.1 wire format, so shipping KV costs 4.5 bits an element
+    (``nbytes``) instead of bf16's 16 (``bf16_bytes``).  ``n_tokens`` counts
+    the valid leading positions; the tail of the last page is whatever the
+    source page held, which the importer's decode overwrites or masks."""
+
+    seq_id: int
+    n_tokens: int
+    page_size: int
+    buffers: List[Dict[str, torch.Tensor]]
+
+    @property
+    def n_pages(self) -> int:
+        return self.buffers[0]["k_codes"].shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        """Transfer payload: the wire-format bytes shipped."""
+        return sum(t.numel() for g in self.buffers for t in g.values())
+
+    @property
+    def bf16_bytes(self) -> int:
+        """What the same K and V would cost in bf16 (2 bytes an element)."""
+        hd = self.buffers[0]["k_codes"].shape[-1] * 2
+        return sum(int(np.prod(g["k_codes"].shape[:-1])) * hd * 2 * 2 for g in self.buffers)
 
 
 def _check_paged_arch(cfg: ArchConfig) -> None:
@@ -331,3 +367,83 @@ class KVPagePool:
             for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
                 group[name][:, pids, sids] = val[first:first + count]
             first += count
+
+    # -- wire-format page transfer (serving.disagg) --------------------------
+    def export_pages(self, seq_id: Optional[int] = None, *, page_ids: Optional[Sequence[int]] = None,
+                     n_tokens: Optional[int] = None) -> PageShipment:
+        """Gather a sequence's pages (or an explicit logical-order
+        ``page_ids`` list) to the host as a ``PageShipment``.
+
+        The sequence's pending copy-on-write fork is flushed first, so the
+        shipment carries its own last-page bytes, not its donor's.  The
+        pages are gathered on the device and then copied to the host, the
+        boundary the shipment models.  ``n_tokens`` bounds the export to
+        the pages covering that many leading tokens (default: every page
+        the sequence holds)."""
+        if (seq_id is None) == (page_ids is None):
+            raise ValueError("export_pages: pass exactly one of seq_id / page_ids")
+        if seq_id is not None:
+            self.flush_forks(seq_id)
+            pages = self._seq_pages.get(seq_id)
+            if pages is None:
+                raise ValueError(f"export_pages() for unknown sequence {seq_id}: it holds no pages "
+                                 f"(never allocated, or already released)")
+            if n_tokens is None:
+                n_tokens = len(pages) * self.pool_cfg.page_size
+            pages = pages[: self.pages_for(n_tokens)]
+        else:
+            pages = list(page_ids)
+            if n_tokens is None:
+                n_tokens = len(pages) * self.pool_cfg.page_size
+            if self.pages_for(n_tokens) != len(pages):
+                raise ValueError(f"export_pages: {len(pages)} pages cannot cover n_tokens={n_tokens} (need "
+                                 f"{self.pages_for(n_tokens)} at page_size {self.pool_cfg.page_size})")
+        ids = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        buffers = [{name: buf[:, ids].cpu() for name, buf in group.items()} for group in self.caches]
+        return PageShipment(seq_id=seq_id if seq_id is not None else -1, n_tokens=int(n_tokens),
+                            page_size=self.pool_cfg.page_size, buffers=buffers)
+
+    def import_pages(self, shipment: PageShipment, *, seq_id: Optional[int] = None,
+                     reserve_tokens: Optional[int] = None) -> List[int]:
+        """Allocate fresh pages for the sequence in THIS pool and write the
+        shipped wire bytes into the leading ones.
+
+        ``reserve_tokens`` (default ``shipment.n_tokens``) sizes the
+        allocation: a decode replica reserves ``len(prompt) +
+        max_new_tokens`` up front, as single-engine admission does.  Returns
+        the sequence's page list in logical order; the shipment's page ``i``
+        now lives in physical page ``pages[i]``."""
+        sid = shipment.seq_id if seq_id is None else seq_id
+        n_tok = shipment.n_tokens if reserve_tokens is None else reserve_tokens
+        if shipment.page_size != self.pool_cfg.page_size:
+            raise ValueError(f"shipment page_size {shipment.page_size} != pool page_size "
+                             f"{self.pool_cfg.page_size}; replicas must agree on the page layout")
+        if len(shipment.buffers) != len(self.caches) or any(
+                s[k].shape[0] != c[k].shape[0] or s[k].shape[2:] != c[k].shape[2:]
+                for s, c in zip(shipment.buffers, self.caches) for k in c):
+            raise ValueError("shipment layer-group/head layout does not match this pool (different arch?)")
+        if n_tok < shipment.n_tokens:
+            raise ValueError(f"reserve_tokens={n_tok} < shipment.n_tokens={shipment.n_tokens}: the "
+                             f"reservation must cover every shipped page")
+        pages = self.allocate(sid, n_tok)
+        dst = torch.as_tensor(pages[: shipment.n_pages], dtype=torch.long, device=self.device)
+        for group, host in zip(self.caches, shipment.buffers):
+            for name, buf in group.items():
+                buf[:, dst] = host[name].to(self.device)
+        return pages
+
+    # -- debug / tests -------------------------------------------------------
+    def gather_sequence(self, seq_id: int, length: int, group: int = 0):
+        """Dequantized (count, length, KVH, hd) K and V of one sequence's
+        first ``length`` positions in layer group ``group``: a test path;
+        decode never materializes this."""
+        from repro_torch.serving.kvcache import kv_dequantize
+
+        ps = self.pool_cfg.page_size
+        pos = np.arange(length)
+        pids = torch.as_tensor(self.page_row(seq_id)[pos // ps], dtype=torch.long, device=self.device)
+        sids = torch.as_tensor(pos % ps, dtype=torch.long, device=self.device)
+        c = self.caches[group]
+        k = kv_dequantize(c["k_codes"][:, pids, sids], c["k_meta"][:, pids, sids], self.cfg.hd)
+        v = kv_dequantize(c["v_codes"][:, pids, sids], c["v_meta"][:, pids, sids], self.cfg.hd)
+        return k, v

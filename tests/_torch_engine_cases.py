@@ -42,14 +42,48 @@ def _np(a):
     return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
 
 
-def run_case(policy: str, kv_heads: int, dtype: str, arch: str = "llama3_2_3b", **overrides):
+BIASES = ("bq", "bk", "bv")
+GAINS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+
+
+def perturb(tree, seed: int):
+    """A numpy parameter tree with every qkv bias and every RMSNorm gain
+    (the layer norms, the final norm and the qk-norm) drawn nonzero from a
+    seeded generator: ``init_params`` leaves them all zero, which would not
+    exercise the bias add or the gain."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        out = {}
+        for key in sorted(t):
+            v = t[key]
+            if isinstance(v, dict):
+                out[key] = walk(v)
+            elif key in BIASES:
+                out[key] = rng.normal(0.0, 0.5, v.shape).astype(v.dtype)
+            elif key in GAINS:
+                out[key] = rng.normal(0.0, 0.2, v.shape).astype(v.dtype)
+            else:
+                out[key] = v
+        return out
+
+    return walk(tree)
+
+
+def run_case(policy: str, kv_heads, dtype: str, arch: str = "llama3_2_3b", perturb_seed=None, **overrides):
+    """``kv_heads`` None keeps the reduced config's; ``perturb_seed`` draws
+    the biases and norm gains nonzero (``perturb``) in both packages."""
     torch.set_num_threads(2)
-    jcfg = dataclasses.replace(get_config(arch).reduced(), num_kv_heads=kv_heads, compute_dtype=dtype,
-                               **overrides)
-    tcfg = dataclasses.replace(torch_get_config(arch).reduced(), num_kv_heads=kv_heads, compute_dtype=dtype,
-                               **overrides)
+    if kv_heads is not None:
+        overrides["num_kv_heads"] = kv_heads
+    jcfg = dataclasses.replace(get_config(arch).reduced(), compute_dtype=dtype, **overrides)
+    tcfg = dataclasses.replace(torch_get_config(arch).reduced(), compute_dtype=dtype, **overrides)
     jparams = jax_tf.init_params(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    if perturb_seed is not None:
+        tree = perturb(tree, perturb_seed)
+        jparams = jax.tree_util.tree_map(jax.numpy.asarray, tree)
+    tparams = params_from_numpy(tree, device="cpu")
     jpol, tpol = _policies(policy)
     je = JaxEngine(jparams, jcfg, JaxServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW, quant=jpol))
     te = Engine(tparams, tcfg, ServeConfig(max_len=MAX_LEN, max_new_tokens=N_NEW, quant=tpol),

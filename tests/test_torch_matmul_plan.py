@@ -11,18 +11,19 @@ import re
 
 import pytest
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels.razer_matmul import BK, BN, GRID_Z, MAX_SPLITS, TOKEN_TILES, launch_plan
 
 TILE_HEADER = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc" / "razer_matmul_tile.cuh"
 
 
 def _packed_shapes():
-    """(name, E, K, N) of every packed GEMM of full-width llama3_2_3b and
-    dbrx_132b, meshless and as tp 2 K-shards (local K = K / 2), with dbrx's
-    banks on E 16 and on the (2, *) mesh's E 8."""
+    """(name, E, K, N) of every packed GEMM of every full-width config of
+    the port (``ARCHS``: llama3_2_3b, dbrx_132b and the six dense models of
+    the paper's evaluation), meshless and as tp 2 K-shards (local K = K /
+    2), with dbrx's banks on E 16 and on the (2, *) mesh's E 8."""
     out = []
-    for arch in ("llama3_2_3b", "dbrx_132b"):
+    for arch in ARCHS:
         cfg = get_config(arch)
         d, q, kv = cfg.d_model, cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
         linears = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
@@ -43,7 +44,10 @@ M_VALUES = (1, 4, 7, 8, 9, 24, 48, 64, 65, 128, 129, 257, 4096)
 
 
 def test_shapes_cover_the_tp2_local_ks():
-    assert {k for name, _, k, _ in SHAPES if name.endswith("tp2")} == {1536, 4096, 3072, 5376}
+    assert {k for name, _, k, _ in SHAPES if name.endswith("tp2")} == {
+        1536, 4096, 3072, 5376,  # llama3_2_3b, dbrx_132b
+        2048, 7168, 5504, 6144, 6720,  # d_model 4096; d_ff 14336, 11008, 12288, 13440
+        2560, 12800, 3584, 9600}  # qwen3_32b (d 5120, f 25600), deepseek_coder_33b (d 7168, f 19200)
 
 
 @pytest.mark.parametrize("name,e,k,n", SHAPES, ids=[s[0] for s in SHAPES])
