@@ -53,12 +53,15 @@ Phases, each printing one line (and failing the run with a traceback):
   4f. disagg -- phase 4c's 8 requests under both policies through
                 serve_disagg on 2 prefill + 2 decode replicas on the one
                 card, at chunk_tokens 64 and 16, and phase 4e's 8 long
-                requests (W4 + KV) at chunk_tokens 512: outputs == the
+                requests (W4 + KV) at chunk_tokens 512, llama3_2_3b at full
+                width cut to 7 of its 28 layers (LLAMA_CUT_LAYERS, the
+                script's time limit): outputs == the same engine's
                 single-engine serve's, the transfer ratio 0.28125 and each
                 shipment's bytes == its pages', asserted; per-stage
                 tokens/s, TTFT, the makespan and one shipment's device ->
                 host -> device ms (run right after 4c and 4e);
-  4e. long   -- the llama W4 + KV engine at max_len 4096: generate of 4
+  4e. long   -- the llama W4 + KV engine cut to 7 layers (as 4f) at
+                max_len 4096: generate of 4
                 prompts of 1024-3968 random tokens and serve of 8 such
                 requests over 4 slots, 32 new tokens each, exact launch
                 counts, decode ms per step, per-step device ms, idle share
@@ -84,7 +87,8 @@ Phases, each printing one line (and failing the run with a traceback):
                 against the CPU (plain versions) from the same weights;
   6. mesh    -- serving on a torch.distributed mesh: (a) a world of one rank
                 over NCCL, Engine(mesh=(1, 1)), equal to the meshless engine
-                bit for bit; (b) full-width llama3_2_3b on the (1, 2) mesh,
+                bit for bit; (b) full-width llama3_2_3b cut to 7 of its 28
+                layers (as 4f) on the (1, 2) mesh,
                 two ranks sharing the card over gloo (NCCL takes one rank
                 per card), through generate, vanilla serve under both
                 policies and serve(speculate_k=2) with a bf16 draft, every
@@ -103,7 +107,27 @@ Phases, each printing one line (and failing the run with a traceback):
                 codeqwen1_5_7b and deepseek_coder_33b cut to 2 layers
                 through generate and vanilla serve; exact launch counts,
                 serve == generate (and speculative == vanilla) asserted for
-                every request, times, idle share and peak memory.
+                every request, times, idle share and peak memory;
+  8. obs     -- observability on llama3_1_8b at full width and depth (run
+                inside phase 7, on its engines): (a) Engine.quant_audit of
+                the W4 + KV engine on the card (schema valid, the layers and
+                quantized parameters the config gives, drift exactly 0), one
+                layer's wq and down re-audited on the CPU from the same
+                tensors (integers equal, floats within 1e-7 relative), its
+                seconds, SV block rate, SQNR and per-pair select histogram;
+                (b) phase 4c's 8 requests, vanilla and speculate_k=2, with a
+                MetricsRegistry, a Tracer and a KVAuditor(sample_every=1):
+                tokens == the same engine's vanilla serve with observability
+                off (run before and after the observed vanilla runs),
+                the histogram and counter counts == the report's, no page
+                held by a sequence at the end, KV pages sampled, the trace
+                valid by tools/check_trace.py, exact launch counts; decode
+                ms a step and tokens/s off, with metrics and trace, and
+                with the KV audit; (c) one short serve under profile_dir,
+                whose Chrome trace names K1's, K4's, K9's and K10's
+                kernels; and in phase 4f serve_disagg(metrics=): the
+                shipment and byte counters == the report's, outputs == the
+                run without metrics.
 Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
 (dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
 shard, permuted, bit for bit; rows bit-identical across M.  Each kernel's
@@ -1811,6 +1835,25 @@ def _dbrx_full_width(dev, detail):
 # ---------------------------------------------------------------------------
 DISAGG_FLEET = dict(n_prefill=2, n_decode=2, max_slots=4, page_size=16)
 
+# phases 4e, 4f and 6b run llama3_2_3b at full width cut to this many of its
+# 28 layers, from the same seed-0 weights: at full depth the script took
+# 1212 s of its 1200 s limit on a slow host once phase 8 was added (PR 20);
+# the three are host-bound and scale with depth
+LLAMA_CUT_LAYERS = 7
+
+
+def _llama_cut_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama3_2_3b"), num_layers=LLAMA_CUT_LAYERS)
+
+
+def _serve_outputs(cfg, eng):
+    """Outputs of phase 4c's serve (8 requests, 4 slots, 16 new tokens) on
+    ``eng``: the single-engine reference of phase 4f at its depth."""
+    sched_cfg, pool_cfg = _serve_cfgs()
+    return eng.serve(_serve_requests(cfg, 16), sched_cfg=sched_cfg, pool_cfg=pool_cfg).outputs
+
 
 def _run_disagg(cfg, eng, reqs, want, chunk_tokens):
     """serve_disagg of ``reqs`` on the fleet with a Tracer: outputs ==
@@ -1835,6 +1878,7 @@ def _run_disagg(cfg, eng, reqs, want, chunk_tokens):
     ships = [attrs for ph, name, ts, pid, tid, attrs in tracer.events if name == "ship"]
     assert len(ships) == len(reqs) == rep.shipments
     assert all(a["nbytes"] == -(-lens[a["rid"]] // ps) * rep.page_bytes for a in ships), ships
+    MESHLESS[(cfg.name, "disagg", eng.policy.act is not None, chunk_tokens)] = rep.outputs
     return {"chunk_tokens": chunk_tokens, "share_equal_to_serve": share, "transfer_ratio": rep.transfer_ratio,
             "shipment_bytes": [a["nbytes"] for a in ships], "transfer_bytes": rep.transfer_bytes,
             "transfer_bf16_bytes": rep.transfer_bf16_bytes, "page_bytes": rep.page_bytes,
@@ -1843,6 +1887,37 @@ def _run_disagg(cfg, eng, reqs, want, chunk_tokens):
             "decode_stage_p50_s": rep.decode_stage_percentile(50), "prefill_busy_s": rep.prefill_busy,
             "decode_busy_s": rep.decode_busy, "decode_steps": rep.decode_steps, "cached_tokens": rep.cached_tokens,
             "router_hit_rate": rep.router_hit_rate, "launches": counts}
+
+
+def _disagg_metrics(cfg, eng, plain, chunk_tokens):
+    """Phase 8 (d): ``serve_disagg(metrics=)`` of phase 4c's 8 requests on
+    the fleet: outputs == the run without metrics (``plain``'s, just
+    before), the shipment and transfer-byte counters == the report's, and
+    one pool series per replica and state.  Returns the registry's numbers
+    beside the run's makespan and decode-stage rate."""
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving.disagg import serve_disagg
+
+    reg = MetricsRegistry()
+    torch.cuda.synchronize()
+    _reset_counts()
+    rep = serve_disagg(eng, _serve_requests(cfg, 16), chunk_tokens=chunk_tokens, metrics=reg, **DISAGG_FLEET)
+    torch.cuda.synchronize()
+    _main_path_counts()
+    assert rep.outputs == MESHLESS[(cfg.name, "disagg", eng.policy.act is not None, chunk_tokens)], \
+        "disagg outputs moved with metrics on"
+    snap = reg.snapshot()
+    value = lambda name: snap[name]["series"][0]["value"]  # noqa: E731
+    assert value("disagg_shipments_total") == rep.shipments == 8, (value("disagg_shipments_total"), rep.shipments)
+    assert value("disagg_transfer_bytes_total") == rep.transfer_bytes, value("disagg_transfer_bytes_total")
+    assert snap["serve_tokens_total"]["series"][0]["value"] == rep.new_tokens
+    assert len(snap["pool_pages"]["series"]) == 3 * (DISAGG_FLEET["n_prefill"] + DISAGG_FLEET["n_decode"])
+    busy = {s["labels"]["stage"]: s["value"] for s in snap["stage_busy_seconds"]["series"]}
+    return {"outputs_equal_without_metrics": True, "disagg_shipments_total": value("disagg_shipments_total"),
+            "disagg_transfer_bytes_total": value("disagg_transfer_bytes_total"), "stage_busy_seconds": busy,
+            "ttft_p50_s": snap["serve_ttft_seconds"]["series"][0]["p50"], "makespan_s": rep.wall_time,
+            "decode_tokens_per_s": rep.decode_tokens_per_s,
+            "plain_makespan_s": plain["makespan_s"], "plain_decode_tokens_per_s": plain["decode_tokens_per_s"]}
 
 
 def _shipment_round_trip(cfg, eng, prompt, reps: int = 5):
@@ -1879,16 +1954,17 @@ def _shipment_round_trip(cfg, eng, prompt, reps: int = 5):
 def _disagg(cfg, engines, detail):
     """Phase 4f: phase 4c's 8 requests (16 new tokens) under both policies
     through serve_disagg on 2 prefill + 2 decode replicas of 4 slots on the
-    one card, at chunk_tokens 64 and 16: outputs == phase 4c's single-engine
-    serve for every request, the transfer ratio 0.28125 and each shipment's
+    one card, at chunk_tokens 64 and 16: outputs == the same engine's
+    single-engine serve of them, the transfer ratio 0.28125 and each shipment's
     bytes its pages'; prefill and decode-stage tokens/s, TTFT p50/p95, the
     makespan and the shipments; and one shipment's device -> host -> device
     ms (the 100-token prompt)."""
-    out = {}
+    out = {"num_layers": cfg.num_layers}
     for name, eng in engines.items():
-        want = MESHLESS[(cfg.name, name, "serve")]
+        want = _serve_outputs(cfg, eng)
         for chunk in (64, 16):
             out[f"{name}_chunk{chunk}"] = _run_disagg(cfg, eng, _serve_requests(cfg, 16), want, chunk)
+    out["w4_kv_chunk64_metrics"] = _disagg_metrics(cfg, engines["w4_kv"], out["w4_kv_chunk64"], 64)
     out["shipment_round_trip"] = _shipment_round_trip(cfg, engines["w4_kv"], _serve_requests(cfg, 1)[7].prompt)
     out["fleet"] = DISAGG_FLEET
     detail["disagg"] = out
@@ -1940,6 +2016,11 @@ def _paper_models(dev, detail):
         e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
         runs = None if cut is None else {name: ((0, None),) for name in engines}
         serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve", runs=runs)
+        if arch == "llama3_1_8b":
+            t0 = time.perf_counter()
+            obs = _observability(cfg, engines, detail)
+            print("observability, llama3_1_8b full width and depth: " + json.dumps(obs))
+            detail["phase_s"]["8 observability (inside 7)"] = time.perf_counter() - t0
         row = {"generate": e2e, "serve": serve, "cut": cut}
         print(f"paper model {arch} full width" + (f", cut num_layers {cut['num_layers'][0]} -> 2" if cut else
                                                  ", full depth") + ": " + json.dumps(row))
@@ -1947,6 +2028,223 @@ def _paper_models(dev, detail):
         del engines, e2e, serve
         torch.cuda.empty_cache()
     detail["paper_models"] = {arch: {"cut": row["cut"]} for arch, row in out.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: observability (inside phase 7, on llama3_1_8b's engines)
+# ---------------------------------------------------------------------------
+def _check_trace_tool():
+    """``tools/check_trace.py`` of this checkout (it imports no JAX)."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "tools" / "check_trace.py"
+    spec = importlib.util.spec_from_file_location("check_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quantized_params(cfg):
+    """The weights the packed policy quantizes: every layer's 4 attention
+    and 3 MLP linears (a dense model: one layer group)."""
+    d, hd = cfg.d_model, cfg.hd
+    per_layer = 2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd + 3 * d * cfg.d_ff
+    return 7, cfg.num_layers * per_layer
+
+
+def _audit_full_width(cfg, eng):
+    """Phase 8 (a): ``Engine.quant_audit`` of the W4 + KV engine on the card,
+    with metrics and trace sinks; then layer 0's wq and down audited again
+    on the CPU from the same raw and packed tensors."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.obs.numerics import razer_audit, validate_report
+
+    reg, tracer = MetricsRegistry(), Tracer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = eng.quant_audit(model=cfg.name, metrics=reg, trace=tracer)
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    roll = rep["rollups"]
+    assert validate_report(rep) == [], validate_report(rep)
+    n_paths, n_params = _quantized_params(cfg)
+    assert (roll["layers_audited"], roll["params_quantized"]) == (n_paths, n_params), roll
+    assert roll["max_drift"] == 0.0, roll["max_drift"]
+    assert all(l["entries"] == cfg.num_layers and l["container"] == "PackedRazerWeight" for l in rep["layers"])
+    assert len([e for e in tracer.events if e[1] == "quant_audit"]) == n_paths
+    select = [sum(l["sv"]["select_hist"][i] for l in rep["layers"]) for i in range(4)]
+    spec = eng.policy.weight
+    layer_raw, layer_packed = eng._raw_params["layers_0"][0], eng.params["layers_0"][0]
+    card_vs_cpu = {}
+    for group, name in (("mixer", "wq"), ("mlp", "down")):
+        raw, packed = layer_raw[group][name], layer_packed[group][name]
+        t1 = time.perf_counter()
+        card = razer_audit(packed, raw, spec)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cpu = razer_audit(packed.to("cpu"), raw.cpu(), spec)
+        cpu_s = time.perf_counter() - t1
+        assert card["drift_max_abs"] == cpu["drift_max_abs"] == 0.0
+        for key, want in cpu.items():
+            got = card[key]
+            floats = {k for k, v in (want.items() if isinstance(want, dict) else ()) if isinstance(v, float)}
+            if isinstance(want, float):
+                assert abs(got - want) <= 1e-7 * abs(want), (name, key, got, want)
+            elif floats:
+                assert {k: v for k, v in got.items() if k not in floats} == \
+                    {k: v for k, v in want.items() if k not in floats}, (name, key)
+                assert all(abs(got[k] - want[k]) <= 1e-7 * abs(want[k]) for k in floats), (name, key, got, want)
+            else:
+                assert got == want, (name, key, got, want)
+        card_vs_cpu[f"layers_0/{group}/{name}"] = {"shape": list(raw.shape), "card_s": card_s, "cpu_s": cpu_s,
+                                                  "sqnr_db": card["sqnr_db"], "cpu_sqnr_db": cpu["sqnr_db"]}
+    return {"audit_s": audit_s, "layers_audited": roll["layers_audited"],
+            "params_quantized": roll["params_quantized"], "wire_bytes": roll["wire_bytes"],
+            "sv_block_rate": roll["sv_block_rate"], "min_sqnr_db": roll["min_sqnr_db"],
+            "mean_sqnr_db": roll["mean_sqnr_db"], "worst_layer": roll["worst_layer"], "max_drift": roll["max_drift"],
+            "clipped_blocks": roll["clipped_blocks"], "underflow_blocks": roll["underflow_blocks"],
+            "select_hist_pm_m0_pm_m1": select,
+            "per_layer": {l["path"]: {"sqnr_db": l["sqnr_db"], "sv_block_rate": l["sv"]["block_rate"],
+                                      "select_hist": l["sv"]["select_hist"]} for l in rep["layers"]},
+            "metrics_series": sum(len(m.series_keys()) for m in reg), "card_vs_cpu": card_vs_cpu}
+
+
+def _timed_kv_auditor():
+    """A ``KVAuditor(sample_every=1)`` that also sums the seconds its hook
+    takes, the device synchronized on both sides: the KV audit's own cost
+    per prefill."""
+    from repro_torch.obs import KVAuditor
+
+    class TimedKVAuditor(KVAuditor):
+        seconds = 0.0
+
+        def observe_prefill(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().observe_prefill(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+
+    return TimedKVAuditor(sample_every=1)
+
+
+def _observed_serve(cfg, eng, k, obs):
+    """One phase 4c serve (8 requests, 4 slots, 16 new tokens) of ``eng``
+    with ``obs`` in {"off", "metrics_trace", "kv_audit"} (the last adds the
+    KV audit to metrics and trace), launch counts exact.  Returns (report,
+    row, registry, tracer, auditor)."""
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving.pagepool import PagePoolConfig
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    n_new, slots, max_len, ps = 16, 4, 256, 16
+    reg = tracer = auditor = None
+    if obs != "off":
+        reg, tracer = MetricsRegistry(), Tracer()
+    if obs == "kv_audit":
+        auditor = _timed_kv_auditor()
+    torch.cuda.synchronize()
+    _reset_counts()
+    rep = eng.serve(_serve_requests(cfg, n_new), sched_cfg=SchedulerConfig(max_slots=slots),
+                    pool_cfg=PagePoolConfig(num_pages=slots * (max_len // ps), page_size=ps, max_len=max_len),
+                    speculate_k=k, draft_policy="bf16" if k else None, metrics=reg, trace=tracer, kv_audit=auditor)
+    torch.cuda.synchronize()
+    counts = _main_path_counts()
+    want = _serve_want(cfg, 1, eng.policy, _serve_prefill_m(eng, rep.requests), rep.decode_steps, k,
+                       rep.draft_steps, slots)
+    assert counts == want, (obs, k, counts, want)
+    row = {"tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time, "decode_steps": rep.decode_steps,
+           "wall_ms_per_decode_step": rep.wall_time * 1e3 / rep.decode_steps}
+    return rep, row, reg, tracer, auditor
+
+
+def _observed_checks(rep, reg, tracer, auditor, trace_path):
+    """Phase 8 (b)'s assertions on an observed serve; returns its numbers."""
+    snap = reg.snapshot()
+    one = lambda name, key="value": snap[name]["series"][0][key]  # noqa: E731
+    assert one("serve_ttft_seconds", "count") == len(rep.requests) == 8
+    assert one("serve_tokens_total") == rep.new_tokens
+    assert one("serve_decode_step_seconds", "count") == rep.decode_steps
+    live = {s["labels"]["state"]: s["value"] for s in snap["pool_pages"]["series"]}["live"]
+    assert live == one("cache_radix_nodes"), (live, one("cache_radix_nodes"))  # no sequence holds a page
+    tracer.export(trace_path)
+    bad, _ = _check_trace_tool().check_trace(pathlib.Path(trace_path))
+    assert bad == [], bad
+    row = {"decode_step_p50_ms": one("serve_decode_step_seconds", "p50") * 1e3,
+           "decode_step_mean_ms": one("serve_decode_step_seconds", "sum") * 1e3 / rep.decode_steps,
+           "prefill_p50_ms": one("serve_prefill_seconds", "p50") * 1e3,
+           "ttft_p50_s": one("serve_ttft_seconds", "p50"), "trace_events": len(tracer.events),
+           "trace_prefill_span_ms": _span_ms(tracer, "prefill"), "trace_valid": True,
+           **{f"trace_{name}_span_ms": _span_ms(tracer, name) for name in ("decode_step", "draft", "verify")}}
+    if auditor is not None:
+        kv = auditor.snapshot()
+        assert kv["pages_sampled"] > 0 and kv["prefills_seen"] == one("serve_prefill_seconds", "count"), kv
+        row.update(kv_sqnr_db=kv["sqnr_db"], kv_max_abs_err=kv["max_abs_err"], kv_pages_sampled=kv["pages_sampled"],
+                   kv_tokens_sampled=kv["tokens_sampled"], kv_prefills=kv["prefills_seen"],
+                   kv_audit_ms_per_prefill=auditor.seconds * 1e3 / kv["prefills_seen"])
+    return row
+
+
+def _profiled_serve(cfg, eng):
+    """Phase 8 (c): a short serve (2 requests, 2 new tokens: prefills and
+    one decode step) under ``profile_dir``; its Chrome trace must name K1's,
+    K4's, K9's and K10's kernels."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.prefill_attention import kernel_names
+
+    out = tempfile.mkdtemp(prefix="serve_profile_")
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        rep = eng.serve(_serve_requests(cfg, 2)[:2], profile_dir=out)
+        wall_s = time.perf_counter() - t0
+        _main_path_counts()
+        path = pathlib.Path(out) / "serve_trace.json"
+        names = {e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]}
+        want = {"K1": "gemm_kernel<K1", "K4": "paged_kv_attention_kernel", "K10": "rms_norm_kernel",
+                "K9": kernel_names(cfg.cdtype)[-1]}
+        found = {k: sorted(n for n in names if tag in n)[:2] for k, tag in want.items()}
+        assert all(found.values()), found
+        return {"trace_bytes": path.stat().st_size, "events": len(names), "kernels_named": found,
+                "wall_s": wall_s, "new_tokens": rep.new_tokens}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _observability(cfg, engines, detail):
+    """Phase 8 on llama3_1_8b at full width and depth (phase 7's engines):
+    (a) the audit, (b) observed serves against the same engine's serve with
+    observability off, vanilla and speculate_k=2, (c) a profiled serve."""
+    eng = engines["w4_kv"]
+    out = {"audit": _audit_full_width(cfg, eng)}
+    trace_path = os.path.join(os.environ.get("TMPDIR", "/tmp"), "phase8_serve_trace.json")
+    # vanilla: off, on, on, off, so that a drift of the host's speed over
+    # the runs shows; speculative once, with everything on, against the
+    # vanilla tokens (speculative == vanilla is asserted in phase 7)
+    base = None
+    for k, modes in ((0, ("off", "metrics_trace", "kv_audit", "off")), (2, ("kv_audit",))):
+        rows = {}
+        for obs in modes:
+            rep, row, reg, tracer, auditor = _observed_serve(cfg, eng, k, obs)
+            if base is None:
+                base = rep.outputs
+            assert rep.outputs == base, ("tokens moved with observability on", k, obs)
+            if obs != "off":
+                row.update(_observed_checks(rep, reg, tracer, auditor, trace_path))
+            rows.setdefault(obs, []).append(row)
+        out[f"serve_k{k}"] = {obs: {"wall_ms_per_decode_step": [r["wall_ms_per_decode_step"] for r in rs],
+                                    "tokens_per_s": [r["tokens_per_s"] for r in rs], "runs": rs}
+                              for obs, rs in rows.items()}
+    eng._spec_cache.clear()  # free the draft tree
+    if os.path.exists(trace_path):
+        os.remove(trace_path)
+    out["profile"] = _profiled_serve(cfg, eng)
+    detail["observability"] = out
     return out
 
 
@@ -2112,15 +2410,29 @@ def _run_serve(eng, cfg, k=0, draft=None):
     return row
 
 
+def _meshless_llama_refs(cfg, engines, dev):
+    """6b's meshless references from the cut-depth engines of phases 4e and
+    4f (the same seed-0 weights the ranks draw): each policy's prefill
+    logits, generate of phase 4's prompts and of phase 4c's serve prompts,
+    and the W4 float32 prefill logits."""
+    prompts = _generate_prompts(cfg)
+    refs = {"f32_prefill_logits": _f32_prefill_logits(engines["w4_kv"]._raw_params, cfg, prompts, device=dev)}
+    for name, eng in engines.items():
+        refs[name] = {"prefill_logits": _prefill_logits(eng, prompts), "generate": eng.generate(prompts),
+                      "generate_serve_prompts": eng.generate([r.prompt for r in _serve_requests(cfg, 16)],
+                                                             max_new_tokens=16)}
+    return refs
+
+
 def _rank_llama(mesh):
-    """Rank side of 6b: full-width llama3_2_3b on the (1, 2) mesh under both
-    policies: prefill logits, generate, vanilla serve, and under W4 + KV
-    serve(speculate_k=2) with the bf16 draft."""
-    from repro_torch.configs import get_config
+    """Rank side of 6b: llama3_2_3b at full width cut to LLAMA_CUT_LAYERS
+    on the (1, 2) mesh under both policies: prefill logits, generate,
+    vanilla serve, and under W4 + KV serve(speculate_k=2) with the bf16
+    draft."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
-    cfg = get_config("llama3_2_3b")
+    cfg = _llama_cut_cfg()
     raw = init_params(cfg, seed=0, device=mesh.device)
     out = {}
     for name, policy in _policies().items():
@@ -2312,24 +2624,27 @@ def _check_ranks_agree(ranks, key):
         assert r[key]["outputs"] == ranks[0][key]["outputs"], f"{key}: ranks disagree on tokens"
 
 
-def _parallel_llama(cfg, detail, f32_ref):
-    """6b: full-width llama3_2_3b (28 layers) on the (1, 2) mesh, two ranks
-    on one card over gloo, every packed linear K-sharded (K7); each rank's
-    K-sharded linears are held to K1's bound (``_mesh_linear_check``).
-    ``f32_ref``: the meshless W4 float32 prefill logits, against which the
-    mesh's difference is reported with the bf16 ones."""
+def _parallel_llama(cfg, detail, refs):
+    """6b: llama3_2_3b at full width cut to LLAMA_CUT_LAYERS (``cfg``) on
+    the (1, 2) mesh, two ranks on one card over gloo, every packed linear
+    K-sharded (K7); each rank's K-sharded linears are held to K1's bound
+    (``_mesh_linear_check``).  ``refs``: the meshless engine's outputs at
+    the same depth (``_meshless_llama_refs``), against which the mesh's
+    logits and tokens are reported."""
+    f32_ref = refs["f32_prefill_logits"]
     ranks = _spawn_ranks("llama")
     for r in ranks:
         assert r["linear_check"]["worst_err_over_bound"] <= 1.0, ("tp2 linear vs K1", r["linear_check"])
     f32_diff = float((ranks[0]["f32_prefill_logits"] - f32_ref).abs().max())
     out = {"mesh": [1, 2], "backend": "gloo, both ranks on cuda:0; collectives staged through host memory "
                                       "(their times are no measure of NCCL)",
+           "cut": {"num_layers": [28, cfg.num_layers]},
            "linear_check": [r["linear_check"] for r in ranks],
            "w4_f32_max_abs_logit_diff_vs_meshless": f32_diff,
            "w4_f32_max_abs_logit_meshless": float(f32_ref.abs().max())}
     for name, policy in _policies().items():
         res = {"max_abs_logit_diff_vs_meshless": float((ranks[0][name]["prefill_logits"]
-                                                        - MESHLESS[(cfg.name, name, "prefill_logits")]).abs().max())}
+                                                        - refs[name]["prefill_logits"]).abs().max())}
         for r in ranks[1:]:
             assert torch.equal(r[name]["prefill_logits"], ranks[0][name]["prefill_logits"]), "ranks' logits differ"
         _check_ranks_agree([r[name] for r in ranks], "generate")
@@ -2341,7 +2656,7 @@ def _parallel_llama(cfg, detail, f32_ref):
             _main_path_counts(gen["counts"])
         gen = ranks[0][name]["generate"]
         res["generate"] = {**_summary(gen), "share_equal_to_meshless_generate":
-                           _share_equal(gen["outputs"], MESHLESS[(cfg.name, name, "generate")]),
+                           _share_equal(gen["outputs"], refs[name]["generate"]),
                            "per_rank_peak_memory_bytes": [r[name]["generate"]["peak_memory_bytes"] for r in ranks],
                            "per_rank_collective_s": [r[name]["generate"]["collectives"]["seconds"] for r in ranks]}
         for key in [k for k in ranks[0][name] if k.startswith("serve_k")]:
@@ -2355,7 +2670,7 @@ def _parallel_llama(cfg, detail, f32_ref):
             run = ranks[0][name][key]
             res[key] = {**_summary(run),
                         "share_equal_to_meshless_generate": _share_equal(
-                            run["outputs"], MESHLESS[(cfg.name, name, "generate_serve_prompts")]),
+                            run["outputs"], refs[name]["generate_serve_prompts"]),
                         "per_rank_peak_memory_bytes": [r[name][key]["peak_memory_bytes"] for r in ranks],
                         "per_rank_collective_s": [r[name][key]["collectives"]["seconds"] for r in ranks]}
         out[name] = res
@@ -2501,30 +2816,33 @@ def main() -> int:
     serve = _serve_full_width(cfg, engines, detail)
     print("serve llama3_2_3b full width: " + json.dumps(serve))
     mark("4, 4b, 4c llama3_2_3b generate, paged, serve")
-    print("disaggregated serve llama3_2_3b full width, 2 prefill + 2 decode replicas: "
-          + json.dumps(_disagg(cfg, engines, detail)))
+    cut_cfg = _llama_cut_cfg()
+    cut_engines, _ = _engines(cut_cfg, dev)
+    print(f"disaggregated serve llama3_2_3b full width cut to {cut_cfg.num_layers} layers, 2 prefill + 2 decode "
+          "replicas: " + json.dumps(_disagg(cut_cfg, cut_engines, detail)))
     mark("4f disagg")
-    eng = engines["w4_kv"]
+    eng = cut_engines["w4_kv"]
     short_cfg = eng.scfg
     eng.scfg = dataclasses.replace(short_cfg, max_len=4096)
-    detail["long_context"] = _long_context(cfg, eng)
+    detail["long_context"] = _long_context(cut_cfg, eng)
     long_serve = detail["long_context"]["serve"]
     assert long_serve["share_equal_to_generate"] == 1.0, ("long-context serve != generate",
                                                           long_serve["differs_from_generate"])
-    print("long context llama3_2_3b full width, W4 + KV, max_len 4096: " + json.dumps(detail["long_context"]))
+    print(f"long context llama3_2_3b full width cut to {cut_cfg.num_layers} layers, W4 + KV, max_len 4096: "
+          + json.dumps(detail["long_context"]))
     mark("4e long context")
     print("disaggregated serve of the long requests, W4 + KV, chunk_tokens 512: "
-          + json.dumps(_disagg_long(cfg, eng, detail, detail["long_context"])))
+          + json.dumps(_disagg_long(cut_cfg, eng, detail, detail["long_context"])))
     eng.scfg = short_cfg
-    del eng  # the engines go with ``engines`` below: phase 7 needs the card's memory
+    mesh_refs = _meshless_llama_refs(cut_cfg, cut_engines, dev)
+    del eng, cut_engines  # the mesh ranks share the card
     mark("4f disagg, long requests")
     print("parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width: "
           + json.dumps(_world1_nccl(cfg, engines, detail)))
-    f32_ref = _f32_prefill_logits(engines["w4_kv"]._raw_params, cfg, _generate_prompts(cfg), device=dev)
     del engines
     torch.cuda.empty_cache()
-    print("parallel, llama3_2_3b full width on the (1, 2) mesh, two ranks on one card over gloo: "
-          + json.dumps(_parallel_llama(cfg, detail, f32_ref)))
+    print(f"parallel, llama3_2_3b full width cut to {cut_cfg.num_layers} layers on the (1, 2) mesh, two ranks on "
+          "one card over gloo: " + json.dumps(_parallel_llama(cut_cfg, detail, mesh_refs)))
     mark("6a, 6b mesh llama3_2_3b")
     _dbrx_full_width(dev, detail)
     mark("4d dbrx_132b")

@@ -12,7 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .formats import FP4_MAX, FP4_VALUES, positive_format_values, round_to_values
+from .formats import FP4_MAX, FP4_VALUES, device_constant, positive_format_values, round_to_values
 
 __all__ = ["BlockQuantized", "block_reshape", "block_unreshape", "nvfp4_quantize"]
 
@@ -58,6 +58,15 @@ def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a / torch.where(b == 0, torch.ones_like(b), b)
 
 
+def _tensor_scale_divisor(scale_grid_max: float, device) -> torch.Tensor:
+    """``scale_grid_max * 6`` as a float32 tensor on ``device``, the divisor
+    of the default tensor scale.  A tensor, not a Python number: CUDA
+    divides by a CPU scalar as a multiply by its reciprocal, which can land
+    one ulp off the quotient, and so off the reference's (and the CPU's)
+    tensor scale and wire bytes."""
+    return device_constant(np.array([scale_grid_max * FP4_MAX], np.float32), device).reshape(())
+
+
 def _block_scales(xb: torch.Tensor, scale_fmt: str, elem_max: float, tensor_scale) -> torch.Tensor:
     """Eq. 2: per-block scale rounded onto the positive scale grid; a nonzero
     block whose scale rounds to 0 gets the grid's smallest positive value."""
@@ -77,7 +86,7 @@ def nvfp4_quantize(x: torch.Tensor, *, block_size: int = 16, scale_fmt: str = "e
     xb = block_reshape(x, block_size, axis)
     scale_grid_max = float(positive_format_values(scale_fmt)[-1])
     if tensor_scale is None:
-        tensor_scale = x.abs().amax() / (scale_grid_max * FP4_MAX)
+        tensor_scale = x.abs().amax() / _tensor_scale_divisor(scale_grid_max, x.device)
         tensor_scale = torch.where(tensor_scale == 0, torch.ones_like(tensor_scale), tensor_scale)
     d8 = _block_scales(xb, scale_fmt, FP4_MAX, tensor_scale)
     scaled = _safe_div(xb, (tensor_scale * d8)[..., None])

@@ -25,6 +25,7 @@ __all__ = [
     "unpack_fp4_codes",
     "pack_scale_meta",
     "unpack_scale_meta",
+    "unpack_scale_meta_fields",
     "PackedRazerWeight",
     "PackedStackedTensor",
     "pack_weight",
@@ -84,6 +85,20 @@ def unpack_scale_meta(byte: torch.Tensor, *, weight: bool = True,
         scale = device_constant(positive_format_values("e4m3"), dev)[(byte & 0x7F).long()]
         sv = sv_magnitudes[0] * torch.where((byte >> 7) == 1, -1.0, 1.0)
     return scale, sv.to(torch.float32)
+
+
+def unpack_scale_meta_fields(byte: torch.Tensor, *, weight: bool = True):
+    """byte -> (scale_code, sv_select, sv_sign), the raw bit fields.
+
+    The numerics audit's read path (``obs.numerics``): the scale CODE for
+    the clipping/underflow counts (code 0 is the grid minimum, the top code
+    the grid maximum) and the SV select/sign bits for the per-block remap
+    histogram.  Activation bytes have no select bit (a single pair): select
+    is returned as 0."""
+    if weight:
+        meta = byte >> 6
+        return byte & 0x3F, (meta >> 1) & 1, meta & 1
+    return byte & 0x7F, torch.zeros_like(byte), byte >> 7
 
 
 @dataclass

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .formats import FP4_MAX, FP4_VALUES, positive_format_values, round_to_values
-from .nvfp4 import BlockQuantized, _block_scales, _safe_div, block_reshape
+from .nvfp4 import BlockQuantized, _block_scales, _safe_div, _tensor_scale_divisor, block_reshape
 
 __all__ = [
     "WEIGHT_SPECIAL_VALUES",
@@ -81,7 +81,7 @@ def razer_quantize(
     xb = block_reshape(x, block_size, axis)
     scale_grid_max = float(positive_format_values(scale_fmt)[-1])
     if tensor_scale is None:
-        tensor_scale = x.abs().amax() / (scale_grid_max * FP4_MAX)
+        tensor_scale = x.abs().amax() / _tensor_scale_divisor(scale_grid_max, x.device)
         tensor_scale = torch.where(tensor_scale == 0, torch.ones_like(tensor_scale), tensor_scale)
     d8 = _block_scales(xb, scale_fmt, FP4_MAX, tensor_scale)
     scaled = _safe_div(xb, (tensor_scale * d8)[..., None])

@@ -8,17 +8,20 @@ its container type, ``moe_forward`` a packed bank by its stacked type; under
 W4A4 the matmul kernel receives the activation spec and fake-quantizes x
 itself.  A format that can be split over a serving mesh names how a rank
 takes its shard of a packed weight (``shard_packed_fn``, a K/tp shard) and
-of a stacked bank (``shard_stacked_fn``, an E/ep x K/tp tile).  The port
-registers ``razer`` (packed, with kernels) and ``nvfp4`` (quantize only:
-the default draft format of speculative serving).
+of a stacked bank (``shard_stacked_fn``, an E/ep x K/tp tile).  A format
+may name its numerics audit (``audit_fn``, ``obs.numerics``); one that does
+not is audited by ``obs.numerics.generic_audit``.  The port registers
+``razer`` (packed, with kernels and its wire-byte audit) and ``nvfp4``
+(quantize only: the default draft format of speculative serving).
 """
 from __future__ import annotations
 
 import inspect
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
-__all__ = ["FormatEntry", "register_format", "get_format", "packed_entry", "grouped_entry", "spec_kwargs"]
+__all__ = ["FormatEntry", "register_format", "unregister_format", "get_format", "format_names", "packed_entry",
+           "grouped_entry", "spec_kwargs"]
 
 
 @dataclass(frozen=True)
@@ -40,6 +43,10 @@ class FormatEntry:
     shard_stacked_fn: Optional[Callable] = None  # (bank, ep, ep_index, tp, tp_index) -> tile
     kshard_matmul_kernel: Optional[Callable] = None  # (x (.., K/tp), shard, group, act=None) -> (.., N/tp)
     kshard_grouped_matmul_kernel: Optional[Callable] = None  # (x (E, M, K/tp), tile, group) -> (E, M, N/tp)
+    # numerics audit: fn(obj, ref, spec, axis=...) with ``obj`` the format's
+    # packed container(s) or a raw weight and ``ref`` the reference weight
+    # (or None) -> a JSON-able dict of code-usage / error / drift stats
+    audit_fn: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, FormatEntry] = {}
@@ -49,15 +56,20 @@ def register_format(name: str, quantize_fn: Callable, pack_fn=None, matmul_kerne
                     act_kernel=None, *, packed_type=None, pack_stacked_fn=None,
                     grouped_matmul_kernel=None, packed_stacked_type=None, shard_packed_fn=None,
                     shard_stacked_fn=None, kshard_matmul_kernel=None,
-                    kshard_grouped_matmul_kernel=None) -> FormatEntry:
+                    kshard_grouped_matmul_kernel=None, audit_fn=None) -> FormatEntry:
     entry = FormatEntry(name=name, quantize=quantize_fn, pack_fn=pack_fn,
                         matmul_kernel=matmul_kernel, act_kernel=act_kernel, packed_type=packed_type,
                         pack_stacked_fn=pack_stacked_fn, grouped_matmul_kernel=grouped_matmul_kernel,
                         packed_stacked_type=packed_stacked_type, shard_packed_fn=shard_packed_fn,
                         shard_stacked_fn=shard_stacked_fn, kshard_matmul_kernel=kshard_matmul_kernel,
-                        kshard_grouped_matmul_kernel=kshard_grouped_matmul_kernel)
+                        kshard_grouped_matmul_kernel=kshard_grouped_matmul_kernel, audit_fn=audit_fn)
     _REGISTRY[name] = entry
     return entry
+
+
+def unregister_format(name: str) -> None:
+    """Remove a format (tests register throwaway formats)."""
+    _REGISTRY.pop(name, None)
 
 
 def get_format(name: str) -> FormatEntry:
@@ -65,6 +77,10 @@ def get_format(name: str) -> FormatEntry:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown quantization format {name!r}; registered: {sorted(_REGISTRY)}") from None
+
+
+def format_names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
 
 
 def packed_entry(obj) -> Optional[FormatEntry]:
@@ -173,6 +189,13 @@ def _razer_kshard_grouped_matmul(x, pst, group):
     return ops.razer_grouped_matmul_kshard(x, pst, group=group)
 
 
+def _razer_audit(obj, ref, spec, axis: int = 0):
+    # lazy: repro_torch.obs imports repro_torch.core
+    from repro_torch.obs.numerics import razer_audit
+
+    return razer_audit(obj, ref, spec, axis=axis)
+
+
 def _razer_act_qdq(x, spec):
     if not _razer_kernels_take(spec):
         return spec.qdq(x, axis=-1)
@@ -192,7 +215,7 @@ def _register_builtins() -> None:
                     pack_stacked_fn=_razer_pack_stacked, grouped_matmul_kernel=_razer_grouped_matmul,
                     packed_stacked_type=PackedStackedTensor, shard_packed_fn=_razer_shard_packed,
                     shard_stacked_fn=_razer_shard_stacked, kshard_matmul_kernel=_razer_kshard_matmul,
-                    kshard_grouped_matmul_kernel=_razer_kshard_grouped_matmul)
+                    kshard_grouped_matmul_kernel=_razer_kshard_grouped_matmul, audit_fn=_razer_audit)
 
 
 _register_builtins()

@@ -18,17 +18,13 @@ by the MEASURED duration.  Hence:
   ``wall_time`` is the simulated makespan.
 
 On the card each worker's step ends with its device work done before the
-orchestrator reads the clock (``workers._sync``), so a duration covers the
+orchestrator reads the clock (``device.sync``), so a duration covers the
 kernels, not their launch.
 
 A completed prefill's ``PageShipment`` becomes insertable on its decode
 replica at ``completion + nbytes * 8 / (transfer_gbps * 1e9)``
 (instantaneous by default).  Shipping RaZeR wire pages costs 4.5/16 of bf16
 KV: the report's ``transfer_ratio``.
-
-Not ported yet: the ``metrics`` registry of the reference's
-``serve_disagg`` (the port has no ``MetricsRegistry``; passing ``metrics=``
-raises ``TypeError``).
 """
 from __future__ import annotations
 
@@ -39,8 +35,9 @@ from repro_torch.obs import NULL_TRACER, Clock, percentile
 from repro_torch.parallel.sharding import sharding_ctx
 
 from ..engine import ServeReport
-from ..pagepool import PagePoolConfig
-from .router import Placement, Router
+from ..pagepool import PagePoolConfig, install_pool_metrics
+from ..prefixcache import install_cache_metrics
+from .router import Placement, Router, install_router_metrics
 from .workers import DecodeWorker, PrefillWorker
 
 __all__ = ["DisaggConfig", "DisaggReport", "serve_disagg"]
@@ -123,7 +120,7 @@ class DisaggReport(ServeReport):
 
 
 def serve_disagg(engine, requests, *, cfg: Optional[DisaggConfig] = None, max_new_tokens: Optional[int] = None,
-                 clock=None, trace=None, **knobs) -> DisaggReport:
+                 clock=None, trace=None, metrics=None, **knobs) -> DisaggReport:
     """Serve a request stream on a disaggregated prefill/decode fleet.
 
     ``engine`` is a ``serving.Engine``: every replica shares its params and
@@ -145,7 +142,11 @@ def serve_disagg(engine, requests, *, cfg: Optional[DisaggConfig] = None, max_ne
     (an ``obs.Tracer``) records the fleet with VIRTUAL times through
     ``Tracer.complete``: pid 0 the router (``route`` instants), pid 1 the
     prefill replicas (``prefill_chunk`` / ``ship``, one tid per wid), pid 2
-    the decode replicas (``insert`` / ``decode_step`` / ``retire``)."""
+    the decode replicas (``insert`` / ``decode_step`` / ``retire``).
+    ``metrics`` (an ``obs.MetricsRegistry``) exports per-replica pool and
+    cache occupancy labelled by stage and replica, the router's load, the
+    latency histograms and token counters under stage ``disagg``, the
+    shipment and transfer-byte counters and each stage's busy seconds."""
     cfg = dataclasses.replace(cfg or DisaggConfig(), **knobs)
     n_new = max_new_tokens or engine.scfg.max_new_tokens
     reqs = engine._as_requests(requests, n_new)
@@ -170,6 +171,14 @@ def serve_disagg(engine, requests, *, cfg: Optional[DisaggConfig] = None, max_ne
             tracer.set_track(1, w.wid, process="prefill", thread=f"prefill/{w.wid}")
         for d in dws:
             tracer.set_track(2, d.wid, process="decode", thread=f"decode/{d.wid}")
+    if metrics is not None:
+        for w in pws:
+            install_pool_metrics(metrics, w.pool, stage="prefill", replica=str(w.wid))
+            if w.cache is not None:
+                install_cache_metrics(metrics, w.cache, stage="prefill", replica=str(w.wid))
+        for d in dws:
+            install_pool_metrics(metrics, d.pool, stage="decode", replica=str(d.wid))
+        install_router_metrics(metrics, router)
 
     # arrival order (FIFO on ties, as the single-engine scheduler)
     waiting = sorted(reqs, key=lambda r: (r.arrival, r.rid))
@@ -248,7 +257,7 @@ def serve_disagg(engine, requests, *, cfg: Optional[DisaggConfig] = None, max_ne
                                    new_tokens=len(req.out_tokens))
 
     wall = max([w.t for w in pws] + [d.t for d in dws], default=0.0)
-    return DisaggReport(
+    report = DisaggReport(
         requests=reqs, wall_time=wall, new_tokens=sum(len(r.out_tokens) for r in reqs),
         decode_steps=sum(d.decode_steps for d in dws), prefill_tokens=sum(w.prefill_tokens for w in pws),
         peak_pages=sum(w.peak_pages for w in pws) + sum(d.peak_pages for d in dws),
@@ -265,3 +274,11 @@ def serve_disagg(engine, requests, *, cfg: Optional[DisaggConfig] = None, max_ne
         router_prompt_tokens=router.prompt_tokens, prefill_busy=sum(w.busy for w in pws),
         decode_busy=sum(d.busy for d in dws),
     )
+    if metrics is not None:
+        report.observe_into(metrics, stage="disagg")
+        metrics.counter("disagg_shipments_total", "KV page shipments prefill -> decode").inc(report.shipments)
+        metrics.counter("disagg_transfer_bytes_total", "Wire-format bytes shipped").inc(report.transfer_bytes)
+        busy = metrics.gauge("stage_busy_seconds", "Measured compute seconds per stage", labels=("stage",))
+        busy.set(report.prefill_busy, stage="prefill")
+        busy.set(report.decode_busy, stage="decode")
+    return report

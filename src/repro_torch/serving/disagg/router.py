@@ -173,8 +173,8 @@ class Router:
 
     def snapshot(self) -> Dict[str, object]:
         """JSON-able routing state: totals plus per-replica load and view
-        size (what a debugging session wants to see in one look; the
-        metrics installer waits for the port's metrics registry)."""
+        size (what ``install_router_metrics`` exports, and what a debugging
+        session wants to see in one look)."""
         return {
             "placements": self.placements,
             "predicted_hit_tokens": self.predicted_hit_tokens,
@@ -184,3 +184,26 @@ class Router:
             "decode_load": list(self.decode_load),
             "view_chunks": [v.n_chunks for v in self.views],
         }
+
+
+def install_router_metrics(registry, router: Router) -> None:
+    """Export a router's placement stats and per-replica load into a
+    ``MetricsRegistry``.  Everything is function-backed (read at collection
+    time); the placement path never touches a metric."""
+    for name, help_, fn in (
+        ("router_placements", "Requests placed", lambda: router.placements),
+        ("router_predicted_hit_tokens", "Prompt tokens the replica views predicted cached",
+         lambda: router.predicted_hit_tokens),
+        ("router_prompt_tokens", "Prompt tokens routed", lambda: router.prompt_tokens),
+    ):
+        registry.gauge(name, help_).set_function(fn)
+    load = registry.gauge("router_replica_load",
+                          "Queued prompt tokens (prefill) / resident requests (decode) per replica",
+                          labels=("stage", "replica"))
+    chunks = registry.gauge("router_view_chunks", "Mirrored radix chunks per prefill replica view",
+                            labels=("replica",))
+    for i in range(len(router.prefill_load)):
+        load.set_function(lambda i=i: router.prefill_load[i], stage="prefill", replica=str(i))
+        chunks.set_function(lambda i=i: router.views[i].n_chunks, replica=str(i))
+    for i in range(len(router.decode_load)):
+        load.set_function(lambda i=i: router.decode_load[i], stage="decode", replica=str(i))

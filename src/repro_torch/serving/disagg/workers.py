@@ -23,8 +23,8 @@ staging:
 
 Workers are clock-agnostic: the orchestrator measures each ``step()`` and
 advances per-worker virtual clocks.  On the card every step ends with its
-device work done (see ``_sync``), so a measured duration covers the kernels
-and not only their launch.
+device work done (``device.sync``), so a measured duration covers the
+kernels and not only their launch.
 """
 from __future__ import annotations
 
@@ -33,20 +33,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.device import sync
+
 from ..pagepool import KVPagePool, PagePoolConfig, PageShipment
 from ..prefixcache import PrefixCache
 from ..scheduler import FINISHED, RUNNING, Request
 
 __all__ = ["PrefillJob", "PrefillWorker", "DecodeWorker"]
-
-
-def _sync(device: torch.device) -> None:
-    """Wait for the device's queued work.  The orchestrator reads its clock
-    right after a step: a step that hands nothing back to the host would
-    otherwise be timed at its launch cost, and the virtual timeline would
-    measure the host, not the card."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass
@@ -152,7 +145,7 @@ class PrefillWorker:
         job.done = end
         self.peak_pages = max(self.peak_pages, self.pool.pages_in_use)
         if job.done < len(req.prompt):
-            _sync(self.pool.device)  # nothing of this chunk comes back to the host: wait for its kernels
+            sync(self.pool.device)  # nothing of this chunk comes back to the host: wait for its kernels
             return None
         first = int(torch.argmax(last[0]))
         shipment = self.pool.export_pages(req.rid, n_tokens=len(req.prompt))
@@ -228,7 +221,7 @@ class DecodeWorker:
                 req.state = RUNNING
                 self.running[req.slot] = req
             self._page_table = None
-        _sync(self.pool.device)  # the imported pages are on the card before the insert is timed
+        sync(self.pool.device)  # the imported pages are on the card before the insert is timed
         self.peak_pages = max(self.peak_pages, self.pool.pages_in_use)
         self.peak_slots = max(self.peak_slots, len(self.running))
         return retired

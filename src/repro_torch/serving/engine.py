@@ -22,6 +22,7 @@ scheduling are replicated, so every rank produces the same tokens.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policy import QuantPolicy, TensorSpec
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, sync
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ArchConfig
 from repro_torch.obs import percentile
@@ -146,6 +147,18 @@ class Engine:
         # speculative decoders keyed by resolved draft policy (draft params
         # are reused across serve() calls)
         self._spec_cache: Dict[Any, Any] = {}
+
+    def quant_audit(self, *, model: Optional[str] = None, metrics=None, trace=None, kv_audit=None):
+        """Per-layer quantization audit of this engine's weights: the
+        ``obs.numerics.audit_model`` report over the dense reference tree
+        and, in packed mode, the wire-format tree the engine serves from
+        (on a mesh, where this rank holds shards, the audit packs the whole
+        tree again), computed on the engine's device."""
+        from repro_torch.obs.numerics import audit_model
+
+        packed = self.params if self.policy.mode == "packed" and self.mesh is None else None
+        return audit_model(self._raw_params, self.policy, packed=packed, model=model, metrics=metrics,
+                           tracer=trace, kv_audit=kv_audit)
 
     @staticmethod
     def _bucket(n: int, cap: Optional[int] = None) -> int:
@@ -308,7 +321,7 @@ class Engine:
     @_on_mesh
     def serve(self, requests, *, sched_cfg=None, pool_cfg=None, max_new_tokens: Optional[int] = None,
               prefix_cache: bool = True, speculate_k: int = 0, draft_policy=None, clock=None,
-              trace=None) -> "ServeReport":
+              trace=None, metrics=None, kv_audit=None, profile_dir: Optional[str] = None) -> "ServeReport":
         """Continuous batching: serve a stream of requests over the paged
         RaZeR-quantized KV pool, decoding a dynamic batch each iteration.
 
@@ -326,15 +339,36 @@ class Engine:
         rolling rejected pages back with ``pool.truncate``; greedy outputs
         stay those of ``speculate_k=0``.
 
-        ``clock`` (an ``obs.Clock``; ``obs.FakeClock`` makes latency stats
-        exact in tests) and ``trace`` (an ``obs.Tracer``) are the
-        observability seams; the metrics registry, ``kv_audit`` and
-        ``profile_dir`` of the JAX engine are not ported yet.
+        Observability, all off by default:
+
+          * ``clock``   -- an ``obs.Clock``; every timestamp and sleep of the
+            loop goes through it (``obs.FakeClock`` makes latency stats
+            exact in tests).  Greedy outputs never depend on it.
+          * ``trace``   -- an ``obs.Tracer``; the loop records the request
+            lifecycle (admit / prefill / decode_step / draft / verify /
+            retire) on the serve-relative timeline.
+          * ``metrics`` -- an ``obs.MetricsRegistry``; pool and cache
+            occupancy export as function-backed gauges, the prefill and
+            decode-step histograms fill as the loop runs, and TTFT /
+            latency / per-token latency and the token counters as requests
+            finish (``ServeReport.observe_into``).
+          * ``kv_audit`` -- an ``obs.KVAuditor``; samples the KV
+            quantization error per page at prefill-write time (read-only:
+            greedy outputs are bit-identical with the hook on or off).
+          * ``profile_dir`` -- bracket the loop with ``torch.profiler``
+            (CPU activity, plus CUDA on the card) and write its Chrome
+            trace into the directory.
+
+        The clock is read where the JAX engine reads it, and only when
+        metrics are on; on the card, with metrics or a trace on, the device
+        is synchronized before a prefill's closing reads, so the prefill
+        histogram and span cover its kernels (a decode step hands its
+        tokens back to the host, which waits for them).
 
         Returns a ``ServeReport``."""
         from repro_torch.obs import NULL_TRACER, Clock
-        from repro_torch.serving.pagepool import KVPagePool, PagePoolConfig
-        from repro_torch.serving.prefixcache import PrefixCache
+        from repro_torch.serving.pagepool import KVPagePool, PagePoolConfig, install_pool_metrics
+        from repro_torch.serving.prefixcache import PrefixCache, install_cache_metrics
         from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
         sched_cfg = sched_cfg or SchedulerConfig()
@@ -352,6 +386,8 @@ class Engine:
             pool_cfg = PagePoolConfig(num_pages=sched_cfg.max_slots * pages_per_seq, page_size=ps,
                                       max_len=self.scfg.max_len)
         pool = KVPagePool(self.cfg, pool_cfg, device=self.device)
+        if kv_audit is not None:
+            pool.set_kv_audit(kv_audit)
         cache = PrefixCache(pool) if prefix_cache else None
         clock = clock if clock is not None else Clock()
         tracer = trace if trace is not None else NULL_TRACER
@@ -370,14 +406,21 @@ class Engine:
             tracer.set_track(tracer.pid, tracer.tid, process="engine", thread="serve")
         if spec is not None:
             spec.clock, spec.tracer = clock, tracer
+        if metrics is not None:
+            install_pool_metrics(metrics, pool)
+            if cache is not None:
+                install_cache_metrics(metrics, cache)
+            metrics.histogram("serve_decode_step_seconds", "Wall seconds per decode step", labels=("stage",))
+            metrics.histogram("serve_prefill_seconds", "Wall seconds per prefill call", labels=("stage",))
         # the cached speculator accumulates stats across serve() calls;
         # report this run's delta against a snapshot
         spec_base = dataclasses.replace(spec.stats) if spec else None
-        decode_steps, prefill_tokens, cached_tokens, peak_pages, peak_slots = self._serve_loop(
-            sched, pool, spec, k, now, clock, tracer)
+        with self._profiler(profile_dir):
+            decode_steps, prefill_tokens, cached_tokens, peak_pages, peak_slots = self._serve_loop(
+                sched, pool, spec, k, now, clock, tracer, metrics)
 
         wall = now()
-        return ServeReport(
+        report = ServeReport(
             requests=reqs, wall_time=wall, new_tokens=sum(len(r.out_tokens) for r in reqs),
             decode_steps=decode_steps, prefill_tokens=prefill_tokens,
             peak_pages=peak_pages, peak_slots=peak_slots,
@@ -393,12 +436,40 @@ class Engine:
             draft_time=spec.stats.draft_time - spec_base.draft_time if spec else 0.0,
             verify_time=spec.stats.verify_time - spec_base.verify_time if spec else 0.0,
         )
+        if metrics is not None:
+            report.observe_into(metrics)
+        return report
+
+    @contextlib.contextmanager
+    def _profiler(self, profile_dir: Optional[str]):
+        """``torch.profiler`` around the serve loop when ``profile_dir`` is
+        given (CPU activity, plus CUDA on the card), its Chrome trace
+        written to ``profile_dir/serve_trace.json``."""
+        if not profile_dir:
+            yield
+            return
+        import os
+
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+            sync(self.device)
+        prof.export_chrome_trace(os.path.join(profile_dir, "serve_trace.json"))
 
     @torch.no_grad()
-    def _serve_loop(self, sched, pool, spec, k: int, now, clock, tracer):
+    def _serve_loop(self, sched, pool, spec, k: int, now, clock, tracer, metrics=None):
         """The continuous-batching event loop (``serve`` owns setup and the
         report).  Returns (decode_steps, prefill_tokens, cached_tokens,
         peak_pages, peak_slots)."""
+        mx = metrics is not None
+        if mx:
+            step_h = metrics.get("serve_decode_step_seconds")
+            prefill_h = metrics.get("serve_prefill_seconds")
+        # a span or histogram must not close before its kernels end
+        wait = (mx or tracer.enabled) and self.device.type == "cuda"
         decode_steps = prefill_tokens = cached_tokens = 0
         peak_pages = peak_slots = 0
         # slot -> pages assignments change only on admission and retirement,
@@ -433,6 +504,8 @@ class Engine:
                     cached_tokens += req.cached_tokens
                     sched.start(req, by_rid[req.dedup_of].out_tokens[0], now())
                     continue
+                if mx:
+                    pt = now()
                 with tracer.span("prefill", rid=req.rid, tokens=len(req.prompt) - req.cached_tokens,
                                  cached=req.cached_tokens):
                     if req.cached_tokens:
@@ -443,6 +516,10 @@ class Engine:
                     else:
                         last, caches = self._serve_prefill(req.prompt)
                         pool.write_prefill(req.rid, caches, len(req.prompt))
+                    if wait:
+                        sync(self.device)
+                if mx:
+                    prefill_h.observe(now() - pt, stage="engine")
                 prefill_tokens += len(req.prompt) - req.cached_tokens
                 cached_tokens += req.cached_tokens
                 sched.start(req, int(torch.argmax(last[0])), now())
@@ -454,13 +531,18 @@ class Engine:
             batch = sched.decode_batch()
             if batch is None:
                 continue
+            if mx:
+                st = now()
             if spec is not None:
                 # draft-k-verify-1 appends and truncates pages every
-                # iteration, so no table is kept across it
+                # iteration, so no table is kept across it (its draft and
+                # verify end with their tokens on the host)
                 spec.decode_iteration(pool, sched, batch, k, now)
                 decode_steps += 1
                 page_table = None
                 peak_pages = max(peak_pages, pool.pages_in_use)
+                if mx:
+                    step_h.observe(now() - st, stage="engine")
                 continue
             seq_ids, tokens, cur_lens = batch
             with tracer.span("decode_step", batch=len(sched.running)):
@@ -468,6 +550,8 @@ class Engine:
                     page_table = pool.page_table(seq_ids)
                 toks = self._paged_decode_step(tokens, pool, page_table, cur_lens)
             decode_steps += 1
+            if mx:
+                step_h.observe(now() - st, stage="engine")
             if sched.post_decode(toks, now()):
                 page_table = None  # a retirement freed a slot
         return decode_steps, prefill_tokens, cached_tokens, peak_pages, peak_slots
@@ -576,3 +660,25 @@ class ServeReport:
     tpot_p50 = property(lambda self: self.tpot_percentile(50))
     tpot_p95 = property(lambda self: self.tpot_percentile(95))
     tpot_p99 = property(lambda self: self.tpot_percentile(99))
+
+    def observe_into(self, registry, stage: str = "engine") -> None:
+        """Feed the per-request latency samples into a ``MetricsRegistry``'s
+        ``serve_ttft_seconds`` / ``serve_latency_seconds`` /
+        ``serve_tpot_seconds`` histograms and bump the token counters: the
+        registry's mirror of the report's exact percentiles.
+        ``DisaggReport`` reuses this per stage."""
+        ttft = registry.histogram("serve_ttft_seconds", "Time to first token", labels=("stage",))
+        lat = registry.histogram("serve_latency_seconds", "Request total latency", labels=("stage",))
+        tpot = registry.histogram("serve_tpot_seconds", "Per-token latency after the first", labels=("stage",))
+        for v in self.ttft_values():
+            ttft.observe(v, stage=stage)
+        for v in self.latency_values():
+            lat.observe(v, stage=stage)
+        for v in self.tpot_values():
+            tpot.observe(v, stage=stage)
+        registry.counter("serve_tokens_total", "Committed new tokens",
+                         labels=("stage",)).inc(self.new_tokens, stage=stage)
+        registry.counter("serve_prefill_tokens_total", "Prompt tokens computed by prefill",
+                         labels=("stage",)).inc(self.prefill_tokens, stage=stage)
+        registry.counter("serve_requests_total", "Requests finished",
+                         labels=("stage",)).inc(len(self.requests), stage=stage)

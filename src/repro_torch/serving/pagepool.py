@@ -24,8 +24,9 @@ which the decode step updates in place.  Allocation
 
 ``export_pages`` / ``import_pages`` move a sequence's pages between pools as
 a ``PageShipment`` of host tensors in the wire format (disaggregated
-serving, ``serving.disagg``).  Not ported yet: the metrics installer and the
-numerics-audit hook (observability).
+serving, ``serving.disagg``).  ``install_pool_metrics`` exports occupancy and
+allocator traffic into a ``MetricsRegistry``, and ``set_kv_audit`` attaches a
+read-only ``obs.KVAuditor`` to ``write_prefill``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import layer_groups
 
-__all__ = ["NULL_PAGE", "PagePoolConfig", "PageShipment", "KVPagePool"]
+__all__ = ["NULL_PAGE", "PagePoolConfig", "PageShipment", "KVPagePool", "install_pool_metrics"]
 
 NULL_PAGE = 0
 _KV_NAMES = ("k_codes", "k_meta", "v_codes", "v_meta")
@@ -145,8 +146,18 @@ class KVPagePool:
         # prefix, into sequence-private pages
         self._refs: Dict[int, int] = {}
         # listener(event, n_pages), event in {"alloc", "append", "release",
-        # "truncate", "cow_fork"}
+        # "truncate", "cow_fork"}: install_pool_metrics and test probes
         self._listeners: List = []
+        # the numerics-audit hook (obs.KVAuditor): a read-only observer of
+        # prefill K/V, a no-op when None (the default)
+        self._kv_audit = None
+        self._group_sizes = [count for _, count in layer_groups(cfg)]
+
+    def set_kv_audit(self, auditor) -> None:
+        """Attach a ``KVAuditor`` (or None to detach).  The auditor only
+        reads the prefill caches: pool contents and serve outputs are
+        bit-identical with or without it."""
+        self._kv_audit = auditor
 
     def add_listener(self, fn) -> None:
         """Subscribe ``fn(event, n_pages)`` to allocator events."""
@@ -367,6 +378,8 @@ class KVPagePool:
             for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
                 group[name][:, pids, sids] = val[first:first + count]
             first += count
+        if self._kv_audit is not None:
+            self._kv_audit.observe_prefill(seq_id, caches, length, start, ps, group_sizes=self._group_sizes)
 
     # -- wire-format page transfer (serving.disagg) --------------------------
     def export_pages(self, seq_id: Optional[int] = None, *, page_ids: Optional[Sequence[int]] = None,
@@ -447,3 +460,24 @@ class KVPagePool:
         k = kv_dequantize(c["k_codes"][:, pids, sids], c["k_meta"][:, pids, sids], self.cfg.hd)
         v = kv_dequantize(c["v_codes"][:, pids, sids], c["v_meta"][:, pids, sids], self.cfg.hd)
         return k, v
+
+
+def install_pool_metrics(registry, pool: KVPagePool, *, stage: str = "engine", replica: str = "0") -> None:
+    """Export a pool's occupancy and allocator traffic into ``registry``.
+
+    Occupancy is function-backed gauges (``pool_pages{state=...}``,
+    ``pool_refcount_total``): the registry reads the pool at collection
+    time and the allocator never touches a metric.  Allocator traffic
+    (``pool_page_events_total{event=...}``) rides the listener hook.
+    ``stage`` / ``replica`` tell disaggregated fleet members sharing one
+    registry apart; the single engine uses the defaults."""
+    pages = registry.gauge("pool_pages", "KV pool pages by state", labels=("stage", "replica", "state"))
+    pages.set_function(lambda: pool.num_free_pages, stage=stage, replica=replica, state="free")
+    pages.set_function(lambda: pool.pages_in_use, stage=stage, replica=replica, state="live")
+    pages.set_function(lambda: 1, stage=stage, replica=replica, state="null")  # the reserved null page
+    refs = registry.gauge("pool_refcount_total", "Sum of page owner counts (> live pages means prefix sharing)",
+                          labels=("stage", "replica"))
+    refs.set_function(lambda: sum(pool._refs.values()), stage=stage, replica=replica)
+    events = registry.counter("pool_page_events_total", "Allocator events by type (pages moved per event)",
+                              labels=("stage", "replica", "event"))
+    pool.add_listener(lambda event, n: events.inc(n, stage=stage, replica=replica, event=event))

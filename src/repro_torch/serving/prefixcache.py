@@ -1,7 +1,7 @@
 """Prefix cache: a radix tree of page-aligned token chunks over the paged
 RaZeR-quantized KV pool (PyTorch port of ``repro.serving.prefixcache``, pure
-Python and unchanged but for the metrics installer, which comes with the
-observability slice).
+Python and unchanged; ``install_cache_metrics`` exports its stats into a
+``MetricsRegistry``).
 
 Production traffic re-prefills the same prompt prefix constantly -- chat
 system prompts, few-shot templates, agentic loops.  Because the page layout
@@ -313,3 +313,24 @@ class PrefixCache:
             heapq.heappush(self._heap, entry)
         return freed
 
+
+
+def install_cache_metrics(registry, cache: PrefixCache, *, stage: str = "engine", replica: str = "0") -> None:
+    """Export a prefix cache's hit stats and tree size into ``registry``.
+
+    Hit/eviction totals are function-backed gauges reading the cache's own
+    counters at collection time (the match/evict paths never touch a
+    metric); publish/evict traffic also rides the listener hook as
+    ``cache_events_total{event=...}``.  ``stage`` / ``replica`` tell
+    disaggregated fleet members sharing one registry apart."""
+    for name, help_, fn in (
+        ("cache_radix_nodes", "Live radix tree nodes (cached pages)", lambda: cache.nodes),
+        ("cache_lookups", "Prefix-cache lookups recorded at admission", lambda: cache.lookups),
+        ("cache_hits", "Admissions that reused a cached prefix", lambda: cache.hits),
+        ("cache_hit_tokens", "Prompt tokens served from cached pages", lambda: cache.hit_tokens),
+        ("cache_evictions", "Radix nodes evicted (pages reclaimed)", lambda: cache.evictions),
+    ):
+        registry.gauge(name, help_, labels=("stage", "replica")).set_function(fn, stage=stage, replica=replica)
+    events = registry.counter("cache_events_total", "Radix tree publish/evict events",
+                              labels=("stage", "replica", "event"))
+    cache.add_listener(lambda event, path: events.inc(1, stage=stage, replica=replica, event=event))

@@ -140,8 +140,14 @@ def test_prefill_replica_reuses_its_cache():
 
 
 def test_metrics_is_not_taken_yet():
-    """The metrics registry is not ported: a caller gets an error, not a
-    silent no-op."""
+    """``metrics=`` takes a ``MetricsRegistry`` since the observability
+    slice (``test_torch_obs_disagg.py`` holds its snapshot to the JAX
+    package's); anything else is an error, not a silent no-op."""
+    from repro_torch.obs import MetricsRegistry
+
     _, te = engines("w4_kv", "llama3_2_3b")
-    with pytest.raises(TypeError):
+    with pytest.raises(AttributeError):
         serve_disagg(te, [[1, 2, 3]], max_new_tokens=1, metrics=object())
+    reg = MetricsRegistry()
+    rep = serve_disagg(te, [[1, 2, 3]], max_new_tokens=1, metrics=reg)
+    assert reg.get("disagg_shipments_total").value() == rep.shipments == 1
