@@ -127,7 +127,26 @@ Phases, each printing one line (and failing the run with a traceback):
                 whose Chrome trace names K1's, K4's, K9's and K10's
                 kernels; and in phase 4f serve_disagg(metrics=): the
                 shipment and byte counters == the report's, outputs == the
-                run without metrics.
+                run without metrics;
+  9. toolkit -- the paper's quantization toolkit on llama3_1_8b's raw
+                weights at full width (inside phase 7, after phase 8): (a)
+                the Fig. 3 sweep, the second-pair sweep and
+                select_weight_sv_pairs on layer 0's wq and down, wq's
+                sweeps also on the CPU, which must choose the same pair;
+                (b) calibrate_activation_sv on the inputs of layer 0's
+                linears in a prefill of phase 4's prompts; (c)
+                gptq_quantize of wq and up (RaZeR groups of 16, block 128)
+                on those inputs, its output MSE below round-to-nearest's,
+                and of wq's 512 x 256 corner on the card == on the CPU bit
+                for bit; (d) awq_search of wq
+                under razer, nvfp4 and int4, no worse than alpha 0; (e)
+                two_pass_matmul of wq: W_main + W_comp == dequantize() bit
+                for bit, the two passes == one within rtol 1e-5, B_comp's
+                density; (f) phase 4c's 8 requests under W4 + KV with
+                speculate_k=2 and a fakequant mxfp4 draft: exact launch
+                counts, tokens == phase 7's vanilla serve, the accept rate
+                and tokens/s; and the four baselines' q and scales of layer
+                0's down on the card == on the CPU; each part's seconds.
 Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
 (dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
 shard, permuted, bit for bit; rows bit-identical across M.  Each kernel's
@@ -2021,6 +2040,10 @@ def _paper_models(dev, detail):
             obs = _observability(cfg, engines, detail)
             print("observability, llama3_1_8b full width and depth: " + json.dumps(obs))
             detail["phase_s"]["8 observability (inside 7)"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            toolkit = _toolkit(cfg, engines, detail, dev)
+            print("quantization toolkit, llama3_1_8b full width, layer 0: " + json.dumps(toolkit))
+            detail["phase_s"]["9 quantization toolkit (inside 7)"] = time.perf_counter() - t0
         row = {"generate": e2e, "serve": serve, "cut": cut}
         print(f"paper model {arch} full width" + (f", cut num_layers {cut['num_layers'][0]} -> 2" if cut else
                                                  ", full depth") + ": " + json.dumps(row))
@@ -2245,6 +2268,269 @@ def _observability(cfg, engines, detail):
         os.remove(trace_path)
     out["profile"] = _profiled_serve(cfg, eng)
     detail["observability"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's quantization toolkit (inside phase 7, after phase 8)
+# ---------------------------------------------------------------------------
+BASELINE_QUANTIZERS = ("mxfp4_quantize", "int4_quantize", "nf4_quantize", "fouroversix_quantize")
+
+
+def _timed(fn):
+    """(fn(), seconds), the device synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _layer0_inputs(cfg, eng):
+    """The inputs of layer 0's linears in ``eng``'s prefill of phase 4's 4
+    prompts (8, 15, 23 and 32 tokens, seed 0), the padding rows dropped, as
+    float32 (78, d_in) tensors by the linear that reads them: wq (wk and wv
+    read the same), wo, up (gate reads the same) and down."""
+    from repro_torch.models import attention, layers
+    from repro_torch.models import transformer as tf
+
+    lp = eng.params["layers_0"][0]
+    names = {id(lp[group][name]): name for group, name in (("mixer", "wq"), ("mixer", "wo"), ("mlp", "up"),
+                                                            ("mlp", "down"))}
+    seen = {}
+    real = attention.qlinear
+
+    def recording(x, w, *args, **kwargs):
+        if id(w) in names:
+            seen.setdefault(names[id(w)], x.detach())
+        return real(x, w, *args, **kwargs)
+
+    prompts = _generate_prompts(cfg)
+    lens = [len(p) for p in prompts]
+    toks = np.zeros((len(prompts), 32), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    attention.qlinear = layers.qlinear = tf.qlinear = recording
+    try:
+        eng._bucketed_prefill(toks, np.array(lens), max_len=eng.scfg.max_len, qdq_kv=True)
+    finally:
+        attention.qlinear = layers.qlinear = tf.qlinear = real
+    assert set(seen) == set(names.values()), sorted(seen)
+    return {n: torch.cat([x.reshape(len(lens), 32, -1)[i, :n_tok] for i, n_tok in enumerate(lens)]).float()
+            for n, x in seen.items()}
+
+
+def _gap(errors):
+    """(best, second best) of a {magnitude: error} dict and their gap, also
+    relative to the best."""
+    (m0, e0), (m1, e1) = sorted(errors.items(), key=lambda kv: kv[1])[:2]
+    return {"best": m0, "second": m1, "gap": e1 - e0, "gap_relative": (e1 - e0) / e0}
+
+
+def _sweeps(w):
+    """The Fig. 3 sweep of one SV pair over the default magnitudes and the
+    second-pair sweep on top of the best: (first, second, their seconds)."""
+    from repro_torch.core.calibration import DEFAULT_SV_MAGNITUDES, sv_pair_sweep
+
+    first, first_s = _timed(lambda: sv_pair_sweep(w))
+    m0 = min(first, key=first.get)
+    second, second_s = _timed(lambda: sv_pair_sweep(w, [m for m in DEFAULT_SV_MAGNITUDES if m != m0],
+                                                    base_pairs=(m0,)))
+    return first, second, first_s, second_s
+
+
+def _sv_calibration(w, on_cpu_too=False):
+    """Phase 9 (a): the two sweeps and ``select_weight_sv_pairs``, which
+    must choose their minima; with ``on_cpu_too`` the CPU sweeps the same
+    weight and must choose the same pair."""
+    from repro_torch.core.calibration import select_weight_sv_pairs
+
+    first, second, first_s, second_s = _sweeps(w)
+    pair, select_s = _timed(lambda: select_weight_sv_pairs(w))
+    assert pair == (min(first, key=first.get), min(second, key=second.get)), (pair, first, second)
+    assert all(v <= 1.0 + 1e-6 for v in list(first.values()) + list(second.values())), (first, second)  # vs NVFP4
+    out = {"shape": list(w.shape), "pair": list(pair), "sweep": first, "second_sweep": second,
+           "first_gap": _gap(first), "second_gap": _gap(second), "sweep_s": first_s, "second_sweep_s": second_s,
+           "select_s": select_s}
+    if on_cpu_too:
+        t0 = time.perf_counter()
+        cpu_first, cpu_second, _, _ = _sweeps(w.cpu())
+        cpu_pair = (min(cpu_first, key=cpu_first.get), min(cpu_second, key=cpu_second.get))
+        assert cpu_pair == pair, ("the card and the CPU choose different SV pairs", pair, cpu_first, cpu_second)
+        rel = [abs(a[m] - b[m]) / b[m] for a, b in ((first, cpu_first), (second, cpu_second)) for m in b]
+        out["cpu"] = {"pair": list(cpu_pair), "max_rel_diff_vs_card": max(rel), "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _activation_calibration(samples):
+    """Phase 9 (b): ``calibrate_activation_sv`` on layer 0's linear inputs,
+    and each magnitude's summed float32 error computed alike, whose minimum
+    must be the chosen pair."""
+    from repro_torch.core.calibration import DEFAULT_SV_MAGNITUDES, _err, calibrate_activation_sv
+    from repro_torch.core.razer import razer_qdq, sv_pairs_to_set
+
+    best, seconds = _timed(lambda: calibrate_activation_sv(samples))
+    totals = {m: sum(_err(x, razer_qdq(x, special_values=sv_pairs_to_set(m), scale_fmt="e4m3")) for x in samples)
+              for m in DEFAULT_SV_MAGNITUDES}
+    assert best == min(totals, key=totals.get), (best, totals)
+    return {"pair": best, "errors": totals, "gap": _gap(totals), "seconds": seconds,
+            "rows": [list(x.shape) for x in samples]}
+
+
+def _out_mse(x, w_hat, ref):
+    return float(((x @ w_hat - ref) ** 2).mean())
+
+
+GPTQ_CARD_VS_CPU = (512, 256)  # the (d_in, d_out) corner of wq that GPTQ quantizes on both
+
+
+def _gptq(w, x, dev, on_cpu_too=False):
+    """Phase 9 (c): GPTQ of one weight under the RaZeR group quantizer
+    (groups of 16, block 128) on layer 0's inputs; its output MSE there must
+    be below round-to-nearest's (``tests/test_calibration.py``).  With
+    ``on_cpu_too`` the card and the CPU also quantize the weight's
+    ``GPTQ_CARD_VS_CPU`` corner on the same inputs, and must give the same
+    weight bit for bit (``tests/test_torch_cuda_obs.py`` checks random
+    weights)."""
+    from repro_torch.core.gptq import gptq_quantize, make_group_quantizer
+    from repro_torch.core.razer import razer_qdq, razer_quantize
+
+    factory = make_group_quantizer(lambda g: razer_quantize(g, axis=0, scale_fmt="e3m3"))
+    q, seconds = _timed(lambda: gptq_quantize(w, x, factory, group_size=16, block_size=128, device=dev))
+    ref = x @ w
+    gptq_mse, rtn_mse = _out_mse(x, q, ref), _out_mse(x, razer_qdq(w, axis=0), ref)
+    assert gptq_mse < rtn_mse, (gptq_mse, rtn_mse)
+    out = {"shape": list(w.shape), "calibration_rows": x.shape[0], "seconds": seconds, "gptq_mse": gptq_mse,
+           "rtn_mse": rtn_mse, "gptq_over_rtn": gptq_mse / rtn_mse}
+    if on_cpu_too:
+        d_in, d_out = GPTQ_CARD_VS_CPU
+        w_c, x_c = w[:d_in, :d_out], x[:, :d_in]
+        card, card_s = _timed(lambda: gptq_quantize(w_c, x_c, factory, group_size=16, block_size=128, device=dev))
+        t0 = time.perf_counter()
+        cpu = gptq_quantize(w_c.cpu(), x_c.cpu(), factory, group_size=16, block_size=128, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        n_diff = int((card.cpu() != cpu).sum())
+        assert n_diff == 0, ("GPTQ on the card != GPTQ on the CPU", n_diff)
+        out["card_vs_cpu"] = {"shape": [d_in, d_out], "elements_differing": n_diff, "card_s": card_s,
+                              "cpu_s": cpu_s}
+    return out
+
+
+def _awq(w, x):
+    """Phase 9 (d): ``awq_search`` of one weight under razer, nvfp4 and int4
+    (blocked along d_in); ``apply_awq``'s output MSE must not exceed alpha
+    0's, the plain quantizer's."""
+    from repro_torch.core.awq import apply_awq, awq_search
+    from repro_torch.core.baselines import int4_quantize
+    from repro_torch.core.nvfp4 import nvfp4_qdq
+    from repro_torch.core.razer import razer_qdq
+
+    fns = {"razer": lambda v: razer_qdq(v, axis=0), "nvfp4": lambda v: nvfp4_qdq(v, axis=0),
+           "int4": lambda v: int4_quantize(v, axis=0).dequantize()}
+    ref = x @ w
+    out = {}
+    for fmt, fn in fns.items():
+        res, seconds = _timed(lambda: awq_search(w, x, fn))
+        plain, awq = _out_mse(x, fn(w), ref), _out_mse(x, apply_awq(w, res, fn), ref)
+        assert awq <= plain, (fmt, awq, plain)
+        out[fmt] = {"alpha": res.alpha, "awq_mse": awq, "alpha0_mse": plain, "awq_over_alpha0": awq / plain,
+                    "seconds": seconds}
+    return out
+
+
+def _two_pass(w, x):
+    """Phase 9 (e): the App. D.3 two-pass split of one weight: W_main +
+    W_comp == dequantize() bit for bit, the two passes == the single pass
+    within the reference test's rtol 1e-5 (atol 1e-5), B_comp's density."""
+    from repro_torch.core.razer import razer_quantize
+    from repro_torch.core.twopass import two_pass_matmul, two_pass_weights
+
+    (y, density), seconds = _timed(lambda: two_pass_matmul(x, w))
+    bq = razer_quantize(w, axis=0)
+    w_main, w_comp = two_pass_weights(bq)
+    deq = bq.dequantize()
+    assert torch.equal(w_main + w_comp, deq)
+    y1 = x @ deq
+    assert torch.allclose(y, y1, rtol=1e-5, atol=1e-5), float((y - y1).abs().max())
+    return {"shape": list(w.shape), "comp_density": float(density), "max_abs_diff_vs_single_pass":
+            float((y - y1).abs().max()), "seconds": seconds}
+
+
+def _baselines_card_vs_cpu(w):
+    """The four §5.1 baselines of one float32 weight blocked along d_in on
+    the card and on the CPU: q, block scales and tensor scale bit-equal
+    (``tests/test_torch_cuda_obs.py`` checks seeds 0-2 of a random weight)."""
+    from repro_torch.core import baselines
+
+    out = {}
+    w_cpu = w.cpu()
+    for name in BASELINE_QUANTIZERS:
+        fn = getattr(baselines, name)
+        card, card_s = _timed(lambda: fn(w, axis=0))
+        t0 = time.perf_counter()
+        cpu = fn(w_cpu, axis=0)
+        cpu_s = time.perf_counter() - t0
+        for field in ("q", "block_scale", "tensor_scale"):
+            a, b = getattr(card, field).cpu(), getattr(cpu, field)
+            assert a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32)), (name, field)
+        out[name] = {"equal": True, "card_s": card_s, "cpu_s": cpu_s}
+    return out
+
+
+def _mxfp4_draft_serve(cfg, eng):
+    """Phase 9 (f): phase 4c's 8 requests (4 slots, 16 new tokens) through
+    the W4 + KV engine with speculate_k=2 and a fakequant mxfp4 draft: exact
+    launch counts, tokens == phase 7's vanilla serve of the same engine."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.pagepool import PagePoolConfig
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    n_new, slots, max_len, ps, k = 16, 4, 256, 16, 2
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    _reset_counts()
+    rep = eng.serve(_serve_requests(cfg, n_new), sched_cfg=SchedulerConfig(max_slots=slots),
+                    pool_cfg=PagePoolConfig(num_pages=slots * (max_len // ps), page_size=ps, max_len=max_len),
+                    speculate_k=k, draft_policy="mxfp4", trace=tracer)
+    torch.cuda.synchronize()
+    counts = _main_path_counts()
+    want = _serve_want(cfg, 1, eng.policy, _serve_prefill_m(eng, rep.requests), rep.decode_steps, k,
+                       rep.draft_steps, slots)
+    assert counts == want, (counts, want)
+    share, diffs = _agreement(eng, rep.requests, MESHLESS[(cfg.name, "w4_kv", "serve")])
+    assert share == 1.0, ("speculative (mxfp4 draft) != vanilla serve", diffs)
+    eng._spec_cache.clear()  # free the draft
+    return {"accept_rate": rep.accept_rate, "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_time,
+            "decode_steps": rep.decode_steps, "draft_steps": rep.draft_steps,
+            "draft_ms_per_iteration": _span_ms(tracer, "draft"), "verify_ms_per_iteration": _span_ms(tracer, "verify"),
+            "share_equal_to_vanilla_serve": share, "launches": counts}
+
+
+def _toolkit(cfg, engines, detail, dev):
+    """Phase 9 on llama3_1_8b's raw weights at full width (phase 7's
+    engines): (a)-(f) as the module docstring says, each part's seconds."""
+    eng = engines["w4_kv"]
+    raw = eng._raw_params["layers_0"][0]
+    wq, up, down = raw["mixer"]["wq"], raw["mlp"]["up"], raw["mlp"]["down"]
+    assert wq.dtype == up.dtype == down.dtype == torch.float32
+    out, part_s = {}, {}
+    t_part = [time.perf_counter()]
+
+    def part(name, value):
+        now = time.perf_counter()
+        out[name], part_s[name] = value, now - t_part[0]
+        t_part[0] = now
+
+    part("a_weight_sv_pairs", {"wq": _sv_calibration(wq, on_cpu_too=True), "down": _sv_calibration(down)})
+    inputs = _layer0_inputs(cfg, eng)
+    part("b_activation_sv", _activation_calibration([inputs[n] for n in ("wq", "wo", "up", "down")]))
+    part("c_gptq", {"wq": _gptq(wq, inputs["wq"], dev, on_cpu_too=True), "up": _gptq(up, inputs["up"], dev)})
+    part("d_awq_wq", _awq(wq, inputs["wq"]))
+    part("e_two_pass_wq", _two_pass(wq, inputs["wq"]))
+    part("f_mxfp4_draft_serve", _mxfp4_draft_serve(cfg, eng))
+    part("baselines_card_vs_cpu_down", _baselines_card_vs_cpu(down))
+    out["seconds_by_part"] = part_s
+    detail["toolkit"] = out
     return out
 
 

@@ -14,7 +14,7 @@ import torch
 
 from .formats import FP4_MAX, FP4_VALUES, device_constant, positive_format_values, round_to_values
 
-__all__ = ["BlockQuantized", "block_reshape", "block_unreshape", "nvfp4_quantize"]
+__all__ = ["BlockQuantized", "block_reshape", "block_unreshape", "nvfp4_quantize", "nvfp4_qdq"]
 
 
 def block_reshape(x: torch.Tensor, block_size: int, axis: int = -1) -> torch.Tensor:
@@ -92,3 +92,8 @@ def nvfp4_quantize(x: torch.Tensor, *, block_size: int = 16, scale_fmt: str = "e
     scaled = _safe_div(xb, (tensor_scale * d8)[..., None])
     q = round_to_values(scaled, np.unique(FP4_VALUES))
     return BlockQuantized(q=q, block_scale=d8, tensor_scale=tensor_scale, axis=axis)
+
+
+def nvfp4_qdq(x: torch.Tensor, **kw) -> torch.Tensor:
+    """Quantize-dequantize (fake-quant) convenience."""
+    return nvfp4_quantize(x, **kw).dequantize()

@@ -7,6 +7,11 @@ Wire format of one 16-element block:
     meta = select << 1 | sign picks +-m0 or +-m1, or ``sign << 7 | E4M3 code``
     for activations and the KV cache (the single +-5 pair).
 16 * 4 + 8 = 72 bits per block, 4.5 bits per value.
+
+Also the §4.4 offset registers (a 4-bit s2.1 offset from 6.0 per SV pair)
+and the §4.3 GPU-kernel variant of the scale/meta layout: an fp16 group
+scale with the 2-bit SV metadata in its sign and exponent-MSB bits (a bit
+layout only: no kernel of the port reads it).
 """
 from __future__ import annotations
 
@@ -16,16 +21,21 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from .formats import (FP4_NEG_ZERO_CODE, device_constant, fp4_decode, fp4_encode, grid_midpoints,
-                      positive_format_values)
+from .formats import (FP4_NEG_ZERO_CODE, ceil_log2, device_constant, exp2_int, fp4_decode, fp4_encode,
+                      grid_midpoints, positive_format_values)
 from .razer import razer_quantize, sv_pairs_to_set
 
 __all__ = [
     "pack_fp4_codes",
     "unpack_fp4_codes",
+    "encode_offset_register",
+    "decode_offset_register",
     "pack_scale_meta",
     "unpack_scale_meta",
     "unpack_scale_meta_fields",
+    "pack_scale_meta_fp16",
+    "unpack_scale_meta_fp16",
+    "fold_scales_below_two",
     "PackedRazerWeight",
     "PackedStackedTensor",
     "pack_weight",
@@ -48,6 +58,23 @@ def unpack_fp4_codes(packed: torch.Tensor) -> torch.Tensor:
     lo = packed & 0xF
     hi = packed >> 4
     return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def encode_offset_register(sv_magnitude: float) -> int:
+    """SV magnitude -> 4-bit s2.1 fixed-point offset code (offset from 6.0)."""
+    off = float(sv_magnitude) - 6.0
+    if not -3.5 <= off <= 3.5 or (off * 2) != int(off * 2):
+        raise ValueError(f"SV magnitude {sv_magnitude} not encodable (offset {off})")
+    s = 1 if off < 0 else 0
+    a = abs(off)
+    return (s << 3) | (int(a) << 1) | (int(a * 2) & 1)
+
+
+def decode_offset_register(code: int) -> float:
+    """4-bit s2.1 offset code -> SV magnitude = 6.0 + offset."""
+    s = (code >> 3) & 1
+    mag = ((code >> 1) & 0b11) + 0.5 * (code & 1)
+    return 6.0 + (-mag if s else mag)
 
 
 def _scale_code(scale: torch.Tensor, fmt: str) -> torch.Tensor:
@@ -99,6 +126,36 @@ def unpack_scale_meta_fields(byte: torch.Tensor, *, weight: bool = True):
         meta = byte >> 6
         return byte & 0x3F, (meta >> 1) & 1, meta & 1
     return byte & 0x7F, torch.zeros_like(byte), byte >> 7
+
+
+def pack_scale_meta_fp16(scale: torch.Tensor, sv_index: torch.Tensor) -> torch.Tensor:
+    """Positive float32 scales (below 2.0) + sv_index -> uint16 words.
+
+    fp16 layout [sign | e4 .. e0 | m9 .. m0]: a positive scale below 2.0 has
+    sign 0 and exponent MSB e4 0, which carry the SV pair select (bit 15)
+    and the SV sign (bit 14); bits set there by a larger scale are masked."""
+    h = scale.to(torch.float16).view(torch.int16).to(torch.int32) & 0x3FFF
+    idx = sv_index.clamp(min=0).to(torch.int32)
+    return (h | (((idx >> 1) & 1) << 15) | ((idx & 1) << 14)).to(torch.uint16)
+
+
+def unpack_scale_meta_fp16(word: torch.Tensor, sv_magnitudes: Tuple[float, float] = (5.0, 8.0)):
+    """uint16 word -> (scale f32, special value f32)."""
+    w = word.to(torch.int32)
+    scale = (w & 0x3FFF).to(torch.int16).view(torch.float16).to(torch.float32)
+    mags = device_constant(np.array(sv_magnitudes, np.float32), word.device)
+    sv = mags[((w >> 15) & 1).long()] * torch.where(((w >> 14) & 1) == 1, -1.0, 1.0)
+    return scale, sv.to(torch.float32)
+
+
+def fold_scales_below_two(scales: torch.Tensor, tensor_scale: torch.Tensor):
+    """Fold a power of two into the tensor scale so every group scale is
+    below 2.0 (keeps the fp16 exponent MSB free).  The factor is the
+    reference's float32 ``exp2(max(ceil(log2(max(max(scales), 1e-30) /
+    2)), 0))``, which is not exactly a power of two for most exponents."""
+    mx = torch.clamp(scales.amax(), min=1e-30) * 0.5
+    factor = exp2_int(ceil_log2(mx))
+    return scales / factor, tensor_scale * factor
 
 
 @dataclass

@@ -17,7 +17,7 @@ import torch
 from . import registry
 from .razer import ACT_SPECIAL_VALUES, WEIGHT_SPECIAL_VALUES
 
-__all__ = ["TensorSpec", "LayerRule", "QuantPolicy", "DEFAULT_DENSE_RULES", "BF16"]
+__all__ = ["TensorSpec", "LayerRule", "QuantPolicy", "DEFAULT_DENSE_RULES", "BF16", "as_policy", "tree_paths"]
 
 _MODES = ("bf16", "fakequant", "packed")
 
@@ -76,6 +76,12 @@ class TensorSpec:
         return registry.get_format(self.format)
 
     @property
+    def effective_block_size(self) -> int:
+        """The block size the quantize fn uses: the spec's, floored at the
+        format's minimum (OCP MXFP4 blocks are >= 32)."""
+        return max(self.block_size, self.entry.min_block_size)
+
+    @property
     def sv_magnitudes(self) -> Tuple[float, float]:
         """The (m0, m1) magnitudes the packed wire format encodes; one pair
         is duplicated, more than two pairs do not fit the 2 meta bits."""
@@ -131,7 +137,8 @@ class LayerRule:
 
     @staticmethod
     def override(pattern: str, **fields) -> "LayerRule":
-        return LayerRule(pattern, overrides=tuple(sorted(fields.items())))
+        norm = tuple((k, tuple(v) if isinstance(v, (list, tuple)) else v) for k, v in sorted(fields.items()))
+        return LayerRule(pattern, overrides=norm)
 
     def resolve(self, base: Optional[TensorSpec]) -> Optional[TensorSpec]:
         if self.overrides:
@@ -214,6 +221,10 @@ class QuantPolicy:
             rules=rules,
         )
 
+    def with_rules(self, *rules: LayerRule, prepend: bool = True) -> "QuantPolicy":
+        """A copy with extra rules (prepended by default: first match wins)."""
+        return replace(self, rules=tuple(rules) + self.rules if prepend else self.rules + tuple(rules))
+
     def resolve(self, path: str) -> Optional[TensorSpec]:
         """The weight spec for a param-tree path (None: keep dense)."""
         spec: Optional[TensorSpec] = self.weight
@@ -232,3 +243,27 @@ class QuantPolicy:
 
 
 BF16 = QuantPolicy.bf16()
+
+
+def as_policy(q) -> QuantPolicy:
+    """Any quant argument -- a QuantPolicy, a flat ``QuantConfig`` (through
+    its ``to_policy()``) or None (bf16) -- as a QuantPolicy."""
+    if q is None:
+        return BF16
+    if isinstance(q, QuantPolicy):
+        return q
+    to_policy = getattr(q, "to_policy", None)
+    if callable(to_policy):
+        return to_policy()
+    raise TypeError(f"cannot interpret {type(q).__name__} as a QuantPolicy")
+
+
+def tree_paths(tree, sep: str = "/"):
+    """(path, leaf) pairs of a nested-dict param tree, '/'-joined: the path
+    vocabulary LayerRules match against."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            for p, leaf in tree_paths(v, sep):
+                yield (f"{k}{sep}{p}" if p else str(k)), leaf
+    else:
+        yield "", tree

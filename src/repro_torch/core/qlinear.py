@@ -13,14 +13,71 @@ the tp group (``_tp_packed_matmul``), leaving N/tp columns per rank.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from . import registry
-from .policy import QuantPolicy
+from .policy import QuantPolicy, TensorSpec, as_policy
+from .razer import ACT_SPECIAL_VALUES, WEIGHT_SPECIAL_VALUES
 
-__all__ = ["qdq_activation", "qdq_spec", "qlinear", "is_kshard"]
+__all__ = ["QuantConfig", "QuantizedLinear", "qdq_weight", "qdq_activation", "qdq_spec", "qlinear", "is_kshard"]
+
+
+@dataclass(frozen=True)
+class QuantConfig:
+    """The flat quantization config of the JAX package, a convenience
+    constructor over the policy API: ``QuantConfig(...).to_policy()``."""
+
+    mode: str = "bf16"  # bf16 | fakequant | packed
+    weight_format: str = "razer"
+    act_format: Optional[str] = None  # None = weight-only quantization
+    weight_svs: Tuple[float, ...] = WEIGHT_SPECIAL_VALUES
+    act_svs: Tuple[float, ...] = ACT_SPECIAL_VALUES
+    block_size: int = 16
+    weight_scale_fmt: str = "e3m3"  # §4.1: E3M3 for weights
+    act_scale_fmt: str = "e4m3"  # §4.1: activations keep E4M3
+    kv_format: Optional[str] = None  # e.g. 'razer' to quantize the KV cache
+
+    def to_policy(self) -> QuantPolicy:
+        """The equivalent QuantPolicy, with the default dense rules."""
+        weight = TensorSpec(format=self.weight_format, mode=self.mode, block_size=self.block_size,
+                            scale_fmt=self.weight_scale_fmt, special_values=self.weight_svs)
+        act = None
+        if self.act_format is not None:
+            act = TensorSpec(format=self.act_format, mode="fakequant", block_size=self.block_size,
+                             scale_fmt=self.act_scale_fmt, special_values=self.act_svs)
+        kv = TensorSpec.kv(self.kv_format) if self.kv_format is not None else None
+        return QuantPolicy(weight=weight, act=act, kv=kv)
+
+    @property
+    def sv_magnitudes(self) -> Tuple[float, float]:
+        """Wire-format pair magnitudes; 1 pair duplicates, >2 is an error."""
+        return self.to_policy().weight.sv_magnitudes
+
+
+@dataclass
+class QuantizedLinear:
+    """A linear layer's parameter bundle under a quantization policy: a
+    dense weight (bf16 / fakequant) or its format's packed container, and
+    an optional bias.  ``qlinear`` takes one in place of the weight."""
+
+    w: object  # torch.Tensor | packed container (registry packed_type)
+    b: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def create(w: torch.Tensor, cfg, b: Optional[torch.Tensor] = None) -> "QuantizedLinear":
+        spec = as_policy(cfg).weight
+        if spec.quantizes and spec.mode == "packed":
+            return QuantizedLinear(w=spec.pack(w.to(torch.float32)), b=b)
+        return QuantizedLinear(w=w, b=b)
+
+
+def qdq_weight(w: torch.Tensor, cfg) -> torch.Tensor:
+    """Fake-quantize a (d_in, d_out) weight along the reduction dim (axis 0)
+    under the weight spec of ``cfg`` (a QuantPolicy or a QuantConfig)."""
+    return as_policy(cfg).weight.qdq(w, axis=0)
 
 
 def qdq_spec(x: torch.Tensor, spec) -> torch.Tensor:
@@ -83,7 +140,10 @@ def qlinear(x: torch.Tensor, w, policy: QuantPolicy, b: Optional[torch.Tensor] =
     already is this rank's K slice (a chain's second matmul, whose input is
     the first's N/tp tile); ``gather=False``
     returns this rank's N/tp columns, else they are all-gathered over the
-    tp group to the full width.  A replicated weight ignores both."""
+    tp group to the full width.  A replicated weight ignores both.  ``w``
+    may be a ``QuantizedLinear``, whose bias then takes the place of ``b``."""
+    if isinstance(w, QuantizedLinear):
+        w, b = w.w, w.b
     entry = registry.packed_entry(w)
     if entry is not None:
         if entry.matmul_kernel is None:

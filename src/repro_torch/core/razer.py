@@ -24,6 +24,7 @@ __all__ = [
     "grid_with_sv",
     "block_sse",
     "razer_quantize",
+    "razer_qdq",
     "sv_pairs_to_set",
 ]
 
@@ -102,3 +103,8 @@ def razer_quantize(
         q=best_q, block_scale=d8, tensor_scale=tensor_scale, axis=axis,
         sv=best_sv, sv_index=best_idx,
     )
+
+
+def razer_qdq(x: torch.Tensor, **kw) -> torch.Tensor:
+    """Quantize-dequantize (fake-quant) convenience."""
+    return razer_quantize(x, **kw).dequantize()

@@ -10,9 +10,12 @@ itself.  A format that can be split over a serving mesh names how a rank
 takes its shard of a packed weight (``shard_packed_fn``, a K/tp shard) and
 of a stacked bank (``shard_stacked_fn``, an E/ep x K/tp tile).  A format
 may name its numerics audit (``audit_fn``, ``obs.numerics``); one that does
-not is audited by ``obs.numerics.generic_audit``.  The port registers
-``razer`` (packed, with kernels and its wire-byte audit) and ``nvfp4``
-(quantize only: the default draft format of speculative serving).
+not is audited by ``obs.numerics.generic_audit``.  A format may require a
+minimum block size (``min_block_size``: OCP MXFP4 blocks are 32 even under
+a block-16 policy).  The port registers ``razer`` (packed, with kernels and
+its wire-byte audit), ``nvfp4`` (the default draft format of speculative
+serving) and the §5.1 baselines ``mxfp4``, ``int4``, ``nf4`` and
+``fouroversix`` (quantize only: fake-quant policies and drafts).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ class FormatEntry:
     # packed container(s) or a raw weight and ``ref`` the reference weight
     # (or None) -> a JSON-able dict of code-usage / error / drift stats
     audit_fn: Optional[Callable] = None
+    min_block_size: int = 1  # e.g. 32 for OCP MXFP4
 
 
 _REGISTRY: Dict[str, FormatEntry] = {}
@@ -56,13 +60,14 @@ def register_format(name: str, quantize_fn: Callable, pack_fn=None, matmul_kerne
                     act_kernel=None, *, packed_type=None, pack_stacked_fn=None,
                     grouped_matmul_kernel=None, packed_stacked_type=None, shard_packed_fn=None,
                     shard_stacked_fn=None, kshard_matmul_kernel=None,
-                    kshard_grouped_matmul_kernel=None, audit_fn=None) -> FormatEntry:
+                    kshard_grouped_matmul_kernel=None, audit_fn=None, min_block_size: int = 1) -> FormatEntry:
     entry = FormatEntry(name=name, quantize=quantize_fn, pack_fn=pack_fn,
                         matmul_kernel=matmul_kernel, act_kernel=act_kernel, packed_type=packed_type,
                         pack_stacked_fn=pack_stacked_fn, grouped_matmul_kernel=grouped_matmul_kernel,
                         packed_stacked_type=packed_stacked_type, shard_packed_fn=shard_packed_fn,
                         shard_stacked_fn=shard_stacked_fn, kshard_matmul_kernel=kshard_matmul_kernel,
-                        kshard_grouped_matmul_kernel=kshard_grouped_matmul_kernel, audit_fn=audit_fn)
+                        kshard_grouped_matmul_kernel=kshard_grouped_matmul_kernel, audit_fn=audit_fn,
+                        min_block_size=min_block_size)
     _REGISTRY[name] = entry
     return entry
 
@@ -100,15 +105,25 @@ def grouped_entry(obj) -> Optional[FormatEntry]:
     return None
 
 
+def _accepted_kwargs(fn: Callable) -> Tuple[bool, bool]:
+    """(takes scale_fmt, takes special_values) from ``fn``'s signature; a
+    ``**kwargs`` catch-all accepts both (the baselines ignore them)."""
+    params = inspect.signature(fn).parameters
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        return True, True
+    return "scale_fmt" in params, "special_values" in params
+
+
 def spec_kwargs(entry: FormatEntry, spec) -> dict:
     """The keyword arguments ``entry.quantize`` receives for a TensorSpec:
-    only those its signature names (nvfp4 takes no special values), as the
-    JAX package forwards them."""
-    params = inspect.signature(entry.quantize).parameters
-    kw = {"block_size": spec.block_size}
-    if "scale_fmt" in params and spec.scale_fmt is not None:
+    only those its signature accepts (nvfp4 takes no special values), as the
+    JAX package forwards them, and the block size floored at the format's
+    minimum."""
+    takes_scale_fmt, takes_special_values = _accepted_kwargs(entry.quantize)
+    kw = {"block_size": max(spec.block_size, entry.min_block_size)}
+    if takes_scale_fmt and spec.scale_fmt is not None:
         kw["scale_fmt"] = spec.scale_fmt
-    if "special_values" in params and spec.special_values is not None:
+    if takes_special_values and spec.special_values is not None:
         kw["special_values"] = spec.special_values
     return kw
 
@@ -205,6 +220,7 @@ def _razer_act_qdq(x, spec):
 
 
 def _register_builtins() -> None:
+    from .baselines import fouroversix_quantize, int4_quantize, mxfp4_quantize, nf4_quantize
     from .nvfp4 import nvfp4_quantize
     from .packing import PackedRazerWeight, PackedStackedTensor
     from .razer import razer_quantize
@@ -216,6 +232,10 @@ def _register_builtins() -> None:
                     packed_stacked_type=PackedStackedTensor, shard_packed_fn=_razer_shard_packed,
                     shard_stacked_fn=_razer_shard_stacked, kshard_matmul_kernel=_razer_kshard_matmul,
                     kshard_grouped_matmul_kernel=_razer_kshard_grouped_matmul, audit_fn=_razer_audit)
+    register_format("mxfp4", mxfp4_quantize, min_block_size=32)
+    register_format("int4", int4_quantize)
+    register_format("nf4", nf4_quantize)
+    register_format("fouroversix", fouroversix_quantize)
 
 
 _register_builtins()

@@ -38,7 +38,10 @@ quantization error every Nth prefill into the report's ``kv`` section, and
     python -m repro_torch.launch.serve --arch llama3_2_3b --packed --kv-quant --continuous \
         --metrics-out m.json --quant-report q.json --kv-audit 1 --torch-profile prof
 
-The reference launcher's checkpoint flag is not ported.
+``--dry`` is the smoke mode: the reduced config, at most 4 requests, 4 new
+tokens and ``max_len`` 64.  ``--draft-policy`` names any registered format
+(nvfp4, mxfp4, int4, nf4, fouroversix, razer) or ``bf16``.  The reference
+launcher's checkpoint flag is not ported.
 """
 from __future__ import annotations
 
@@ -140,6 +143,8 @@ def _parser() -> argparse.ArgumentParser:
                          "(--continuous)")
     ap.add_argument("--backend", default="nccl", help="torch.distributed backend of the mesh (nccl, gloo)")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    ap.add_argument("--dry", action="store_true",
+                    help="smoke mode: reduced config, at most 4 requests, 4 new tokens and max_len 64")
     ap.add_argument("--init-method", default="env://",
                     help="process-group rendezvous (env:// under torchrun, or file:///path)")
     return ap
@@ -148,6 +153,11 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.dry:
+        args.reduced = True
+        args.requests = min(args.requests, 4)
+        args.max_new = min(args.max_new, 4)
+        args.max_len = min(args.max_len, 64)
     from repro_torch.configs import get_config
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.device import resolve_device

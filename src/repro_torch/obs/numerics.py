@@ -301,7 +301,7 @@ def audit_layer(path: str, raw_leaf, leaf, spec: TensorSpec) -> Optional[Dict[st
         mode, container_name = "packed", type(first).__name__
     else:
         axis = len(shape) - 2
-        if len(shape) < 2 or math.prod(shape) < _MIN_AUDIT or shape[axis] % spec.block_size:
+        if len(shape) < 2 or math.prod(shape) < _MIN_AUDIT or shape[axis] % spec.effective_block_size:
             return None
         if spec.mode == "packed":
             # resolved packed but the serving tree kept it dense

@@ -25,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -38,7 +39,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.obs import percentile
 from repro_torch.parallel.sharding import shard_params, sharding_ctx
 
-__all__ = ["ServeConfig", "Engine", "ServeReport", "pack_model_weights"]
+__all__ = ["ServeConfig", "Engine", "ServeReport", "pack_model_weights", "fakequant_model_weights"]
 
 
 @dataclasses.dataclass
@@ -53,18 +54,64 @@ class ServeConfig:
 _MIN_PACK = 16 * 16  # weights smaller than this stay dense
 
 
-def _packable(spec: TensorSpec, leaf, ndim: int) -> bool:
-    """A tensor of ``ndim`` dims whose reduction dim (the second last) splits
-    into whole blocks and that is big enough to matter."""
-    return (isinstance(leaf, torch.Tensor) and leaf.ndim == ndim
-            and leaf.shape[-2] % spec.block_size == 0 and leaf.numel() >= _MIN_PACK)
+def _stacked_shape(leaf) -> Optional[tuple]:
+    """The reference's shape of a leaf: a tensor's own, or (L, ...) for a
+    ``layers_<g>`` group's per-layer tensors gathered into a list (the
+    reference's scan-stacked leaf); None for anything else."""
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape)
+    if isinstance(leaf, list) and leaf and all(isinstance(t, torch.Tensor) for t in leaf):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return None
+
+
+def _packable(spec: TensorSpec, shape: Optional[tuple], block_axis: int) -> bool:
+    """Structural eligibility on the reference's shape: the blocked axis
+    splits into whole blocks of the size the format will actually use, and
+    the tensor is big enough to matter."""
+    return (shape is not None and len(shape) > block_axis
+            and shape[block_axis] % spec.effective_block_size == 0 and math.prod(shape) >= _MIN_PACK)
+
+
+def _gather_layers(layers: list):
+    """A ``layers_<g>`` list of per-layer dicts -> one dict whose leaves
+    are lists of the L per-layer leaves (the reference's stacked group)."""
+    if isinstance(layers[0], dict):
+        return {k: _gather_layers([layer[k] for layer in layers]) for k in layers[0]}
+    return list(layers)
+
+
+def _split_layers(tree, n: int) -> list:
+    """Inverse of ``_gather_layers``: per-layer dicts from lists of n."""
+    if isinstance(tree, dict):
+        parts = {k: _split_layers(v, n) for k, v in tree.items()}
+        return [{k: part[i] for k, part in parts.items()} for i in range(n)]
+    return tree
+
+
+def _apply_policy_to_weights(params, quant: QuantPolicy, leaf_fn):
+    """Shared rule-resolving tree walk: ``leaf_fn(spec, leaf)`` transforms
+    every leaf whose '/'-joined path resolves to a quantizing spec.  A
+    ``layers_<g>`` list walks as the reference's scan-stacked group, under
+    the group's paths: ``leaf_fn`` receives each path's L per-layer tensors
+    as a list and returns a list of L."""
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
+        if isinstance(tree, list) and tree and isinstance(tree[0], dict):
+            return _split_layers(walk(_gather_layers(tree), path), len(tree))
+        spec = quant.resolve(path)
+        return tree if spec is None else leaf_fn(spec, tree)
+
+    return walk(params, "")
 
 
 def pack_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
     """Replace every eligible weight with its format's wire container, per
     the policy's rules on the '/'-joined path.  Each layer of a
-    ``layers_<g>`` list packs on its own, under the group's path, so the
-    rules see the paths the JAX package's stacked tree has.
+    ``layers_<g>`` list packs on its own, under the group's path, as the
+    reference packs a scan-stacked leaf layer by layer.
 
     A spec with the ``stacked`` marker (MoE expert banks, the default
     ``*experts*`` rule) packs a whole (E, d_in, d_out) bank into the
@@ -74,23 +121,40 @@ def pack_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
     needs."""
 
     def pack_leaf(spec: TensorSpec, leaf):
-        if spec.stacked:
-            if _packable(spec, leaf, 3) and leaf.shape[2] % spec.block_size == 0:
-                return spec.pack_stacked(leaf.to(torch.float32))
+        if spec.mode != "packed":
             return leaf
-        return spec.pack(leaf.to(torch.float32)) if _packable(spec, leaf, 2) else leaf
+        shape, per_layer = _stacked_shape(leaf), isinstance(leaf, list)
+        pack = spec.pack_stacked if spec.stacked else spec.pack
+        ndim = (3 if spec.stacked else 2) + per_layer
+        if shape is None or len(shape) != ndim or not _packable(spec, shape, ndim - 2):
+            return leaf
+        if spec.stacked and shape[-1] % spec.effective_block_size:
+            return leaf
+        return [pack(t.to(torch.float32)) for t in leaf] if per_layer else pack(leaf.to(torch.float32))
 
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v, path) for v in tree]
-        spec = quant.resolve(path)
-        if spec is None or spec.mode != "packed":
-            return tree
-        return pack_leaf(spec, tree)
+    return _apply_policy_to_weights(params, quant, pack_leaf)
 
-    return walk(params, "")
+
+def fakequant_model_weights(params, cfg: ArchConfig, quant: QuantPolicy):
+    """Offline per-layer fake-quant: quantize-dequantize every eligible
+    weight under the policy's per-layer rules (the accuracy-experiment
+    analogue of ``pack_model_weights``: how rule-driven mixed precision
+    enters a fakequant evaluation).  A ``layers_<g>`` group's weights
+    quantize as the reference's stacked leaf, one tensor blocked along
+    d_in under one tensor scale.  Expert banks stay as they are: they
+    fake-quantize at forward time (``moe_forward``)."""
+
+    def qdq_leaf(spec: TensorSpec, leaf):
+        shape = _stacked_shape(leaf)
+        if spec.stacked or shape is None:
+            return leaf
+        if len(shape) == 2 and isinstance(leaf, torch.Tensor) and _packable(spec, shape, 0):
+            return spec.qdq(leaf, axis=0)
+        if len(shape) == 3 and isinstance(leaf, list) and _packable(spec, shape, 1):
+            return list(torch.unbind(spec.qdq(torch.stack(leaf), axis=1)))
+        return leaf
+
+    return _apply_policy_to_weights(params, quant, qdq_leaf)
 
 
 def _to_device(tree, device):

@@ -1,8 +1,8 @@
 """The numerics audit and the KV audit on a card: the golden report byte for
 byte, the packed-vs-fakequant drift exactly 0, the card's audit of the same
-tensors equal to the CPU's, ``pack_weight``'s bytes on the card equal to
-the CPU's, and serve's tokens bit-identical with the KV-audit hook on and
-off.
+tensors equal to the CPU's, ``pack_weight``'s, the §5.1 baselines' and
+GPTQ's results on the card equal to the CPU's, and serve's tokens
+bit-identical with the KV-audit hook on and off.
 
 Every test here is marked ``cuda`` and skips without a GPU; the file
 imports no JAX:
@@ -12,6 +12,7 @@ imports no JAX:
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,6 +52,54 @@ def test_cuda_pack_weight_bytes_equal_cpu(cuda_device):
         card, cpu = pack_weight(w.to(cuda_device)), pack_weight(w)
         assert torch.equal(card.tensor_scale.cpu(), cpu.tensor_scale), shape
         assert torch.equal(card.codes.cpu(), cpu.codes) and torch.equal(card.scale_meta.cpu(), cpu.scale_meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mxfp4_quantize", "int4_quantize", "nf4_quantize", "fouroversix_quantize"])
+def test_cuda_baseline_quantize_bytes_equal_cpu(cuda_device, name):
+    """The §5.1 baselines on a (14336, 4096) float32 weight blocked along
+    d_in, seeds 0-2: the card's q, block scales and tensor scale equal the
+    CPU's bit for bit (no division by a Python number, ROADMAP C.5)."""
+    from repro_torch.core import baselines
+
+    fn = getattr(baselines, name)
+    for seed in range(3):
+        w = torch.randn((14336, 4096), generator=torch.Generator().manual_seed(seed)) * 0.02
+        card, cpu = fn(w.to(cuda_device), axis=0), fn(w, axis=0)
+        for field in ("q", "block_scale", "tensor_scale"):
+            a, b = getattr(card, field).cpu(), getattr(cpu, field)
+            assert a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32)), (seed, field)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group_size,block_size", [(16, 128), (128, 64)])
+@pytest.mark.parametrize("fmt", ["razer", "int4"])
+def test_cuda_gptq_equals_cpu(cuda_device, fmt, group_size, block_size):
+    """GPTQ of a (512, 256) weight on 512 correlated calibration rows (seed
+    7, as ``tests/test_torch_gptq.py`` draws them) under the RaZeR and INT4
+    group quantizers: the card's dequantized weight equals the CPU's bit for
+    bit, though the card factors the Hessian and sums the updates in its own
+    order (GPTQ carries any flipped code into every later row)."""
+    from repro_torch.core.baselines import int4_quantize
+    from repro_torch.core.gptq import gptq_quantize, make_group_quantizer
+    from repro_torch.core.razer import razer_quantize
+
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.standard_t(5, size=(512, 256)) * 0.02).astype(np.float32))
+    x = rng.standard_normal((512, 512)).astype(np.float32)
+    x[:, 1:] += 0.5 * x[:, :-1]  # correlated input channels
+    x = torch.from_numpy(x)
+    if fmt == "razer":
+        factory = make_group_quantizer(lambda g: razer_quantize(g, axis=0, scale_fmt="e3m3"))
+    else:
+        factory = make_group_quantizer(lambda g: int4_quantize(g, axis=0, block_size=group_size))
+    kw = dict(group_size=group_size, block_size=block_size)
+    card = gptq_quantize(w.to(cuda_device), x.to(cuda_device), factory, device=cuda_device, **kw).cpu()
+    cpu = gptq_quantize(w, x, factory, device="cpu", **kw)
+    ref = x @ w
+    mse = [float(((x @ q - ref) ** 2).mean()) for q in (card, cpu)]
+    n_diff = int((card != cpu).sum())
+    assert n_diff == 0, (n_diff, mse)
 
 
 @pytest.mark.cuda

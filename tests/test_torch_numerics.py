@@ -155,7 +155,9 @@ def test_packed_vs_fakequant_drift_exactly_zero():
 def test_registry_audit_hook_and_names():
     assert registry.get_format("razer").audit_fn is not None
     assert registry.get_format("nvfp4").audit_fn is None
-    assert registry.format_names() == ("nvfp4", "razer")
+    # the paper's two formats and the §5.1 baselines, as the JAX package
+    # registers them
+    assert registry.format_names() == ("fouroversix", "int4", "mxfp4", "nf4", "nvfp4", "razer")
     registry.register_format("scratch_fmt", registry.get_format("nvfp4").quantize)
     try:
         assert "scratch_fmt" in registry.format_names()
