@@ -25,8 +25,9 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The JAX package's parameter tree -> the port's.
 
-    Scan-stacked groups (``layers_<g>`` dicts of (L, ...) arrays) become
-    lists of L per-layer dicts; every other leaf converts as it is."""
+    Scan-stacked groups (``layers_<g>`` and whisper's ``enc_layers``: dicts
+    of (L, ...) arrays) become lists of L per-layer dicts; every other leaf
+    converts as it is."""
     device = resolve_device(device)
 
     def conv(t):
@@ -41,7 +42,7 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
 
     out: Dict[str, Any] = {}
     for key, sub in tree.items():
-        if key.startswith("layers_") and isinstance(sub, dict):
+        if (key.startswith("layers_") or key == "enc_layers") and isinstance(sub, dict):
             n = len(np.asarray(_first_leaf(sub)))
             out[key] = [unstack(sub, i) for i in range(n)]
         else:

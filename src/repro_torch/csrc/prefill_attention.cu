@@ -13,6 +13,16 @@
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] * scale) @ v[b, j, h / G]
 //   over keys j <= q_offset + i (causal) or all j < Skv
 //
+// q and k have head width HD, v and out DV: DV = HD at hd 16, 32, 64 and
+// 128; at HD 192, MLA's qk_nope + qk_rope (DeepSeek-V2), V is 128 wide
+// (v_head_dim).  The reference pads MLA's V with zeros to 192 only so that
+// its attention sees one head width, and slices the output back to 128;
+// each output dim is its own sum over the same P, so attending V at 128
+// keeps every kept dim's bits and drops 64 dims of zeros.  It is also what
+// fits: the tensor-core body's shared memory at one head a block is 270,464
+// bytes with V at 192 and 229,504 with V at 128, against the H100's 232,448
+// a block.
+//
 // Two bodies, chosen by q's dtype alone (kernels/prefill_attention.py,
 // `kernel_body`): a bf16 q -- the serving path, whose compute dtype is bf16
 // -- runs the tensor-core body; an f32 q (the f32 engines the checks run)
@@ -130,9 +140,9 @@ constexpr int W = 64;   // keys per chunk
 struct Params {
   const void* q;  // (B, Sq, H, HD)
   const void* k;  // (B, Skv, KVH, HD)
-  const void* v;
-  void* out;      // (B, Sq, H, HD), q's dtype
-  void* ws;       // the tensor-core body's split K/V tiles (B, KVH, ceil(Skv / 64)) x 6 x 64 x HD bf16
+  const void* v;  // (B, Skv, KVH, DV)
+  void* out;      // (B, Sq, H, DV), q's dtype
+  void* ws;       // the tensor-core body's split K/V tiles (B, KVH, ceil(Skv / 64)) x 3 x 64 x (HD + DV) bf16
   int* flags;     // (B, KVH, ceil(Skv / 64)): the chunk has non-zero low tiles
   int q_bf16, k_bf16, v_bf16;  // 1: bf16, 0: f32
   int B, Sq, Skv, H, KVH, q_offset, causal;
@@ -161,6 +171,7 @@ using razer_tile::wgmma_wait;
 
 constexpr int MAX_GB = 3;                  // query heads per block, at most: one warpgroup each
 constexpr int MAX_THREADS = 128 * MAX_GB;
+constexpr size_t MAX_SMEM = 232448;        // dynamic shared memory a block can have on an H100
 
 // mbarriers: one arrival (with the bytes to expect) completes a phase once
 // the bytes have landed
@@ -248,46 +259,55 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t d
       : "l"(da), "l"(db), "n"(1));
 }
 
-template <int HD>
+template <int HD, int DV>
 struct Geo {
-  static constexpr int KT = W * HD * 2;    // bytes of one K (or V^T) part tile of a chunk
-  static constexpr int CHUNK = 6 * KT;     // a chunk in the workspace: K hi, V^T hi, K mid, K lo, V^T mid, V^T lo
-  static constexpr int NU = W * HD / 256;  // stmatrix x4 units (four 8 x 8 blocks) of one tensor's chunk
+  static constexpr int KT = W * HD * 2;    // bytes of one K part tile (and of a q tile) of a chunk
+  static constexpr int VT = W * DV * 2;    // bytes of one V^T part tile
+  static constexpr int STAGE = KT + VT;    // a ring stage: K hi, V^T hi
+  static constexpr int LOWS = 2 * STAGE;   // a chunk's low tiles: K mid, K lo, V^T mid, V^T lo
+  static constexpr int CHUNK = 3 * STAGE;  // a chunk in the workspace: K hi, V^T hi, then its low tiles
+  static constexpr int NUK = W * HD / 256;  // stmatrix x4 units (four 8 x 8 blocks) of K's chunk
+  static constexpr int NUV = W * DV / 256;  // ... and of V's
   static constexpr int NST = 3;            // stages of the hi tiles' ring
-  static constexpr int NS = HD < 64 ? HD : 64;  // output dims per P V slice (its accumulators: NS / 2 a thread)
+  static constexpr int NS = DV < 64 ? DV : 64;  // output dims per P V slice (its accumulators: NS / 2 a thread)
   // the attention kernel's dynamic shared memory for gb heads: q tiles, the
   // ring of (K hi, V^T hi) stages, one chunk's four low tiles, the
   // stages' and the low tiles' mbarriers and release counts
-  static constexpr size_t bytes(int gb) { return (size_t)(gb + 2 * NST + 4) * KT + 128; }  // + the barriers
+  static constexpr size_t bytes(int gb) { return (size_t)gb * KT + (size_t)NST * STAGE + LOWS + 128; }
   static constexpr size_t split_bytes() { return (size_t)CHUNK; }
+  // the most heads a block can hold in shared memory
+  static constexpr int max_gb() { return bytes(3) <= MAX_SMEM ? 3 : bytes(2) <= MAX_SMEM ? 2 : 1; }
+  static_assert(bytes(1) <= MAX_SMEM, "one head a block must fit the H100's shared memory");
 };
 
 // ---------------------------------------------------------------------------
 // the split: K/V chunk -> bf16 part tiles in the workspace
 // ---------------------------------------------------------------------------
-// One block per (chunk, kv head, b).  K goes to K-major rows of keys, V
-// transposed (rows of dims, keys along k), in 8 x 8 blocks through stmatrix;
+// One block per (chunk, kv head, b).  K (HD dims) goes to K-major rows of
+// keys, V (DV dims) transposed (rows of dims, keys along k), in 8 x 8
+// blocks through stmatrix;
 // lane t reads key t / 4, dims 2 (t % 4) and + 1 of each block straight
 // from K or V (zero past Skv).  LOWS false: the hi tiles, each f32 value's
 // upper half (its bf16 when the lower half is zero), and returns whether
 // this thread saw a non-zero lower half; LOWS true: hi rounded to nearest,
 // mid and lo, into the part tiles.
-template <int HD, bool LOWS>
+template <int HD, int DV, bool LOWS>
 __device__ __forceinline__ bool convert(uint8_t* tiles, const Params& p, int b, int kh, int c0) {
-  using Gm = Geo<HD>;
+  using Gm = Geo<HD, DV>;
   const int lane = threadIdx.x & 31;
   bool low = false;
-  for (int u = threadIdx.x >> 5; u < 2 * Gm::NU; u += blockDim.x >> 5) {
-    const bool is_v = u >= Gm::NU;
+  for (int u = threadIdx.x >> 5; u < Gm::NUK + Gm::NUV; u += blockDim.x >> 5) {
+    const bool is_v = u >= Gm::NUK;
     const int bf16 = is_v ? p.v_bf16 : p.k_bf16;
     if (LOWS && bf16) continue;
     const void* src = is_v ? p.v : p.k;
-    const int ub = 4 * (is_v ? u - Gm::NU : u);  // first 8 x 8 block: block i is key group i % 8, dim group i / 8
+    const int width = is_v ? DV : HD;
+    const int ub = 4 * (is_v ? u - Gm::NUK : u);  // first 8 x 8 block: block i is key group i % 8, dim group i / 8
     uint32_t h[4], m[4], l[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int bi = ub + i, key = c0 + 8 * (bi & 7) + (lane >> 2), d = 8 * (bi >> 3) + 2 * (lane & 3);
-      const size_t e = (((size_t)b * p.Skv + key) * p.KVH + kh) * HD + d;
+      const size_t e = (((size_t)b * p.Skv + key) * p.KVH + kh) * width + d;
       const bool in = key < p.Skv;
       if (bf16) {
         h[i] = in ? *reinterpret_cast<const uint32_t*>(static_cast<const __nv_bfloat16*>(src) + e) : 0u;
@@ -304,14 +324,14 @@ __device__ __forceinline__ bool convert(uint8_t* tiles, const Params& p, int b, 
       }
     }
     const int bi = ub + (lane >> 3), kg = bi & 7, dg = bi >> 3, rr = lane & 7;
-    if (!is_v) {
+    if (!is_v) {  // K hi at 0, K mid at STAGE, K lo at STAGE + KT
       uint8_t* dst = tiles + core_off(8 * kg + rr, 8 * dg, HD);
       stmatrix_x4(dst, h);
-      if (LOWS) stmatrix_x4(dst + 2 * Gm::KT, m), stmatrix_x4(dst + 3 * Gm::KT, l);
-    } else {
+      if (LOWS) stmatrix_x4(dst + Gm::STAGE, m), stmatrix_x4(dst + Gm::STAGE + Gm::KT, l);
+    } else {  // V^T hi at KT, V^T mid at STAGE + 2 KT, V^T lo at STAGE + 2 KT + VT
       uint8_t* dst = tiles + Gm::KT + core_off(8 * dg + rr, 8 * kg, W);
       stmatrix_x4_trans(dst, h);
-      if (LOWS) stmatrix_x4_trans(dst + 3 * Gm::KT, m), stmatrix_x4_trans(dst + 4 * Gm::KT, l);
+      if (LOWS) stmatrix_x4_trans(dst + Gm::STAGE + Gm::KT, m), stmatrix_x4_trans(dst + Gm::STAGE + Gm::KT + Gm::VT, l);
     }
   }
   return low;
@@ -320,36 +340,36 @@ __device__ __forceinline__ bool convert(uint8_t* tiles, const Params& p, int b, 
 // ws: (B, KVH, chunks) x Geo::CHUNK bytes; flags: (B, KVH, chunks), 1 where
 // a chunk's K or V holds a value bf16 does not (its low tiles are then
 // written; else they are not, and never read)
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(256) prefill_attention_tc_split_kernel(const Params p) {
-  using Gm = Geo<HD>;
+  using Gm = Geo<HD, DV>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const int c = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const size_t slot = ((size_t)b * p.KVH + kh) * gridDim.x + c;
-  const bool low = __syncthreads_or(convert<HD, false>(smem, p, b, kh, c * W));
+  const bool low = __syncthreads_or(convert<HD, DV, false>(smem, p, b, kh, c * W));
   if (low) {
-    convert<HD, true>(smem, p, b, kh, c * W);
+    convert<HD, DV, true>(smem, p, b, kh, c * W);
     __syncthreads();
   }
   uint4* dst = reinterpret_cast<uint4*>(static_cast<uint8_t*>(p.ws) + slot * Gm::CHUNK);
   const uint4* src = reinterpret_cast<const uint4*>(smem);
-  for (int i = threadIdx.x; i < (low ? Gm::CHUNK : 2 * Gm::KT) / 16; i += blockDim.x) dst[i] = src[i];
+  for (int i = threadIdx.x; i < (low ? Gm::CHUNK : Gm::STAGE) / 16; i += blockDim.x) dst[i] = src[i];
   if (threadIdx.x == 0) p.flags[slot] = low;
 }
 
 // ---------------------------------------------------------------------------
 // the attention
 // ---------------------------------------------------------------------------
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(const Params p) {
-  using Gm = Geo<HD>;
-  constexpr int NO = HD / 2;  // output accumulators per thread
+  using Gm = Geo<HD, DV>;
+  constexpr int NO = DV / 2;  // output accumulators per thread
   extern __shared__ __align__(1024) uint8_t smem[];
   const int GB = blockDim.x / 128;
   uint8_t* qt = smem;                       // GB q tiles (64 positions x HD, K-major)
-  uint8_t* ring = qt + GB * Gm::KT;         // NST stages of (K hi: 64 keys x HD, V^T hi: HD dims x 64 keys)
-  uint8_t* lows = ring + 2 * Gm::NST * Gm::KT;  // K mid, K lo, V^T mid, V^T lo of a flagged chunk
-  uint64_t* full = reinterpret_cast<uint64_t*>(lows + 4 * Gm::KT);  // NST stages', then the low tiles'
+  uint8_t* ring = qt + GB * Gm::KT;         // NST stages of (K hi: 64 keys x HD, V^T hi: DV dims x 64 keys)
+  uint8_t* lows = ring + Gm::NST * Gm::STAGE;  // K mid, K lo, V^T mid, V^T lo of a flagged chunk
+  uint64_t* full = reinterpret_cast<uint64_t*>(lows + Gm::LOWS);  // NST stages', then the low tiles'
   int* done = reinterpret_cast<int*>(full + Gm::NST + 1);           // warpgroups done with a stage, low tiles
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -370,14 +390,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
   auto load_hi = [&](int c) {
     if (c >= chunks) return;
     uint64_t* bar = full + c % Gm::NST;
-    mbar_expect(bar, 2 * Gm::KT);
-    bulk_copy(ring + (c % Gm::NST) * 2 * Gm::KT, ws + (size_t)c * Gm::CHUNK, 2 * Gm::KT, bar);
+    mbar_expect(bar, Gm::STAGE);
+    bulk_copy(ring + (c % Gm::NST) * Gm::STAGE, ws + (size_t)c * Gm::CHUNK, Gm::STAGE, bar);
   };
   auto load_lows = [&](int c) {
     while (c < chunks && !flags[c]) ++c;
     if (c >= chunks) return;
-    mbar_expect(full + Gm::NST, 4 * Gm::KT);
-    bulk_copy(lows, ws + (size_t)c * Gm::CHUNK + 2 * Gm::KT, 4 * Gm::KT, full + Gm::NST);
+    mbar_expect(full + Gm::NST, Gm::LOWS);
+    bulk_copy(lows, ws + (size_t)c * Gm::CHUNK + Gm::STAGE, Gm::LOWS, full + Gm::NST);
   };
   if (tid == 0) {
     for (int i = 0; i <= Gm::NST; ++i) mbar_init(full + i, 1), done[i] = 0;
@@ -421,7 +441,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
     mbar_wait(full + c % Gm::NST, (c / Gm::NST) & 1);
     const bool low = flags[c] != 0;  // some K or V value of the chunk is not exact in bf16
     if (low) mbar_wait(full + Gm::NST, nlow++ & 1);
-    const uint8_t* kt = ring + (c % Gm::NST) * 2 * Gm::KT;
+    const uint8_t* kt = ring + (c % Gm::NST) * Gm::STAGE;
     const uint8_t* vt = kt + Gm::KT;
     const bool k_low = low && !p.k_bf16, v_low = low && !p.v_bf16;  // bf16 tensors have no low tiles
 
@@ -505,7 +525,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
         }
       }
 #pragma unroll
-    for (int sl = 0; sl < HD / Gm::NS; ++sl) {
+    for (int sl = 0; sl < DV / Gm::NS; ++sl) {
       float a[Gm::NS / 2];
 #pragma unroll
       for (int j = 0; j < Gm::NS / 2; ++j) a[j] = 0.0f;
@@ -520,7 +540,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
           razer_tile::Wgmma<Gm::NS>::mma(a, pm[kk], dv);
           razer_tile::Wgmma<Gm::NS>::mma(a, pl[kk], dv);
           if (v_low) {
-            const uint64_t dm = desc(lows + 2 * Gm::KT + off, W), dl = desc(lows + 3 * Gm::KT + off, W);
+            const uint64_t dm = desc(lows + 2 * Gm::KT + off, W);
+            const uint64_t dl = desc(lows + 2 * Gm::KT + Gm::VT + off, W);
             razer_tile::Wgmma<Gm::NS>::mma(a, ph[kk], dm);
             razer_tile::Wgmma<Gm::NS>::mma(a, pm[kk], dm);
             razer_tile::Wgmma<Gm::NS>::mma(a, ph[kk], dl);
@@ -560,43 +581,45 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
     const int pos = pos0 + 8 * half;
     if (pos >= p.Sq) continue;
     const float den = half ? den1 : den0;
-    __nv_bfloat16* op = out + (((size_t)b * p.Sq + pos) * p.H + h) * HD + 2 * tq;
+    __nv_bfloat16* op = out + (((size_t)b * p.Sq + pos) * p.H + h) * DV + 2 * tq;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(op + 8 * j) =
           __floats2bfloat162_rn(__fdiv_rn(o[4 * j + 2 * half], den), __fdiv_rn(o[4 * j + 2 * half + 1], den));
   }
 }
 
-// query heads per block: the largest divisor of G up to MAX_GB
-inline int heads_per_block(int G) {
-  for (int gb = MAX_GB; gb > 1; --gb)
+// query heads per block: the largest divisor of G up to `most` (MAX_GB, or
+// fewer where their tiles would not fit in shared memory: 1 at hd 192)
+inline int heads_per_block(int G, int most) {
+  for (int gb = most; gb > 1; --gb)
     if (G % gb == 0) return gb;
   return 1;
 }
 
-template <int HD>
+template <int HD, int DV>
 cudaError_t launch(const Params& p, cudaStream_t st) {
+  using Gm = Geo<HD, DV>;
   static unsigned configured = 0;  // devices whose shared-memory limits are raised, as a bit set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 32 && !(configured & (1u << dev))) {
-    err = cudaFuncSetAttribute(prefill_attention_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Geo<HD>::bytes(MAX_GB));
+    err = cudaFuncSetAttribute(prefill_attention_tc_kernel<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)Gm::bytes(Gm::max_gb()));
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(prefill_attention_tc_split_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Geo<HD>::split_bytes());
+    err = cudaFuncSetAttribute(prefill_attention_tc_split_kernel<HD, DV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Gm::split_bytes());
     if (err != cudaSuccess) return err;
     configured |= 1u << dev;
   }
   const int nch = (p.Skv + W - 1) / W;
-  prefill_attention_tc_split_kernel<HD><<<dim3(nch, p.KVH, p.B), 256, Geo<HD>::split_bytes(), st>>>(p);
+  prefill_attention_tc_split_kernel<HD, DV><<<dim3(nch, p.KVH, p.B), 256, Gm::split_bytes(), st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int G = p.H / p.KVH, gb = heads_per_block(G);
+  const int G = p.H / p.KVH, gb = heads_per_block(G, Gm::max_gb());
   const dim3 grid(p.KVH * (G / gb), (p.Sq + BQ - 1) / BQ, p.B);
-  prefill_attention_tc_kernel<HD><<<grid, 128 * gb, Geo<HD>::bytes(gb), st>>>(p);
+  prefill_attention_tc_kernel<HD, DV><<<grid, 128 * gb, Gm::bytes(gb), st>>>(p);
   return cudaGetLastError();
 }
 
@@ -610,13 +633,13 @@ namespace f32 {
 constexpr int THREADS = 256;
 constexpr int PSTRIDE = 80;  // P row stride (floats): the two rows a warp writes fall in distinct banks
 
-template <int HD>
+template <int HD, int DV>
 struct Smem {
   static constexpr int QK_STRIDE = HD + 4;  // padded: a phase's 8 key rows hit distinct banks
   static constexpr int Q = 0;
   static constexpr int K = Q + BQ * QK_STRIDE;
   static constexpr int V = K + W * QK_STRIDE;
-  static constexpr int P = V + W * HD;
+  static constexpr int P = V + W * DV;
   static constexpr int FLOATS = P + BQ * PSTRIDE;
   static constexpr int BYTES = FLOATS * 4;
 };
@@ -637,10 +660,10 @@ __device__ __forceinline__ void stage(float* dst, int ld, const void* src, size_
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Params p) {
-  using S = Smem<HD>;
-  constexpr int DPT = HD / 16;  // output dims per thread
+  using S = Smem<HD, DV>;
+  constexpr int DPT = DV / 16;  // output dims per thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem + S::Q;
   float* ks = smem + S::K;
@@ -671,14 +694,14 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
     for (int i = 0; i < DPT; ++i) acc[r][i] = 0.0f;
   }
 
-  const size_t kv_row = (size_t)p.KVH * HD;
+  const size_t k_row = (size_t)p.KVH * HD, v_row = (size_t)p.KVH * DV;
   for (int c = 0; c < chunks; ++c) {
     const int c0 = c * W;
     __syncthreads();  // the last chunk's K, V and P are consumed
-    const size_t first = ((size_t)b * p.Skv + c0) * kv_row + (size_t)kh * HD;
+    const size_t first = (size_t)b * p.Skv + c0;  // the chunk's first key row
     const int valid = min(W, p.Skv - c0);
-    stage<HD>(ks, S::QK_STRIDE, p.k, first, kv_row, W, valid, p.k_bf16);
-    stage<HD>(vs, HD, p.v, first, kv_row, W, valid, p.v_bf16);
+    stage<HD>(ks, S::QK_STRIDE, p.k, first * k_row + (size_t)kh * HD, k_row, W, valid, p.k_bf16);
+    stage<DV>(vs, DV, p.v, first * v_row + (size_t)kh * DV, v_row, W, valid, p.v_bf16);
     __syncthreads();
 
     float s[4][4];
@@ -751,7 +774,7 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
       for (int jj = 0; jj < 4; ++jj) {
         float vv[DPT];
 #pragma unroll
-        for (int i = 0; i < DPT; ++i) vv[i] = vs[(j + jj) * HD + tx + 16 * i];
+        for (int i = 0; i < DPT; ++i) vv[i] = vs[(j + jj) * DV + tx + 16 * i];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const float pj = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
@@ -772,7 +795,7 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
     const int row = ty + 16 * r;
     if (row >= rows) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    const size_t o = (((size_t)b * p.Sq + r0 + row) * p.H + h) * HD;
+    const size_t o = (((size_t)b * p.Sq + r0 + row) * p.H + h) * DV;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const float y = __fdiv_rn(acc[r][i], den);
@@ -784,47 +807,49 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 cudaError_t launch(const Params& p, cudaStream_t st) {
+  using S = Smem<HD, DV>;
   static unsigned configured = 0;  // devices whose shared-memory limit is raised, as a bit set
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 32 && !(configured & (1u << dev))) {
-    err = cudaFuncSetAttribute(prefill_attention_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<HD>::BYTES);
+    err = cudaFuncSetAttribute(prefill_attention_f32_kernel<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               S::BYTES);
     if (err != cudaSuccess) return err;
     configured |= 1u << dev;
   }
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  prefill_attention_f32_kernel<HD><<<grid, THREADS, Smem<HD>::BYTES, st>>>(p);
+  prefill_attention_f32_kernel<HD, DV><<<grid, THREADS, S::BYTES, st>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace f32
 
-template <int HD>
+template <int HD, int DV = HD>
 cudaError_t launch(const Params& p, cudaStream_t st) {
-  return p.q_bf16 ? tc::launch<HD>(p, st) : f32::launch<HD>(p, st);
+  return p.q_bf16 ? tc::launch<HD, DV>(p, st) : f32::launch<HD, DV>(p, st);
 }
 
 }  // namespace
 
-// q (B, Sq, H, hd), k and v (B, Skv, KVH, hd), each contiguous bf16
-// (*_bf16 = 1) or f32, q 16-byte aligned; out (B, Sq, H, hd) in q's dtype.
-// A bf16 q runs the tensor-core body, which first splits K/V into ws
-// (B x KVH x ceil(Skv / 64) x 6 x 64 x hd bf16, 16-byte aligned) and flags
-// (B x KVH x ceil(Skv / 64) ints); an f32 q runs the f32 body, which reads
-// neither.  hd in {16, 32, 64, 128}, H % KVH == 0, B <= 65535, H <= 65535,
-// Sq <= 65535 x 64.  Query i sits at position q_offset + i and key
-// j at j; causal keeps keys j <= q_offset + i.  Returns
-// cudaErrorInvalidValue on arguments it does not take, else
+// q (B, Sq, H, hd), k (B, Skv, KVH, hd) and v (B, Skv, KVH, dv), each
+// contiguous bf16 (*_bf16 = 1) or f32, q 16-byte aligned; out (B, Sq, H,
+// dv) in q's dtype.  A bf16 q runs the tensor-core body, which first splits
+// K/V into ws (B x KVH x ceil(Skv / 64) x 3 x 64 x (hd + dv) bf16, 16-byte
+// aligned) and flags (B x KVH x ceil(Skv / 64) ints); an f32 q runs the
+// f32 body, which reads neither.  (hd, dv) in {(16, 16), (32, 32), (64,
+// 64), (128, 128), (192, 128)}, H % KVH == 0, B <= 65535, H <= 65535, Sq
+// <= 65535 x 64.  Query i sits at position q_offset + i and key j at j;
+// causal keeps keys j <= q_offset + i, else every key is attended.
+// Returns cudaErrorInvalidValue on arguments it does not take, else
 // cudaGetLastError() after the launches.
 extern "C" int prefill_attention_launch(const void* q, const void* k, const void* v, void* out, void* ws, int* flags,
                                         int q_bf16, int k_bf16, int v_bf16, int B, int Sq, int Skv, int H, int KVH,
-                                        int hd, int q_offset, int causal, float scale, void* stream) {
+                                        int hd, int dv, int q_offset, int causal, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH || B > 65535 || H > 65535 || q_offset < 0 ||
-      Sq > 65535 * BQ)
+      Sq > 65535 * BQ || dv != (hd == 192 ? 128 : hd))
     return static_cast<int>(cudaErrorInvalidValue);
   if (q_bf16 && (!ws || !flags)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, out, ws, flags, q_bf16, k_bf16, v_bf16, B, Sq, Skv, H, KVH, q_offset, causal, scale};
@@ -834,6 +859,7 @@ extern "C" int prefill_attention_launch(const void* q, const void* k, const void
     case 32: return static_cast<int>(launch<32>(p, st));
     case 64: return static_cast<int>(launch<64>(p, st));
     case 128: return static_cast<int>(launch<128>(p, st));
+    case 192: return static_cast<int>(launch<192, 128>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -217,10 +217,12 @@ def razer_paged_kv_attention_verify(q: torch.Tensor, cache, page_table: torch.Te
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0,
                       kv_chunk: int = 1024) -> torch.Tensor:
-    """Causal GQA prefill attention, q (B, Sq, H, hd) against k, v (B, Skv,
-    KVH, hd) -> q's shape and dtype.  On the card the prefill kernel (K9),
-    whose rows do not depend on the batch or the padding; ``kv_chunk`` is
-    the plain version's chunk and does not reach the kernel."""
+    """GQA prefill attention, causal or not, q (B, Sq, H, hd) against k
+    (B, Skv, KVH, hd) and v (B, Skv, KVH, dv) -> (B, Sq, H, dv) in q's
+    dtype (dv = hd, or MLA's narrower V).  On the card the prefill kernel
+    (K9), whose rows do not depend on the batch or the padding, at the
+    widths it is built for (anything else raises); ``kv_chunk`` is the
+    plain version's chunk and does not reach the kernel."""
     if q.is_cuda:
         return prefill_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
                                       q_offset=q_offset)

@@ -1,4 +1,4 @@
-"""Causal GQA prefill attention on Hopper: the wrapper of
+"""GQA prefill attention on Hopper, causal or not: the wrapper of
 ``csrc/prefill_attention.cu`` (K9, which has no Pallas counterpart: the JAX
 package's ``chunked_attention`` is jnp) and its plain version.
 
@@ -7,7 +7,15 @@ width up to its causal limit, so a row's bits depend only on its own query,
 the keys at or before its position and that position: not on B, Sq, the
 padded Skv, ``kv_chunk``, the GQA group around it or where the row sits in a
 tile.  That is what makes a prompt served alone at its bucket equal the same
-prompt generated inside a padded batch.
+prompt generated inside a padded batch.  Without the causal mask (whisper's
+encoder and cross-attention) every row walks all Skv keys.
+
+Head widths: q and k at 16, 32, 64 or 128 with V as wide, or at 192 (MLA:
+qk_nope 128 + qk_rope 64) with V at 128 (v_head_dim); the output has V's
+width.  The reference pads MLA's V with zeros to 192 and slices the output
+back: each output dim is its own sum over the same P, so V at 128 gives the
+kept dims' bits, and only that fits the tensor-core body's shared memory at
+hd 192 (``csrc/prefill_attention.cu``).
 
 It has two bodies, chosen by q's dtype alone (``kernel_body``): a bf16 q,
 the serving path's, runs on the tensor cores with f32 K/V/P split into
@@ -30,21 +38,29 @@ import torch
 from . import build
 from .ref import chunked_attention_ref as plain
 
-__all__ = ["prefill_attention_cuda", "plain", "HEAD_DIMS", "kernel_body", "kernel_names", "workspace_shapes"]
+__all__ = ["prefill_attention_cuda", "plain", "HEAD_DIMS", "v_width", "kernel_body", "kernel_names",
+           "workspace_shapes"]
 
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 192)  # the q/k head widths the kernel is built for
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out, ws, flags, three dtype flags, B, Sq, Skv, H, KVH, hd, q_offset, causal, scale, stream
-_ARGTYPES = [_P] * 6 + [_I] * 11 + [_F, _P]
+# q, k, v, out, ws, flags, three dtype flags, B, Sq, Skv, H, KVH, hd, dv, q_offset, causal, scale, stream
+_ARGTYPES = [_P] * 6 + [_I] * 12 + [_F, _P]
 CHUNK = 64  # keys per chunk of the kernel's walk
+
+
+def v_width(hd: int) -> int:
+    """V's head width (and the output's) the kernel takes at q/k width
+    ``hd``: MLA's v_head_dim 128 at hd 192, else hd."""
+    return 128 if hd == 192 else hd
 
 
 def workspace_shapes(b: int, skv: int, kvh: int, hd: int):
     """The tensor-core body's scratch: per (b, kv head, 64-key chunk) the
-    six bf16 part tiles of its K and V^T (hi, mid, lo), as bytes, and one
-    int flag saying whether its mid and lo tiles are non-zero."""
+    six bf16 part tiles of its K (hd wide) and V^T (``v_width(hd)``) (hi,
+    mid, lo), as bytes, and one int flag saying whether its mid and lo
+    tiles are non-zero."""
     slots = b * kvh * -(-skv // CHUNK)
-    return (slots * 6 * CHUNK * hd * 2,), (slots,)
+    return (slots * 3 * CHUNK * (hd + v_width(hd)) * 2,), (slots,)
 
 
 def kernel_body(q_dtype: torch.dtype) -> str:
@@ -71,10 +87,11 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
             raise ValueError(f"{name} must be a contiguous 4-D bf16/f32 tensor, got {t.dtype} {tuple(t.shape)}")
     b, sq, h, hd = q.shape
     _, skv, kvh, _ = k.shape
-    if tuple(k.shape) != (b, skv, kvh, hd) or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
     if h % kvh or hd not in HEAD_DIMS:
         raise ValueError(f"unsupported heads H={h}, KVH={kvh}, hd={hd} (H % KVH == 0, hd in {HEAD_DIMS})")
+    if tuple(k.shape) != (b, skv, kvh, hd) or tuple(v.shape) != (b, skv, kvh, v_width(hd)):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match "
+                         f"(v's head width at hd {hd}: {v_width(hd)})")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
@@ -87,16 +104,17 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int
 
 def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                            q_offset: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, hd); k, v (B, Skv, KVH, hd); each a contiguous bf16 or
-    f32 CUDA tensor -> (B, Sq, H, hd) in q's dtype.  Query i sits at
-    position ``q_offset + i`` and key j at j; ``causal`` keeps keys j <=
-    q_offset + i.  The scores and sums are f32 and P is rounded to V's dtype
-    before the PV product, as in the plain version.  A bf16 q runs the
-    tensor-core body, an f32 q the f32 body (``kernel_body``)."""
+    """q (B, Sq, H, hd); k (B, Skv, KVH, hd); v (B, Skv, KVH, dv), dv =
+    ``v_width(hd)``; each a contiguous bf16 or f32 CUDA tensor -> (B, Sq,
+    H, dv) in q's dtype.  Query i sits at position ``q_offset + i`` and key
+    j at j; ``causal`` keeps keys j <= q_offset + i, else every key counts.
+    The scores and sums are f32 and P is rounded to V's dtype before the PV
+    product, as in the plain version.  A bf16 q runs the tensor-core body,
+    an f32 q the f32 body (``kernel_body``)."""
     _check_args(q, k, v, q_offset)
     b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0 or skv == 0:
         return out.zero_()
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
@@ -110,7 +128,7 @@ def prefill_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
                     flags.data_ptr() if flags is not None else None, bf(q), bf(k), bf(v), b, sq, skv, h, kvh, hd,
-                    int(q_offset), int(causal), scale, torch.cuda.current_stream().cuda_stream)
+                    dv, int(q_offset), int(causal), scale, torch.cuda.current_stream().cuda_stream)
     build.check(status, "prefill_attention")
     prefill_attention_cuda.launches += 1
     return out

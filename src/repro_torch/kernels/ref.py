@@ -87,12 +87,16 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
     """Prefill attention as the JAX package computes it: an online-softmax
     walk over KV chunks of ``kv_chunk`` (halved until it divides Skv), each
     a batched matmul.  q (B, Sq, H, hd); k, v (B, Skv, KVH, hd) -> (B, Sq,
-    H, hd) in q's dtype.  Masked scores are -1e30, P is cast to V's dtype
-    before the PV product, and the output is acc / max(l, 1e-30)."""
+    H, hd) in q's dtype; ``causal=False`` attends every key.  Masked scores
+    are -1e30, P is cast to V's dtype before the PV product, and the output
+    is acc / max(l, 1e-30).  V may be narrower than q and k (MLA's V: (B,
+    Skv, KVH, dv) -> (B, Sq, H, dv)), which equals attending V zero-padded
+    to hd and slicing dv."""
     from repro_torch.models.attention import _softmax_scale
 
     b, sq, h, hd = q.shape
     _, skv, kvh, _ = k.shape
+    dv = v.shape[-1]
     g = h // kvh
     kc = _pick_chunk(skv, kv_chunk)
     scale = _softmax_scale(hd)
@@ -101,7 +105,7 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
     qpos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, kvh, g, sq), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, g, sq, hd), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32, device=q.device)
     for c0 in range(0, skv, kc):
         kblk = k[:, c0:c0 + kc].to(op).float().permute(0, 2, 3, 1)  # (b,kvh,hd,kc)
         vblk = v[:, c0:c0 + kc].permute(0, 2, 1, 3)  # (b,kvh,kc,hd)
@@ -117,7 +121,7 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 
 def rms_norm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

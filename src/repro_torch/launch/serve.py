@@ -227,6 +227,11 @@ def main(argv=None):
     sys_prompt = rng.integers(1, cfg.vocab_size, size=args.shared_prefix).tolist()
     reqs = [sys_prompt + rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 16))).tolist()
             for _ in range(args.requests)]
+    extras = {}
+    if cfg.encoder_decoder:
+        # the audio frontend stub's input: random frame embeddings per request
+        frames = rng.standard_normal((len(reqs), cfg.enc_frames, cfg.d_model))
+        extras["enc_frames"] = torch.from_numpy(frames).to(device=device, dtype=torch.bfloat16)
     where = f"mesh (ep={mesh.ep}, tp={mesh.tp}, {mesh.backend})" if mesh is not None else "one rank"
     if args.continuous or args.disagg:
         from repro_torch.obs import MetricsRegistry, Tracer
@@ -271,7 +276,7 @@ def main(argv=None):
         outputs = [r.out_tokens for r in rep.requests]
     else:
         t0 = time.perf_counter()
-        out = eng.generate(reqs)
+        out = eng.generate(reqs, extras=extras)
         dt = time.perf_counter() - t0
         outputs = [o[len(r):] for o, r in zip(out, reqs)]
         new = sum(len(o) for o in outputs)

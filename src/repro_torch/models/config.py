@@ -1,9 +1,10 @@
-"""ArchConfig for the port's decoders (counterpart of
-``repro.models.config``): the fields the dense GQA and MoE paths read."""
+"""ArchConfig for the port's models (counterpart of
+``repro.models.config``): the fields the dense GQA, MoE, MLA, M-RoPE and
+encoder-decoder paths read."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -11,7 +12,7 @@ import torch
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port runs "dense" and "moe"
+    family: str  # the port runs "dense", "moe", "vlm" and "audio"
     num_layers: int
     d_model: int
     num_heads: int
@@ -21,9 +22,14 @@ class ArchConfig:
     head_dim: Optional[int] = None
     qkv_bias: bool = False  # qwen1.5 / qwen2 style
     qk_norm: bool = False  # qwen3
+    use_rope: bool = True  # whisper: sinusoid embeddings instead
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+
+    # M-RoPE (qwen2-vl)
+    mrope: bool = False
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
 
     # MoE
     moe: bool = False
@@ -33,6 +39,23 @@ class ArchConfig:
     moe_d_ff: int = 0
     first_dense_layers: int = 0
     capacity_factor: float = 1.25
+
+    # MLA (deepseek-v2)
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+    # encoder-decoder (whisper)
+    encoder_decoder: bool = False
+    enc_layers: int = 0
+    enc_frames: int = 1500
+    act_fn: str = "swiglu"  # swiglu | gelu (whisper)
+
+    # modality frontend stub
+    frontend: str = "none"  # none | vision | audio
 
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
@@ -58,6 +81,8 @@ class ArchConfig:
             kvh = 1
         kw = dict(num_layers=min(self.num_layers, 3), d_model=heads * hd, num_heads=heads,
                   num_kv_heads=kvh, head_dim=hd, d_ff=4 * heads * hd, vocab_size=256)
+        if self.mrope:
+            kw.update(mrope_sections=(2, 3, 3))  # sums to hd // 2 = 8
         if self.moe:
             # capacity_factor high enough that the reduced config never drops
             # a slot (drops depend on which tokens share a group, and would
@@ -65,4 +90,8 @@ class ArchConfig:
             kw.update(n_experts=4, topk=min(self.topk, 2), moe_d_ff=2 * heads * hd,
                       n_shared_experts=min(self.n_shared_experts, 1),
                       first_dense_layers=min(self.first_dense_layers, 1), capacity_factor=8.0)
+        if self.mla:
+            kw.update(kv_lora_rank=32, q_lora_rank=0, qk_nope_dim=hd, qk_rope_dim=8, v_head_dim=hd)
+        if self.encoder_decoder:
+            kw.update(enc_layers=2, enc_frames=12)
         return replace(self, **kw)

@@ -1,4 +1,4 @@
-"""Shared layers of the dense decoder (PyTorch port of ``repro.models.layers``).
+"""Shared layers of the port's models (PyTorch port of ``repro.models.layers``).
 
 Conventions kept from the JAX package: parameters are float32 master copies
 cast to the compute dtype in the forward; weights are (d_in, d_out); every
@@ -55,6 +55,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections, theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: x (B, S, H, hd); positions3 (3, B, S) temporal /
+    height / width position ids (equal for text tokens); ``sections`` (t,
+    h, w) split the hd // 2 rotary frequencies among the three streams."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to hd // 2 = {hd // 2}")
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device), torch.as_tensor(sections, device=x.device))
+    pos = positions3[sec_id].movedim(0, -1)  # (B, S, hd // 2): each frequency's stream
+    ang = pos.to(torch.float32) * rope_freqs(hd, theta, x.device)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, p, quant: QuantPolicy = BF16) -> torch.Tensor:
     """SwiGLU MLP.  When all three weights are K/tp shards on a serving mesh
     the chain stays sharded: gate and up leave their f/tp columns, which
@@ -64,6 +80,21 @@ def swiglu(x: torch.Tensor, p, quant: QuantPolicy = BF16) -> torch.Tensor:
     g = qlinear(x, p["gate"], quant, gather=not chain)
     h = g * torch.sigmoid(g) * qlinear(x, p["up"], quant, gather=not chain)
     return qlinear(h, p["down"], quant, sharded_in=chain)
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, f: int, *, device, dtype=torch.float32):
+    return {"up": dense_init(gen, d, f, device=device, dtype=dtype),
+            "up_b": torch.zeros(f, dtype=dtype, device=device),
+            "down": dense_init(gen, f, d, device=device, dtype=dtype),
+            "down_b": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def gelu_mlp(x: torch.Tensor, p, quant: QuantPolicy = BF16) -> torch.Tensor:
+    """GELU MLP with biases (whisper).  The GELU is the tanh approximation,
+    which ``jax.nn.gelu`` computes by default (PyTorch's default is the
+    exact erf form)."""
+    h = F.gelu(qlinear(x, p["up"], quant, p["up_b"]), approximate="tanh")
+    return qlinear(h, p["down"], quant, p["down_b"])
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:

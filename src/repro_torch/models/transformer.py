@@ -1,17 +1,21 @@
-"""Decoder stacks of GQA attention layers with a dense SwiGLU or an MoE
-feed-forward (PyTorch port of the dense and MoE paths of
-``repro.models.transformer``).
+"""Model assembly (PyTorch port of ``repro.models.transformer``): decoder
+stacks of attention layers (GQA or MLA) with a dense MLP or an MoE
+feed-forward, and whisper's encoder-decoder.
 
 Parameters are a dict: ``embed``, ``final_norm``, optionally ``lm_head``, and
 one ``layers_<g>`` list of per-layer dicts per layer group (``layer_groups``:
 runs of consecutive layers of one type).  An ``"a"`` layer holds ``ln1``,
-``mixer`` {wq, wk, wv, wo}, ``ln2`` and ``mlp`` {gate, up, down}; an ``"m"``
-layer holds ``moe`` (router, expert banks, optional shared experts) in place
-of ``mlp``.  The keys keep the JAX package's names for its scan-stacked
-groups, so the policy rules resolve the same '/'-joined paths
-(``layers_0/mixer/wq``, ``layers_1/moe/experts/gate``); the JAX ``lax.scan``
-over a group is a loop here.  Caches are one per layer, in layer order
-across the groups.
+``mixer`` (GQA {wq, wk, wv, wo} or MLA's projections), ``ln2`` and ``mlp``
+(SwiGLU {gate, up, down} or GELU with biases); an ``"m"`` layer holds
+``moe`` (router, expert banks, optional shared experts) in place of
+``mlp``; a ``"c"`` layer (whisper's decoder) adds ``ln_x`` and ``xattn``,
+its cross-attention.  An encoder-decoder also holds ``enc_layers``, a list
+of ``"a"`` layers, and ``enc_norm``.  The keys keep the JAX package's names
+for its scan-stacked groups, so the policy rules resolve the same
+'/'-joined paths (``layers_0/mixer/wq``, ``layers_1/moe/experts/gate``);
+the JAX ``lax.scan`` over a group is a loop here.  Caches are one per
+layer, in layer order across the groups: ``{"k", "v"}`` for GQA, the
+latent ``{"c", "kr"}`` for MLA.
 """
 from __future__ import annotations
 
@@ -26,21 +30,26 @@ from repro_torch.device import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from .config import ArchConfig
-from .layers import dense_init, embed, embedding_init, rms_norm, swiglu, swiglu_init, unembed
+from .layers import (dense_init, embed, embedding_init, gelu_mlp, gelu_mlp_init, rms_norm, swiglu, swiglu_init,
+                     unembed)
 
-__all__ = ["layer_groups", "init_params", "prefill", "prefill_paged_suffix", "decode_step",
+__all__ = ["layer_groups", "init_params", "encode", "prefill", "prefill_paged_suffix", "decode_step",
            "decode_verify"]
+
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def layer_groups(cfg: ArchConfig) -> List[Tuple[str, int]]:
     """[(block_type, count)] for runs of consecutive same-type layers: "a"
     attention + dense MLP, "m" attention + MoE (after ``first_dense_layers``
-    dense ones)."""
+    dense ones), "c" whisper's decoder block with cross-attention."""
     if cfg.moe:
         nd = cfg.first_dense_layers
         types = ["a"] * nd + ["m"] * (cfg.num_layers - nd)
     else:
         types = ["a"] * cfg.num_layers
+    if cfg.encoder_decoder:
+        types = ["c"] * cfg.num_layers
     groups: List[Tuple[str, int]] = []
     for t in types:
         if groups and groups[-1][0] == t:
@@ -57,18 +66,29 @@ def _layers(params, cfg: ArchConfig) -> Iterator[Tuple[str, Dict[str, Any]]]:
             yield ltype, lp
 
 
+def _mlp(x: torch.Tensor, lp, cfg: ArchConfig, quant: QuantPolicy) -> torch.Tensor:
+    return (gelu_mlp if cfg.act_fn == "gelu" else swiglu)(x, lp["mlp"], quant)
+
+
 def _ffn(x: torch.Tensor, lp, ltype: str, cfg: ArchConfig, quant: QuantPolicy) -> torch.Tensor:
-    """The residual feed-forward half of a layer: SwiGLU or MoE."""
+    """The residual feed-forward half of a layer: the MLP or MoE."""
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if ltype == "m":
         y, _ = moe_mod.moe_forward(h2, lp["moe"], cfg, quant=quant)
         return x + y
-    return x + swiglu(h2, lp["mlp"], quant)
+    return x + _mlp(h2, lp, cfg, quant)
 
 
-def _layer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Dict[str, Any]:
+def _cross(x: torch.Tensor, lp, ltype: str, cfg: ArchConfig, quant: QuantPolicy, enc) -> torch.Tensor:
+    """A "c" layer's residual cross-attention to the encoder output."""
+    if ltype != "c" or enc is None:
+        return x
+    return x + attn.cross_forward(rms_norm(x, lp["ln_x"], cfg.norm_eps), enc, lp["xattn"], cfg, quant=quant)
+
+
+def _gqa_init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
     d, hd, dt = cfg.d_model, cfg.hd, cfg.pdtype
-    w = lambda i, o: dense_init(gen, i, o, device=device, dtype=dt)
+    w = lambda i, o: dense_init(gen, i, o, device=device, dtype=dt)  # noqa: E731
     mixer = {"wq": w(d, cfg.num_heads * hd), "wk": w(d, cfg.num_kv_heads * hd),
              "wv": w(d, cfg.num_kv_heads * hd), "wo": w(cfg.num_heads * hd, d)}
     if cfg.qkv_bias:
@@ -77,12 +97,23 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Di
     if cfg.qk_norm:
         mixer["q_norm"] = torch.zeros(hd, dtype=dt, device=device)
         mixer["k_norm"] = torch.zeros(hd, dtype=dt, device=device)
+    return mixer
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Dict[str, Any]:
+    d, dt = cfg.d_model, cfg.pdtype
+    mixer = attn.mla_init(gen, cfg, device=device, dtype=dt) if cfg.mla else _gqa_init(gen, cfg, device)
     p = {"ln1": torch.zeros(d, dtype=dt, device=device), "mixer": mixer,
          "ln2": torch.zeros(d, dtype=dt, device=device)}
     if ltype == "m":
         p["moe"] = moe_mod.moe_init(gen, cfg, device=device, dtype=dt)
+    elif cfg.act_fn == "gelu":
+        p["mlp"] = gelu_mlp_init(gen, d, cfg.d_ff, device=device, dtype=dt)
     else:
         p["mlp"] = swiglu_init(gen, d, cfg.d_ff, device=device, dtype=dt)
+    if ltype == "c":
+        p["ln_x"] = torch.zeros(d, dtype=dt, device=device)
+        p["xattn"] = attn.cross_init(gen, cfg, device=device, dtype=dt)
     return p
 
 
@@ -90,8 +121,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, A
     """Random full-precision parameters drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.  (The JAX package draws other
     numbers from its keys; tests carry its weights over with ``bridge``.)"""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the port runs dense and MoE decoders only, got family {cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the port runs the families {FAMILIES}, got {cfg.family!r}")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -103,6 +134,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, A
         p["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.pdtype)
     for gi, (ltype, count) in enumerate(layer_groups(cfg)):
         p[f"layers_{gi}"] = [_layer_init(gen, cfg, ltype, device) for _ in range(count)]
+    if cfg.encoder_decoder:
+        p["enc_layers"] = [_layer_init(gen, cfg, "a", device) for _ in range(cfg.enc_layers)]
+        p["enc_norm"] = torch.zeros(cfg.d_model, dtype=cfg.pdtype, device=device)
     return p
 
 
@@ -117,43 +151,110 @@ def _qdq_kv(x: torch.Tensor, hd: int) -> torch.Tensor:
     return kv_dequantize(*kv_quantize(x), hd)
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = BF16, *,
-            max_len: int, last_positions: Optional[torch.Tensor] = None, qdq_kv: bool = False):
-    """Run the whole prompt (B, S) and build bf16 KV caches.
+def _sinusoid(s: int, d: int, device) -> torch.Tensor:
+    """Whisper's (s, d) sinusoid position table: sin then cos halves."""
+    pos = torch.arange(s, device=device, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
-    Returns (last_logits (B, V), caches): one ``{"k", "v"}`` dict of
-    (B, max_len, KVH, hd) per layer.  ``last_positions`` (B,) are the true
-    prompt lengths of a right-padded batch.  With ``qdq_kv`` attention reads
-    the quantize-dequantized K/V, the values the packed cache will hold."""
+
+def _sinusoid_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoid row of one decode position -> (d,).  The reference
+    divides the position vector by the (d / 2,) frequencies, which
+    broadcasts only for one sequence: a batch of several fails there
+    (``TypeError`` in JAX), so this raises for one."""
+    if pos.numel() != 1:
+        raise ValueError(f"whisper's decode step takes one sequence: the reference's sinusoid position embedding "
+                         f"(transformer._sinusoid_at) broadcasts a batch's {pos.numel()} positions against the "
+                         f"{d // 2} frequencies and fails; generate one prompt at a time")
+    dim = torch.arange(d // 2, device=pos.device, dtype=torch.float32)
+    ang = pos.reshape(1).to(torch.float32) / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, frames: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = BF16) -> torch.Tensor:
+    """Whisper's encoder: frames (B, S_enc, d_model), the frontend stub's
+    frame embeddings, plus sinusoid positions, through ``enc_layers``
+    (attention without a causal mask or rope, GELU MLP) and ``enc_norm``."""
+    b, s, _ = frames.shape
+    x = frames.to(cfg.cdtype) + _sinusoid(s, cfg.d_model, frames.device).to(cfg.cdtype)
+    positions = torch.arange(s, device=frames.device).expand(b, s)
+    for lp in params["enc_layers"]:
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attn.gqa_forward(h, lp["mixer"], cfg, quant=quant, positions=positions, causal=False)
+        x = x + _mlp(rms_norm(x, lp["ln2"], cfg.norm_eps), lp, cfg, quant)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = BF16, *,
+            max_len: int, positions3: Optional[torch.Tensor] = None, frontend_embeds: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None, last_positions: Optional[torch.Tensor] = None,
+            qdq_kv: bool = False):
+    """Run the whole prompt (B, S) and build the caches.
+
+    Returns (last_logits (B, V), caches, enc): per layer a bf16 ``{"k",
+    "v"}`` dict of (B, max_len, KVH, hd), or MLA's ``{"c", "kr"}`` latent
+    cache; ``enc`` is the encoder output (whisper, from ``enc_frames``),
+    which every decode step reads, else None.  ``last_positions`` (B,) are
+    the true prompt lengths of a right-padded batch.  ``frontend_embeds``
+    (B', P, d) replace the embeddings of the leading rows and positions
+    (the vision stub); ``positions3`` (3, B, S) are M-RoPE's streams.  With
+    ``qdq_kv`` the GQA layers attend the quantize-dequantized K/V, the
+    values the packed cache will hold (MLA layers attend their own)."""
     b, s = tokens.shape
     dev = tokens.device
     x = embed(tokens, params["embed"], cfg.cdtype)
+    if frontend_embeds is not None:
+        fe = frontend_embeds.to(device=dev, dtype=x.dtype)
+        x[:fe.shape[0], :fe.shape[1]] = fe
     positions = torch.arange(s, device=dev).expand(b, s)
+    enc = None
+    if cfg.encoder_decoder:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs enc_frames (B, S_enc, d_model)")
+        enc = encode(params, enc_frames.to(dev), cfg, quant)
+        x = x + _sinusoid(s, cfg.d_model, dev).to(x.dtype)
     caches: List[Dict[str, torch.Tensor]] = []
     for ltype, lp in _layers(params, cfg):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn._qkv(h, lp["mixer"], cfg, quant, positions)
-        k = k.to(cfg.cdtype)
-        v = v.to(cfg.cdtype)
-        if qdq_kv:
-            k_att, v_att = _qdq_kv(k, cfg.hd), _qdq_kv(v, cfg.hd)
+        if cfg.mla:
+            c, kr = attn._mla_ckv(h, lp["mixer"], cfg, quant, positions)
+            x = x + attn.mla_forward(h, lp["mixer"], cfg, quant=quant, positions=positions, ckv=(c, kr))
+            cache = attn.mla_cache_init(cfg, b, max_len, device=dev, dtype=cfg.cdtype)
+            cache["c"][:, :s] = c
+            cache["kr"][:, :s] = kr
         else:
-            k_att, v_att = k, v
-        mix = attn.chunked_attention(q, k_att, v_att, causal=True)
-        x = x + qlinear(mix.reshape(b, s, -1), lp["mixer"]["wo"], quant)
-        cache = {n: torch.zeros((b, max_len, cfg.num_kv_heads, cfg.hd), dtype=cfg.cdtype, device=dev)
-                 for n in ("k", "v")}
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
+            q, k, v = attn._qkv(h, lp["mixer"], cfg, quant, positions, positions3)
+            k = k.to(cfg.cdtype)
+            v = v.to(cfg.cdtype)
+            if qdq_kv:
+                k_att, v_att = _qdq_kv(k, cfg.hd), _qdq_kv(v, cfg.hd)
+            else:
+                k_att, v_att = k, v
+            mix = attn.chunked_attention(q, k_att, v_att, causal=True)
+            x = x + qlinear(mix.reshape(b, s, -1), lp["mixer"]["wo"], quant)
+            cache = {n: torch.zeros((b, max_len, cfg.num_kv_heads, cfg.hd), dtype=cfg.cdtype, device=dev)
+                     for n in ("k", "v")}
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
         caches.append(cache)
-        x = _ffn(x, lp, ltype, cfg, quant)
+        x = _ffn(_cross(x, lp, ltype, cfg, quant, enc), lp, ltype, cfg, quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_positions is not None:
         idx = torch.as_tensor(last_positions, device=dev).long() - 1
         x_last = x[torch.arange(b, device=dev), idx][:, None]
     else:
         x_last = x[:, -1:]
-    return unembed(x_last, _head(params))[:, 0], caches
+    return unembed(x_last, _head(params))[:, 0], caches, enc
+
+
+def _gqa_stack_only(cfg: ArchConfig, what: str) -> None:
+    """The paged paths run stacks of "a" and "m" layers only: ``what``
+    (the reference's words) and the first other layer type raise."""
+    for ltype, _ in layer_groups(cfg):
+        if ltype not in ("a", "m"):
+            raise ValueError(f"{what}, got layer type {ltype!r} (serving/pagepool.py rejects these archs)")
 
 
 def prefill_paged_suffix(params, tokens: torch.Tensor, pool_caches, page_row: torch.Tensor, pre_len: int,
@@ -176,6 +277,7 @@ def prefill_paged_suffix(params, tokens: torch.Tensor, pool_caches, page_row: to
     writes with ``write_prefill(..., start=pre_len)``."""
     from repro_torch.serving.kvcache import kv_dequantize
 
+    _gqa_stack_only(cfg, "prefix-cached prefill supports GQA attention stacks only")
     b, s = tokens.shape
     dev = tokens.device
     kvh, hd = cfg.num_kv_heads, cfg.hd
@@ -207,15 +309,27 @@ def prefill_paged_suffix(params, tokens: torch.Tensor, pool_caches, page_row: to
 
 
 def decode_step(params, token: torch.Tensor, caches, cur_len: torch.Tensor, cfg: ArchConfig,
-                quant: QuantPolicy = BF16, *, pages: Optional[torch.Tensor] = None):
+                quant: QuantPolicy = BF16, *, enc: Optional[torch.Tensor] = None,
+                positions3: Optional[torch.Tensor] = None, pages: Optional[torch.Tensor] = None):
     """token (B,) at positions ``cur_len`` (B,) -> (logits (B, V), caches);
-    the caches are updated in place.  With ``pages`` (B, NP) the caches are
-    the paged pool's per-layer views and every layer shares the table."""
+    the caches are updated in place.  ``enc``: the encoder output prefill
+    returned (whisper's cross-attention reads it every step);
+    ``positions3`` (3, B, 1): M-RoPE's streams.  With ``pages`` (B, NP) the
+    caches are the paged pool's per-layer views and every layer shares the
+    table (GQA only)."""
     x = embed(token[:, None], params["embed"], cfg.cdtype)
+    if cfg.encoder_decoder:
+        x = x + _sinusoid_at(torch.as_tensor(cur_len, device=x.device), cfg.d_model).to(x.dtype)[None, None, :]
     for i, (ltype, lp) in enumerate(_layers(params, cfg)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        mix, caches[i] = attn.gqa_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant, pages=pages)
-        x = _ffn(x + mix, lp, ltype, cfg, quant)
+        if cfg.mla:
+            if pages is not None:
+                raise ValueError("paged KV decode supports GQA attention only (not MLA)")
+            mix, caches[i] = attn.mla_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant)
+        else:
+            mix, caches[i] = attn.gqa_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant,
+                                             positions3=positions3, pages=pages)
+        x = _ffn(_cross(x + mix, lp, ltype, cfg, quant, enc), lp, ltype, cfg, quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, _head(params))[:, 0], caches
 
@@ -226,6 +340,7 @@ def decode_verify(params, tokens: torch.Tensor, caches, cur_len: torch.Tensor, c
     last committed token and the T - 1 drafts per slot -> (logits (B, T, V),
     caches).  Position t's logits predict the token at ``cur_len + t + 1``;
     each layer goes through ``attn.gqa_decode_verify``."""
+    _gqa_stack_only(cfg, "speculative verify supports paged GQA attention stacks only")
     x = embed(tokens, params["embed"], cfg.cdtype)  # (B, T, d)
     for i, (ltype, lp) in enumerate(_layers(params, cfg)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -4,7 +4,8 @@ weights, optional W4A4 activation fake-quant, and the RaZeR-packed KV cache.
 Two serving modes:
 
   * ``Engine.generate`` -- static batching: one ragged batch of prompts is
-    right-padded to a power-of-two bucket, prefilled in one pass, and
+    right-padded to a power-of-two bucket (to its longest prompt for the
+    archs that take frontend or encoder inputs), prefilled in one pass, and
     greedy-decoded over fixed (batch, max_len) caches with per-sequence
     lengths.
   * ``Engine.serve``    -- continuous batching: a ``serving.scheduler``
@@ -243,16 +244,34 @@ class Engine:
     @torch.no_grad()
     def _bucketed_prefill(self, toks: np.ndarray, lens: np.ndarray, *, max_len: int, qdq_kv: bool):
         """Prefill a batch already padded to its bucket -> (last logits, bf16 caches)."""
-        return tf.prefill(self.params, torch.as_tensor(toks, device=self.device), self.cfg,
-                          self.policy, max_len=max_len,
-                          last_positions=torch.as_tensor(lens, device=self.device), qdq_kv=qdq_kv)
+        last, caches, _ = tf.prefill(self.params, torch.as_tensor(toks, device=self.device), self.cfg,
+                                     self.policy, max_len=max_len,
+                                     last_positions=torch.as_tensor(lens, device=self.device), qdq_kv=qdq_kv)
+        return last, caches
+
+    @_on_mesh
+    @torch.no_grad()
+    def _prefill(self, toks: np.ndarray, lens: np.ndarray, extras: Dict[str, Any]):
+        """The exact-length prefill of the archs that take ``extras``: the
+        frontend's embeddings and whisper's frames ride along, and the
+        attention reads the in-pass K/V (no ``qdq_kv``), as the reference's
+        exact-length prefill does.  -> (last logits, bf16 caches, enc)."""
+        feed = {name: torch.as_tensor(extras[name], device=self.device)
+                for name in ("frontend_embeds", "enc_frames") if extras.get(name) is not None}
+        return tf.prefill(self.params, torch.as_tensor(toks, device=self.device), self.cfg, self.policy,
+                          max_len=self.scfg.max_len, last_positions=torch.as_tensor(lens, device=self.device),
+                          **feed)
 
     def _quantize_caches(self, caches):
-        """bf16 caches -> the packed layout (App. C.1)."""
+        """bf16 GQA caches -> the packed layout (App. C.1); MLA's latent
+        ``{"c", "kr"}`` caches stay bf16, as in the reference."""
         from repro_torch.serving.kvcache import kv_quantize
 
         out = []
         for c in caches:
+            if "k" not in c:
+                out.append(c)
+                continue
             kc, km = kv_quantize(c["k"], spec=self.policy.kv)
             vc, vm = kv_quantize(c["v"], spec=self.policy.kv)
             out.append({"k_codes": kc, "k_meta": km, "v_codes": vc, "v_meta": vm})
@@ -260,28 +279,30 @@ class Engine:
 
     @_on_mesh
     @torch.no_grad()
-    def _decode_step(self, tok: torch.Tensor, caches, cur: torch.Tensor):
-        return tf.decode_step(self.params, tok, caches, cur, self.cfg, self.policy)
+    def _decode_step(self, tok: torch.Tensor, caches, cur: torch.Tensor, enc: Optional[torch.Tensor] = None):
+        return tf.decode_step(self.params, tok, caches, cur, self.cfg, self.policy, enc=enc)
 
     @_on_mesh
-    def generate(self, prompts: Sequence[Sequence[int]],
+    def generate(self, prompts: Sequence[Sequence[int]], extras: Optional[Dict[str, Any]] = None,
                  max_new_tokens: Optional[int] = None) -> List[List[int]]:
         """Greedy-decode a batch of token prompts; ``stats`` then holds the
-        host-clock seconds of the prefill and of the decode steps."""
+        host-clock seconds of the prefill and of the decode steps.
+
+        GQA and MLA stacks prefill the batch padded to its power-of-two
+        bucket.  Archs with a modality frontend, an encoder-decoder, or any
+        ``extras`` ({"frontend_embeds": (B, P, d), "enc_frames": (B,
+        S_enc, d)}) prefill at the exact longest length with the extras,
+        attending the in-pass K/V, and whisper's encoder output goes to
+        every decode step.  Whisper decodes one sequence at a time (the
+        reference's position embedding fails on a batch; here a
+        ``ValueError``)."""
         n_new = max_new_tokens or self.scfg.max_new_tokens
         self._check_prompts(prompts, n_new)
         b = len(prompts)
-        lens = np.array([len(p) for p in prompts], np.int32)
-        s = self._bucket(int(lens.max()), cap=self.scfg.max_len)
-        toks = np.zeros((b, s), np.int64)
-        for i, p in enumerate(prompts):
-            toks[i, : len(p)] = p
+        toks, lens, _ = self._prefill_input(prompts, extras)
 
         t0 = time.perf_counter()
-        last, caches = self._bucketed_prefill(toks, lens, max_len=self.scfg.max_len,
-                                              qdq_kv=self.kv_quant)
-        if self.kv_quant:
-            caches = self._quantize_caches(caches)
+        last, caches, enc = self._prefill_batch(toks, lens, extras)
         tok = torch.argmax(last, dim=-1)
         out = [list(p) for p in prompts]
         done = np.zeros(b, bool)
@@ -297,14 +318,44 @@ class Engine:
                 t1 = time.perf_counter()
             if done.all() or step == n_new - 1:
                 break
-            logits, caches = self._decode_step(tok, caches, cur)
+            logits, caches = self._decode_step(tok, caches, cur, enc)
             tok = torch.argmax(logits, dim=-1)
             cur = cur + 1
             steps += 1
         t2 = time.perf_counter()
         self.stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1, "decode_steps": steps,
-                      "batch": b, "bucket": s}
+                      "batch": b, "bucket": toks.shape[1]}
         return out
+
+    def _bucketed(self, extras: Optional[Dict[str, Any]]) -> bool:
+        return not (self.cfg.encoder_decoder or self.cfg.frontend != "none" or extras)
+
+    def _prefill_input(self, prompts: Sequence[Sequence[int]], extras: Optional[Dict[str, Any]] = None):
+        """``generate``'s prefill input: (tokens (B, S) int64 zero-padded,
+        lengths (B,) int32, bucketed).  S is the power-of-two bucket of the
+        longest prompt for GQA and MLA stacks, its exact length for archs
+        with a frontend, an encoder-decoder or any ``extras``."""
+        lens = np.array([len(p) for p in prompts], np.int32)
+        bucketed = self._bucketed(extras)
+        s = self._bucket(int(lens.max()), cap=self.scfg.max_len) if bucketed else int(lens.max())
+        toks = np.zeros((len(prompts), s), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, : len(p)] = p
+        return toks, lens, bucketed
+
+    def _prefill_batch(self, toks: np.ndarray, lens: np.ndarray, extras: Optional[Dict[str, Any]] = None):
+        """``generate``'s prefill of ``_prefill_input``'s tokens: bucketed
+        (K/V through the wire format under the KV policy) or exact-length
+        with the extras, then the caches packed under the KV policy.
+        -> (last logits, caches, enc or None)."""
+        if self._bucketed(extras):
+            (last, caches), enc = self._bucketed_prefill(toks, lens, max_len=self.scfg.max_len,
+                                                         qdq_kv=self.kv_quant), None
+        else:
+            last, caches, enc = self._prefill(toks, lens, extras or {})
+        if self.kv_quant:
+            caches = self._quantize_caches(caches)
+        return last, caches, enc
 
     # -- continuous batching (paged KV pool + scheduler) ---------------------
     def draft_source_params(self):

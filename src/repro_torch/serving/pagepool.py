@@ -107,10 +107,17 @@ class PageShipment:
 
 
 def _check_paged_arch(cfg: ArchConfig) -> None:
-    """The pool stores the GQA wire format of the port's dense and MoE decoders."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"paged KV serving supports GQA attention stacks (dense or MoE); arch {cfg.name!r} "
-                         f"is {cfg.family!r}")
+    """The pool stores the GQA wire format; archs whose decode state is not a
+    per-token GQA cache cannot page it (they keep the static engine path).
+    Modality frontends are refused too: ``serve`` has no extras path, so a
+    VLM or audio prefill would drop its frontend embeddings."""
+    if cfg.mla or cfg.encoder_decoder or cfg.frontend != "none":
+        raise ValueError(
+            "paged KV serving supports pure GQA-attention stacks (dense or MoE); "
+            f"arch {cfg.name!r} has "
+            + ", ".join(k for k, v in [("mla", cfg.mla), ("encoder_decoder", cfg.encoder_decoder),
+                                       (f"a {cfg.frontend} frontend", cfg.frontend != "none")] if v)
+            + " -- use Engine.generate (static batching) for it")
     if cfg.hd % 16 != 0:
         raise ValueError(f"quantized KV pages need head_dim % 16 == 0, got hd={cfg.hd}")
 

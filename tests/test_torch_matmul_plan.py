@@ -17,23 +17,48 @@ from repro_torch.kernels.razer_matmul import BK, BN, GRID_Z, MAX_SPLITS, TOKEN_T
 TILE_HEADER = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc" / "razer_matmul_tile.cuh"
 
 
+def _linears(cfg):
+    """(name, K, N) of every packed linear of a full-width config: the
+    attention block's (GQA, or MLA's q_a / kv_a / wo, and q_b, which the
+    default rules keep dense with kv_b, planned as well), whisper's
+    cross-attention, the dense layers' MLP (SwiGLU or GELU) and the shared
+    experts."""
+    d = cfg.d_model
+    if cfg.mla:
+        h, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        att = [("q_a", d, cfg.q_lora_rank), ("q_b", cfg.q_lora_rank, h * (dn + dr)),
+               ("kv_a", d, cfg.kv_lora_rank + dr), ("wo", h * cfg.v_head_dim, d)]
+    else:
+        q, kv = cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
+        att = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
+    if cfg.encoder_decoder:
+        att += [(f"xattn_{n}", k, nn) for n, k, nn in att]
+    mlp = [("up", d, cfg.d_ff), ("down", cfg.d_ff, d)] if cfg.act_fn == "gelu" else \
+        [("gate", d, cfg.d_ff), ("up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
+    if not cfg.n_experts or cfg.first_dense_layers:
+        att += mlp
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.moe_d_ff
+        att += [("shared_gate", d, fs), ("shared_up", d, fs), ("shared_down", fs, d)]
+    return att
+
+
 def _packed_shapes():
     """(name, E, K, N) of every packed GEMM of every full-width config of
-    the port (``ARCHS``: llama3_2_3b, dbrx_132b and the six dense models of
-    the paper's evaluation), meshless and as tp 2 K-shards (local K = K /
-    2), with dbrx's banks on E 16 and on the (2, *) mesh's E 8."""
+    the port (``ARCHS``: llama3_2_3b, dbrx_132b, the six dense models of
+    the paper's evaluation, deepseek_v2_236b, qwen2_vl_7b and
+    whisper_base), meshless and as tp 2 K-shards (local K = K / 2), with
+    the expert banks on E and on the (2, *) mesh's E / 2."""
     out = []
     for arch in ARCHS:
         cfg = get_config(arch)
-        d, q, kv = cfg.d_model, cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd
-        linears = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
+        d = cfg.d_model
         if cfg.n_experts:
             f = cfg.moe_d_ff
             banks = [("gate", d, f), ("up", d, f), ("down", f, d)]
             out += [(f"{arch}:{n}:E{e}", e, k, nn) for n, k, nn in banks for e in (cfg.n_experts, cfg.n_experts // 2)]
             out += [(f"{arch}:{n}:E{cfg.n_experts}:tp2", cfg.n_experts, k // 2, nn) for n, k, nn in banks]
-        else:
-            linears += [("gate", d, cfg.d_ff), ("up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
+        linears = _linears(cfg)
         out += [(f"{arch}:{n}", 1, k, nn) for n, k, nn in linears]
         out += [(f"{arch}:{n}:tp2", 1, k // 2, nn) for n, k, nn in linears]
     return out
@@ -47,7 +72,10 @@ def test_shapes_cover_the_tp2_local_ks():
     assert {k for name, _, k, _ in SHAPES if name.endswith("tp2")} == {
         1536, 4096, 3072, 5376,  # llama3_2_3b, dbrx_132b
         2048, 7168, 5504, 6144, 6720,  # d_model 4096; d_ff 14336, 11008, 12288, 13440
-        2560, 12800, 3584, 9600}  # qwen3_32b (d 5120, f 25600), deepseek_coder_33b (d 7168, f 19200)
+        2560, 12800, 3584, 9600,  # qwen3_32b (d 5120, f 25600), deepseek_coder_33b (d 7168, f 19200)
+        768, 8192,  # deepseek_v2_236b (q_lora 1536 and expert d_ff 1536, MLA's wo 128 x 128)
+        1792, 9472,  # qwen2_vl_7b (d 3584, f 18944)
+        256, 1024}  # whisper_base (d 512, f 2048)
 
 
 @pytest.mark.parametrize("name,e,k,n", SHAPES, ids=[s[0] for s in SHAPES])
@@ -93,12 +121,16 @@ def test_token_tile_is_the_smallest_that_holds_m(m):
 
 
 def test_decode_shapes_fill_the_card():
-    """At decode the split brings every full-width llama linear to at least
-    one block per SM of an H100 (132), capped by the cluster size."""
+    """At decode the split brings every full-width linear to at least one
+    block per SM of an H100 (132), capped by the cluster size: at most
+    MAX_SPLITS splits with none empty (K's 28 tiles at qwen2_vl_7b's tp 2
+    K/V projections split 7 ways of 4), or one split per K tile."""
     for name, e, k, n in SHAPES:
         plan = launch_plan(e, 4, n, k)
         blocks = plan.grid[0] * plan.grid[2]
-        assert blocks >= 132 or plan.splits == MAX_SPLITS or plan.splits == k // BK, (name, plan)
+        k_tiles = k // BK
+        most = -(-k_tiles // -(-k_tiles // MAX_SPLITS))  # the most non-empty splits within MAX_SPLITS
+        assert blocks >= 132 or plan.splits == most or plan.splits == k_tiles, (name, plan)
 
 
 @pytest.mark.parametrize("e,m,n,k", [(1, 4, 64, 32), (1, 4, 64, 96), (1, 0, 64, 64), (0, 4, 64, 64),
