@@ -46,7 +46,16 @@ Phases, each printing one line (and failing the run with a traceback):
                 (16 of its 160 experts); K3 at whisper's 8 heads of 64; K9
                 at Qwen2-VL's exact-length prefill and whisper's decoder
                 prefill; K10 at d 3584 and 512 and on MLA's q_norm and
-                kv_norm rows;
+                kv_norm rows; and at the recurrent archs' shapes (phase
+                11): K9 at RecurrentGemma's attention (hd 256, 10 heads on
+                one KV head, window 2048), q, K and V bf16 and f32, against
+                its plain version, rows alone == in a batch and a
+                continuation at q_offset 1000 bit for bit, timed at B 4 x
+                3072 beside SDPA with the band as a boolean mask; K1/K7
+                (with K2 and the fused path) at the two models' new (K,
+                N), Mamba's in_proj N 4384 (a ragged last column block)
+                among them, at M 4, 128 and 4096; K10 at d 2560, 2048
+                (Mamba's gated norm) and 1024;
   4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
@@ -115,10 +124,12 @@ Phases, each printing one line (and failing the run with a traceback):
   7. paper   -- the paper's dense models at full width, random weights
                 with the qkv biases and qk-norm gains drawn nonzero:
                 llama3_1_8b at full depth (32 layers) through generate and
-                serve under both policies, vanilla, and speculate_k=2 with
-                a bf16 draft under W4 + KV (its W4A4 + KV speculative serve
-                was cut to make room for phase 10: phase 4c runs W4A4
-                speculation on llama3_2_3b); llama2_7b, qwen3_8b, qwen3_32b,
+                serve under W4 + KV, vanilla, and speculate_k=2 with a bf16
+                draft, and under W4A4 + KV vanilla on its first 16 layers
+                (LLAMA8B_W4A4_LAYERS: the room went to phase 11; its W4A4
+                speculative serve was cut for phase 10 and runs in phase
+                4c on llama3_2_3b), each part on the phase clock;
+                llama2_7b, qwen3_8b, qwen3_32b,
                 codeqwen1_5_7b and deepseek_coder_33b cut to 2 layers
                 through generate and vanilla serve; exact launch counts,
                 serve == generate (and speculative == vanilla) asserted for
@@ -182,13 +193,31 @@ Phases, each printing one line (and failing the run with a traceback):
                 widths), card against CPU from the same weights: logits
                 within ZOO_CARD_CPU_TOL, generate's tokens equal (a
                 difference only where the CPU's top-2 gap is at most the
-                largest logit difference measured).
+                largest logit difference measured);
+ 11. recurrent -- the recurrent archs through Engine.generate at full
+                width and depth, random weights (seed 0) packed on the card
+                under W4 + KV and W4A4 + KV, as phase 10 runs its models:
+                (a) recurrentgemma_2b (26 layers, RG-LRU and windowed
+                attention in the pattern r, r, a; window 2048, hd 256) from
+                4 prompts of 3072 random tokens, max_len 4096; (b)
+                mamba2_370m (48 Mamba-2 layers) from 4 prompts of 1024;
+                exact launch counts (K1 8 an RG-LRU layer, 7 an attention
+                layer, 2 a Mamba layer; K9 once an attention layer a
+                prefill; no K3: the windowed decode is plain, as in the
+                reference), prefill ms, decode ms a step, peak memory, the
+                device idle share of a short W4 + KV generate and serve's
+                refusal; (c) each narrow in bf16, card against CPU, as
+                phase 10 (d), prompts of one length, within
+                RECURRENT_CARD_CPU_TOL.
 Phase 3 also checks the K-shard kernels K7 (llama linears, tp 2) and K8
 (dbrx banks on (1, 2) and (2, 2) tiles): chunked output == K1/K6 on the same
 shard, permuted, bit for bit; rows bit-identical across M.  Each kernel's
 timing row also carries its own device time per launch from a torch.profiler
 pass over the same loop (L2 flushed before each attention launch), beside
-the CUDA-event time, which at decode sizes is the host's issue rate.
+the CUDA-event time, which at decode sizes is the host's issue rate; a
+row whose kernel the profiler does not record in three tries keeps its
+event time and says its device time is missing (a fault of the profiler,
+not of the kernel: every correctness check stays a hard failure).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -259,6 +288,9 @@ def _flush_l2():
     _L2_FLUSH[0].zero_()
 
 
+PROFILER_MISSES = []  # tags whose device time the profiler did not record (a fault of the profiler)
+
+
 def _device_ms(run, tag: str, reps: int = 3, cold: bool = False):
     """Device time of the kernels whose profiler name holds ``tag`` (a
     packed GEMM's instantiation, e.g. ``gemm_kernel<K1,``) over ``reps``
@@ -267,7 +299,13 @@ def _device_ms(run, tag: str, reps: int = 3, cold: bool = False):
     the host's issue rate as much as the kernel; this is the kernels' own
     time.  ``cold``: overwrite a 128 MB buffer before each run, so that the
     run finds its inputs in device memory, not in L2, as a decode step's
-    layer does."""
+    layer does.
+
+    A profiler that records no such kernel in three tries is a fault of the
+    profiler, not of the kernel (it happened on an H100 with every check
+    passing): the device time is then missing, (None, 0), the tag goes to
+    ``PROFILER_MISSES`` and a line says so; the caller keeps its CUDA-event
+    time.  No correctness check depends on this."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -287,7 +325,16 @@ def _device_ms(run, tag: str, reps: int = 3, cold: bool = False):
         if launches:
             return sum(e.self_device_time_total for e in events) / 1e3 / reps, launches / reps
         seen.update(e.key[:60] for e in device)
-    raise RuntimeError(f"the profiler recorded no kernel named like {tag!r}; it saw {sorted(seen)[:8]}")
+    PROFILER_MISSES.append(tag)
+    print(f"profiler: no device event named like {tag!r} in three tries (it saw {sorted(seen)[:8]}); its device "
+          "time is recorded as missing, its CUDA-event time kept")
+    return None, 0
+
+
+def _sum_or_none(values):
+    """The sum of device times, None where the profiler missed one."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
 
 
 def _with_device_time(row, run, tag, launches_per_unit: int, cold: bool = False):
@@ -297,9 +344,11 @@ def _with_device_time(row, run, tag, launches_per_unit: int, cold: bool = False)
     not shrink it); ``profiled_launches_per_run`` says how many it kept.
     The tag sums every kernel of one call whose name holds it."""
     total, launches = _device_ms(run, tag, cold=cold)
-    per_launch = total / launches
-    row.update({"device_ms": per_launch * launches_per_unit, "device_ms_per_launch": per_launch,
-                "profiled_launches_per_run": launches})
+    per_launch = None if total is None else total / launches
+    row.update({"device_ms": None if total is None else per_launch * launches_per_unit,
+                "device_ms_per_launch": per_launch, "profiled_launches_per_run": launches})
+    if total is None:
+        row["device_ms_missing"] = "the profiler recorded no event of this kernel; ms is the CUDA-event time"
     return row
 
 
@@ -448,8 +497,18 @@ def _packed_linears(cfg):
     """(name, K, N) of every packed linear of a full-width config: GQA's
     four (MLA's q_a or wq, kv_a and wo: q_b and kv_b stay dense), whisper's
     cross-attention, the dense layers' MLP (SwiGLU or GELU) and the shared
-    experts; a dense GQA model's are ``_linear_shapes``'."""
+    experts; Mamba-2's in_proj and out_proj, the RG-LRU block's w_in,
+    w_gate, wa, wx and out_proj; a dense GQA model's are
+    ``_linear_shapes``'."""
     d = cfg.d_model
+    if cfg.ssm:
+        d_inner = cfg.ssm_expand * d
+        return [("in_proj", d, 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_head_dim),
+                ("out_proj", d_inner, d)]
+    if cfg.block_pattern:
+        w = cfg.lru_width or d
+        return _linear_shapes(cfg) + [("w_in", d, w), ("w_gate", d, w), ("wa", w, w), ("wx", w, w),
+                                      ("out_proj", w, d)]
     if cfg.mla:
         q = [("q_a", d, cfg.q_lora_rank)] if cfg.q_lora_rank else \
             [("wq", d, cfg.num_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim))]
@@ -660,9 +719,9 @@ def _check_fused_act(cfg, dev, gen, detail, tag=""):
         row = _with_device_time({"ms": _cuda_ms(run(True), reps=10) / 4, "plain_ms": _cuda_ms(plain_layer, reps=3),
                                  "library_ms": None, "bound_ms": bound, "bound_by": by},
                                 run(True), "gemm_kernel<K1,", 7)
-        k1_ms = _device_ms(run(False), "gemm_kernel<K1,")[0] / 4
-        k2_ms = _device_ms(run(False), "razer_act_qdq_kernel")[0] / 4
-        row.update(two_launch_ms=_cuda_ms(run(False), reps=10) / 4, two_launch_device_ms=k1_ms + k2_ms,
+        k1_ms, k2_ms = (None if t is None else t / 4 for t in (_device_ms(run(False), "gemm_kernel<K1,")[0],
+                                                                 _device_ms(run(False), "razer_act_qdq_kernel")[0]))
+        row.update(two_launch_ms=_cuda_ms(run(False), reps=10) / 4, two_launch_device_ms=_sum_or_none((k1_ms, k2_ms)),
                    two_launch_k1_device_ms=k1_ms, two_launch_k2_device_ms=k2_ms, k2_launches_per_layer_fused=0,
                    k2_launches_per_layer_two_launch=7)
         out[m] = row
@@ -673,9 +732,59 @@ def _check_fused_act(cfg, dev, gen, detail, tag=""):
 # The prefill kernel (K9) against its plain version: q bf16 with K/V f32
 # (as prefill(qdq_kv=True) gives them: P stays f32) within one bf16 ulp of
 # the output, where the f32 values before the cast may fall on the two
-# sides of a rounding edge; with bf16 K/V also within 2^-9, since P is
+# sides of a rounding edge; with bf16 V also within 2^-9, since P is
 # rounded to bf16 in both and an f32 ulp of p can move that rounding.
 PREFILL_TOL = {torch.float32: dict(rtol=2**-7, atol=1e-6), torch.bfloat16: dict(rtol=2**-7, atol=2**-9)}
+PREFILL_FLIPS_MAX = 8  # bf16-V rows (query, head) of one check that may leave PREFILL_TOL by one flip of P's rounding
+PREFILL_FLIPS = []  # each such row: the check, its index, |error|, what one flip allows
+
+
+def _key_weights(q, k, b, i, h, **mask):
+    """p_j / l over the keys of K9's (query, head) row (b, i, h), in f32:
+    the plain version of that one query over a one-hot V (a value dim per
+    key)."""
+    from repro_torch.kernels import ref
+
+    skv, kvh = k.shape[1], k.shape[2]
+    onehot = torch.eye(skv, device=q.device).reshape(1, skv, 1, skv).expand(1, skv, kvh, skv)
+    mask = dict(mask, q_offset=mask.get("q_offset", 0) + i)
+    return ref.chunked_attention_ref(q[b:b + 1, i:i + 1].float(), k[b:b + 1], onehot, **mask)[0, 0, h]
+
+
+def _assert_prefill_close(got, want, q, k, v, what="", **mask):
+    """K9's output ``got`` against its plain version ``want`` =
+    ``ref.chunked_attention_ref(q, k, v, **mask)`` within PREFILL_TOL.
+
+    With bf16 V both round P to bf16 before the P V product, and the
+    kernel's f32 p can differ from the plain version's by an ulp (its
+    scores sum in another order, its exponent is base 2), which can flip
+    that rounding: one bf16 ulp of p_j, at most 2^-7 p_j, moves the
+    outputs of its (query, head) row by up to 2^-7 p_j |v_j| / l, and l by
+    as much.  At a row with few keys one flip can leave PREFILL_TOL
+    (ROADMAP C.4: 1 of 13,312,000 outputs at hd 256, row 11, 0.0027
+    against 0.0020).  So the outputs of at most PREFILL_FLIPS_MAX rows of a
+    bf16-V check may leave it, each within 2^-9 + 2^-7 |want| + 2 * 2^-7
+    max_j p_j |v_j| / l (one flip's largest move, counted for the sum and
+    for l); each such row is listed in PREFILL_FLIPS and printed.  Returns
+    the largest |error|."""
+    err = (got.float() - want.float()).abs()
+    tol = PREFILL_TOL[v.dtype]
+    outside = (err > tol["atol"] + tol["rtol"] * want.float().abs()).nonzero().tolist()
+    rows = sorted({(b, i, h) for b, i, h, _ in outside})
+    if rows and (v.dtype != torch.bfloat16 or len(rows) > PREFILL_FLIPS_MAX):
+        torch.testing.assert_close(got.float(), want.float(), **tol, msg=lambda m: f"{what}: {len(rows)} rows: {m}")
+    for b, i, h in rows:
+        dims = [d for bb, ii, hh, d in outside if (bb, ii, hh) == (b, i, h)]
+        pv = _key_weights(q, k, b, i, h, **mask)[:, None] * v[b, :, h // (q.shape[2] // k.shape[2]), dims].float().abs()
+        terms = pv.amax(dim=0).tolist()  # max_j p_j |v_j| / l at each of the row's dims
+        allowed = [2**-9 + 2**-7 * abs(float(want[b, i, h, d])) + 2 * 2**-7 * t for d, t in zip(dims, terms)]
+        errs = [float(err[b, i, h, d]) for d in dims]
+        flip = {"check": what, "row": [b, i, h], "dims": dims, "abs_err": errs, "largest_key_term": terms,
+                "one_flip_allows": allowed}
+        PREFILL_FLIPS.append(flip)
+        print("K9 row beyond PREFILL_TOL, within one flip of P's rounding: " + json.dumps(flip), flush=True)
+        assert all(e <= a for e, a in zip(errs, allowed)), (f"{what}: beyond what one flip of P's rounding moves", flip)
+    return float(err.max())
 
 
 def _wire_kv(shape, gen, dev):
@@ -723,7 +832,7 @@ def _check_prefill_attention(cfg, dev, gen, detail, tag="", timed=PREFILL_TIMED,
             k, v = (torch.randn((8, 128, kvh, hd), generator=gen, device=dev).to(dt) for _ in range(2))
         got = attend(q, k, v)
         want = ref.chunked_attention_ref(q, k, v)
-        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[k.dtype])
+        _assert_prefill_close(got, want, q, k, v, f"K9 B 8 x 128 {kind}")
         if kind == "f32":
             max_err = float((got.float() - want.float()).abs().max())
         for r, n in enumerate(lens):
@@ -753,8 +862,7 @@ def _check_prefill_attention(cfg, dev, gen, detail, tag="", timed=PREFILL_TIMED,
         bound, by = _bound_ms(nbytes, 4 * hd * h * pairs)
         reps = 20 if s <= 128 else 3
         got, want = attend(q, k, v), ref.chunked_attention_ref(q, k, v)
-        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[k.dtype])
-        err = float((got.float() - want.float()).abs().max())
+        err = _assert_prefill_close(got, want, q, k, v, f"K9 B {b} x {s}")
         del got, want
         row = {"max_abs_err": err, "ms": _cuda_ms(lambda: attend(q, k, v), reps=reps),
                "plain_ms": _cuda_ms(lambda: ref.chunked_attention_ref(q, k, v), reps=reps),
@@ -764,32 +872,35 @@ def _check_prefill_attention(cfg, dev, gen, detail, tag="", timed=PREFILL_TIMED,
         # a call's kernels, each profiled under its own name; the launch counter adds one a call, so
         # device_ms_per_launch is per call: the sum over the call's launches_per_call kernels
         row["device_ms_by_kernel"] = {n: _device_ms(lambda: attend(q, k, v), n)[0] for n in names}
-        row["device_ms"] = row["device_ms_per_launch"] = sum(row["device_ms_by_kernel"].values())
+        row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
         row["launches_per_call"] = len(names)
         out[(b, s, kind)] = row
         detail[f"prefill_attention_B{b}_S{s}" + ("_wire" if kind == "wire" else "") + tag] = row
     return max([max_err] + [r["max_abs_err"] for r in out.values()]), out[timed[0]]
 
 
-def _timed_attention(attend, plain, library, q, k, v, bound, detail_key, detail, reps):
-    """One K9 timing row: held against ``plain`` within PREFILL_TOL (bf16
-    V), its |error|, event ms beside ``plain`` and ``library`` (SDPA), and
+def _timed_attention(attend, library, q, k, v, bound, detail_key, detail, reps, **mask):
+    """One K9 timing row: held against the plain version with ``mask``
+    (``_assert_prefill_close``), its |error|, event ms beside it and
+    ``library`` (SDPA), and
     for a bf16 q (the serving path) each of its kernels' device ms from
     the profiler, as ``_check_prefill_attention``'s rows (which time a bf16
     q only); an f32-q row has event ms only."""
     from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import ref
 
+    plain = lambda: ref.chunked_attention_ref(q, k, v, **mask)  # noqa: E731
     got, want = attend(), plain()
-    torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[torch.bfloat16])
-    err = float((got.float() - want.float()).abs().max())
+    err = _assert_prefill_close(got, want, q, k, v, detail_key, **mask)
     del got, want
     row = {"max_abs_err": err, "ms": _cuda_ms(attend, reps=reps), "plain_ms": _cuda_ms(plain, reps=2, warmup=1),
            "library_ms": _cuda_ms(library, reps=reps), "bound_ms": bound[0], "bound_by": bound[1],
            "q": str(q.dtype).split(".")[-1], "shape_q_k_v": [list(q.shape), list(k.shape), list(v.shape)]}
     row["device_ms_by_kernel"] = row["device_ms"] = None
     if q.dtype == torch.bfloat16:
-        row["device_ms_by_kernel"] = {n: _device_ms(attend, n)[0] for n in pa.kernel_names(q.dtype)}
-        row["device_ms"] = sum(row["device_ms_by_kernel"].values())
+        names = pa.kernel_names(q.dtype, q.shape[-1], k.dtype == v.dtype == torch.bfloat16)
+        row["device_ms_by_kernel"] = {n: _device_ms(attend, n)[0] for n in names}
+        row["device_ms"] = _sum_or_none(row["device_ms_by_kernel"].values())
     detail[detail_key] = row
     return row
 
@@ -814,7 +925,6 @@ def _check_prefill_attention_zoo(dev, gen, detail, mla_heads=128, mla_timed=((4,
     from repro_torch.kernels import ref
 
     attend = pa.prefill_attention_cuda
-    tol = PREFILL_TOL[torch.bfloat16]
     rows, max_err = {}, 0.0
     h, hd, dv = mla_heads, 192, 128
     for q_dtype in (torch.bfloat16, torch.float32):
@@ -822,8 +932,7 @@ def _check_prefill_attention_zoo(dev, gen, detail, mla_heads=128, mla_timed=((4,
         k = torch.randn((4, 32, h, hd), generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn((4, 32, h, dv), generator=gen, device=dev).to(torch.bfloat16)
         got, want = attend(q, k, v), ref.chunked_attention_ref(q, k, v)
-        torch.testing.assert_close(got.float(), want.float(), **tol)
-        max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        max_err = max(max_err, _assert_prefill_close(got, want, q, k, v, "K9 MLA B 4 x 32"))
         for r, n in enumerate((8, 15, 23, 32)):
             s = max(8, 1 << (n - 1).bit_length())
             alone = attend(*(t[r:r + 1, :s].contiguous() for t in (q, k, v)))
@@ -837,7 +946,7 @@ def _check_prefill_attention_zoo(dev, gen, detail, mla_heads=128, mla_timed=((4,
             q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(q_dtype)
             qb = q.to(torch.bfloat16).transpose(1, 2).contiguous()
             nbytes = q.numel() * q.element_size() + k.numel() * 2 + v.numel() * 2 + b * s * h * dv * q.element_size()
-            row = _timed_attention(lambda: attend(q, k, v), lambda: ref.chunked_attention_ref(q, k, v),
+            row = _timed_attention(lambda: attend(q, k, v),
                                    lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True),
                                    q, k, v, _bound_ms(nbytes, 2 * (hd + dv) * h * pairs),
                                    f"prefill_attention_mla_hd192_B{b}_S{s}_q_{_dtype_tag(q_dtype)}", detail,
@@ -862,12 +971,70 @@ def _check_prefill_attention_zoo(dev, gen, detail, mla_heads=128, mla_timed=((4,
             nbytes = (q.numel() * 2) * q.element_size() + (k.numel() + v.numel()) * 2
             what = "encoder" if sq == frames else f"cross_Sq{sq}"
             row = _timed_attention(lambda: attend(q, k, v, causal=False),
-                                   lambda: ref.chunked_attention_ref(q, k, v, causal=False),
                                    lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=False),
                                    q, k, v, _bound_ms(nbytes, 4 * hd * h * sq * frames),
-                                   f"prefill_attention_whisper_{what}_q_{_dtype_tag(q_dtype)}", detail, reps=20)
+                                   f"prefill_attention_whisper_{what}_q_{_dtype_tag(q_dtype)}", detail, reps=20,
+                                   causal=False)
             max_err = max(max_err, row["max_abs_err"])
             rows[f"whisper_{what}_q_{_dtype_tag(q_dtype)}"] = row
+    return max_err, rows
+
+
+RG_HEADS = (10, 1, 256, 2048)  # recurrentgemma_2b's query heads, KV heads, head width and window
+
+
+def _check_prefill_attention_window(dev, gen, detail, check_s=2600, timed=(4, 3072)):
+    """Phase 3, K9 at RecurrentGemma's attention: hd 256, 10 query heads on
+    one KV head, window 2048, causal.  Against the plain version within
+    PREFILL_TOL at B 2 x ``check_s`` (longer than the window) with q, K and
+    V bf16 (the exact-length prefill's: the tensor-core body) and f32 (the
+    f32 body); each prompt's rows alone == inside the batch, and a
+    continuation at q_offset 1000 (not a multiple of the 64-key chunk,
+    its first rows' windows reaching before it) == the same rows of the
+    whole prompt, bit for bit; timed at B 4 x 3072 (phase 11's prefill)
+    beside F.scaled_dot_product_attention with the band as a boolean mask,
+    on the same bf16 tensors, the bound from the operations inside the band
+    (4 hd a (query, key) pair).  ``check_s`` and ``timed`` shrink the shapes
+    for a rehearsal on the CPU.  Returns (largest |error|, rows)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import prefill_attention as pa
+    from repro_torch.kernels import ref
+
+    attend = pa.prefill_attention_cuda
+    h, kvh, hd, w = RG_HEADS
+    rows, max_err = {}, 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn((2, check_s, h, hd), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((2, check_s, kvh, hd), generator=gen, device=dev).to(dt) for _ in range(2))
+        got, want = attend(q, k, v, window=w), ref.chunked_attention_ref(q, k, v, window=w)
+        err = _assert_prefill_close(got, want, q, k, v, f"K9 hd 256 window B 2 x {check_s} {_dtype_tag(dt)}",
+                                    window=w)
+        max_err = max(max_err, err)
+        for r, n in ((0, check_s - 37), (1, check_s)):
+            alone = attend(*(t[r:r + 1, :n].contiguous() for t in (q, k, v)), window=w)
+            assert torch.equal(alone[0], got[r, :n]), ("K9 hd 256 window rows alone != in batch", n, dt)
+        c = min(1000, check_s // 2 + 5)
+        sfx = attend(q[1:, c:].contiguous(), k[1:].contiguous(), v[1:].contiguous(), window=w, q_offset=c)
+        assert torch.equal(sfx[0], got[1, c:]), ("K9 hd 256 window continuation != whole prompt's rows", dt)
+        rows[f"check_B2_S{check_s}_{_dtype_tag(dt)}"] = {"max_abs_err": err, "body": pa.kernel_body(dt, hd),
+                                                         "continuation_at": c}
+        del q, k, v, got, want
+    b, s_len = timed
+    q = torch.randn((b, s_len, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, s_len, kvh, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(s_len, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    pairs = b * sum(min(j + 1, w) for j in range(s_len))  # (query, key) pairs inside the band
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * 2
+    row = _timed_attention(lambda: attend(q, k, v, window=w),
+                           lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=band, enable_gqa=True),
+                           q, k, v, _bound_ms(nbytes, 4 * hd * h * pairs),
+                           f"prefill_attention_hd256_window{w}_B{b}_S{s_len}", detail, reps=5, window=w)
+    row.update(window=w, pairs_in_band=pairs, launches_per_call=len(pa.kernel_names(torch.bfloat16, hd)))
+    rows[f"timed_B{b}_S{s_len}"] = row
+    max_err = max(max_err, row["max_abs_err"])
     return max_err, rows
 
 
@@ -1646,14 +1813,38 @@ def _zoo_shapes(dev, gen, detail):
                                      "whisper_base_decoder_B1_S8": (1, 8, 8, 8, 64)}.items():
         q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev).to(torch.bfloat16) for n in (h, kvh, kvh))
         got, want = prefill_attention_cuda(q, k, v), ref.chunked_attention_ref(q, k, v)
-        torch.testing.assert_close(got.float(), want.float(), **PREFILL_TOL[torch.bfloat16])
-        errs[what] = float((got.float() - want.float()).abs().max())
+        errs[what] = _assert_prefill_close(got, want, q, k, v, what)
     out["prefill_attention_causal"] = errs
     detail["prefill_attention_zoo_causal_max_abs_err"] = errs
     ds = get_config("deepseek_v2_236b")
     for tag, cfg in (("_qwen2_vl_7b", get_config("qwen2_vl_7b")), ("_whisper_base", whisper),
                      ("_mla_q_norm", dataclasses.replace(ds, d_model=ds.q_lora_rank)),
                      ("_mla_kv_norm", dataclasses.replace(ds, d_model=ds.kv_lora_rank))):
+        out[f"rms_norm_d{cfg.d_model}{tag}"] = _check_rms_norm(cfg, dev, gen, detail, tag=tag)
+    return out
+
+
+RECURRENT = ("recurrentgemma_2b", "mamba2_370m")
+
+
+def _recurrent_shapes(dev, gen, detail):
+    """Phase 3 at the shapes phase 11 gives the kernels (K9 with the window
+    at hd 256: ``_check_prefill_attention_window``): K1/K7 (with K2 and the
+    fused W4A4 load) at every (K, N) of the two models' packed linears that
+    the earlier models lack -- Mamba's in_proj (N 4384, whose last
+    128-column block is ragged) and out_proj, RecurrentGemma's MLP and
+    RG-LRU projections -- K1 against its plain version at M 4, 128 and 4096
+    (Mamba's prefill rows); K10 at d 2560, Mamba's gated norm over d_inner
+    2048 and d 1024.  Returns {check: result}."""
+    from repro_torch.configs import get_config
+
+    out = {"new_gemm_shapes": _check_gemm_shapes(dev, gen, detail, archs=RECURRENT,
+                                                 checked=("llama3_2_3b",) + PAPER_DENSE + ZOO,
+                                                 key="razer_matmul_recurrent_shapes", ms=(4, 128, 4096))}
+    torch.cuda.empty_cache()
+    rg, mamba = get_config("recurrentgemma_2b"), get_config("mamba2_370m")
+    for tag, cfg in (("_recurrentgemma_2b", rg), ("_mamba2_gated_norm", dataclasses.replace(
+            mamba, d_model=mamba.ssm_expand * mamba.d_model)), ("_mamba2_370m", mamba)):
         out[f"rms_norm_d{cfg.d_model}{tag}"] = _check_rms_norm(cfg, dev, gen, detail, tag=tag)
     return out
 
@@ -1689,11 +1880,12 @@ def _draw_qk_extras(raw, cfg, seed: int = 7):
                     mixer[name] = torch.randn(mixer[name].shape, generator=gen, device=dev) * std
 
 
-def _engines(cfg, dev, max_len: int = 128):
+def _engines(cfg, dev, max_len: int = 128, policies=None):
     """Random full-width weights (seed 0; nonzero qkv biases and qk-norm
-    gains where the model has them) on the card and one Engine per policy,
-    each packing them; the engines keep the dense tree for the speculative
-    bf16 draft.  Returns (engines, seconds spent packing)."""
+    gains where the model has them) on the card and one Engine per policy
+    (``policies``: their names, by default all of ``_policies``), each
+    packing them; the engines keep the dense tree for the speculative bf16
+    draft.  Returns (engines, seconds spent packing)."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
@@ -1702,7 +1894,7 @@ def _engines(cfg, dev, max_len: int = 128):
     _draw_qk_extras(raw, cfg)
     t0 = time.perf_counter()
     engines = {name: Engine(raw, cfg, ServeConfig(max_len=max_len, max_new_tokens=16, quant=policy), device=dev)
-               for name, policy in _policies().items()}
+               for name, policy in _policies().items() if policies is None or name in policies}
     torch.cuda.synchronize()
     return engines, time.perf_counter() - t0
 
@@ -1715,7 +1907,7 @@ def _full_width(cfg, engines, detail, pack_s, key="e2e"):
     max_len, n_new = 128, 16
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (8, 15, 23, 32)]
-    results = {"pack_s_two_engines": pack_s}
+    results = {"pack_s_two_engines" if len(engines) == 2 else "pack_s_one_engine": pack_s}
     for name, eng in engines.items():
         policy = eng.policy
         toks = np.zeros((len(prompts), 32), np.int64)
@@ -1740,7 +1932,9 @@ def _full_width(cfg, engines, detail, pack_s, key="e2e"):
             "tokens_per_s": len(prompts) * n_new / (st["prefill_s"] + st["decode_s"]),
             "launches": counts, "batch": len(prompts), "bucket": st["bucket"], "new_tokens": n_new}
     results["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    results["profile_w4a4_kv"] = _profile(lambda: eng.generate(prompts, max_new_tokens=4))
+    if "w4a4_kv" in engines:
+        eng = engines["w4a4_kv"]
+        results["profile_w4a4_kv"] = _profile(lambda: eng.generate(prompts, max_new_tokens=4))
     detail[key] = results
     return results
 
@@ -2229,6 +2423,36 @@ def _disagg_long(cfg, eng, detail, long_context, chunk_tokens=512, n_new=32):
 # phase 7: the paper's dense models at full width
 # ---------------------------------------------------------------------------
 PAPER_CUT = ("llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b", "deepseek_coder_33b")
+# llama3_1_8b's W4A4 + KV generate and serve run its first 16 of 32 layers
+# (the W4 + KV ones, and phases 8 and 9 on them, keep all 32): the room went
+# to phase 11; phase 7's clock keeps what each part takes
+LLAMA8B_W4A4_LAYERS = 16
+
+
+def _llama8b_w4a4_part(raw, cfg, n, dev, detail):
+    """Phase 7's llama3_1_8b W4A4 + KV part on the first ``n`` layers of the
+    dense tree ``raw``: pack them, ``_full_width`` (a warm-up and a timed
+    generate with exact launch counts, a profiled short generate) and
+    ``_serve_full_width`` (vanilla serve, serve == generate asserted).
+    -> (generate row, serve row, host-clock seconds: packing, generate
+    part, serve part, total)."""
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    t0 = time.perf_counter()
+    cut_cfg = dataclasses.replace(cfg, num_layers=n)
+    eng = {"w4a4_kv": Engine({**raw, "layers_0": raw["layers_0"][:n]}, cut_cfg,
+                             ServeConfig(max_len=128, max_new_tokens=16, quant=_policies()["w4a4_kv"]), device=dev)}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e2e = _full_width(cut_cfg, eng, detail, t1 - t0, key="paper_llama3_1_8b_w4a4_cut_generate")
+    t2 = time.perf_counter()
+    serve = _serve_full_width(cut_cfg, eng, detail, key="paper_llama3_1_8b_w4a4_cut_serve",
+                              runs={"w4a4_kv": ((0, None),)})
+    t3 = time.perf_counter()
+    e2e["num_layers"] = [cfg.num_layers, n]
+    del eng
+    torch.cuda.empty_cache()
+    return e2e, serve, {"pack_s": t1 - t0, "generate_s": t2 - t1, "serve_s": t3 - t2, "total_s": t3 - t0}
 
 
 def _paper_models(dev, detail):
@@ -2245,18 +2469,28 @@ def _paper_models(dev, detail):
 
     out = {}
     for arch in ("llama3_1_8b",) + PAPER_CUT:
+        t_arch = time.perf_counter()
         cfg = get_config(arch)
         cut = None
         if arch in PAPER_CUT:
             cut = {"num_layers": [cfg.num_layers, 2]}
             cfg = dataclasses.replace(cfg, num_layers=2)
-        engines, pack_s = _engines(cfg, dev)
-        e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
-        # llama3_1_8b: vanilla and speculative under W4 + KV, vanilla under
-        # W4A4 + KV (W4A4 speculation runs in phase 4c on llama3_2_3b)
-        runs = {"w4_kv": ((0, None), (2, "bf16")), "w4a4_kv": ((0, None),)} if cut is None else \
-            {name: ((0, None),) for name in engines}
-        serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve", runs=runs)
+        if cut is None:
+            # llama3_1_8b: vanilla and speculative under W4 + KV at full depth;
+            # vanilla W4A4 + KV on its first LLAMA8B_W4A4_LAYERS layers, from
+            # the same weights (W4A4 speculation runs in phase 4c on llama3_2_3b)
+            engines, pack_s = _engines(cfg, dev, policies=("w4_kv",))
+            e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
+            serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve",
+                                      runs={"w4_kv": ((0, None), (2, "bf16"))})
+            e2e["w4a4_kv_cut"], serve["w4a4_kv_cut"], secs = _llama8b_w4a4_part(
+                engines["w4_kv"]._raw_params, cfg, LLAMA8B_W4A4_LAYERS, dev, detail)
+            detail["phase_s"][f"7 llama3_1_8b W4A4 + KV at {LLAMA8B_W4A4_LAYERS} layers (inside 7)"] = secs["total_s"]
+        else:
+            engines, pack_s = _engines(cfg, dev)
+            e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
+            serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve",
+                                      runs={name: ((0, None),) for name in engines})
         if arch == "llama3_1_8b":
             t0 = time.perf_counter()
             obs = _observability(cfg, engines, detail)
@@ -2269,6 +2503,7 @@ def _paper_models(dev, detail):
         row = {"generate": e2e, "serve": serve, "cut": cut}
         print(f"paper model {arch} full width" + (f", cut num_layers {cut['num_layers'][0]} -> 2" if cut else
                                                  ", full depth") + ": " + json.dumps(row))
+        detail["phase_s"][f"7 {arch} (inside 7)"] = time.perf_counter() - t_arch
         out[arch] = row
         del engines, e2e, serve
         torch.cuda.empty_cache()
@@ -2845,11 +3080,14 @@ def _zoo_want(cfg, policy, stats, enc_frames: int = 0):
     batch x ``enc_frames``), then decode steps of batch rows.  K1 per packed
     linear (MLA: q_a or wq, kv_a and wo, its q_b and kv_b dense; whisper's
     cross-attention: wq and wo on the decoder rows, wk and wv on the frames,
-    every step; the dense layers' MLP; the shared experts), K6 3 per MoE
-    layer per forward, K9 per attention layer per prefill and per
-    cross-attention per forward, K3 per GQA layer per decode step, K10 per
-    norm (MLA's q_norm and kv_norm too).  Under W4A4 a K1 over M <=
-    ``FUSE_ACT_MAX_M`` rows quantizes x in its load, else after a K2."""
+    every step; the dense layers' MLP; the shared experts; Mamba-2's
+    in_proj and out_proj; the RG-LRU block's five), K6 3 per MoE layer per
+    forward, K9 per attention layer per prefill and per cross-attention per
+    forward, K3 per GQA layer per decode step (none for a windowed layer:
+    its decode attends the dequantized cache through the plain version, as
+    the reference's does), K10 per norm (MLA's q_norm and kv_norm, Mamba's
+    gated norm too).  Under W4A4 a K1 over M <= ``FUSE_ACT_MAX_M`` rows
+    quantizes x in its load, else after a K2."""
     from repro_torch.kernels.razer_matmul import FUSE_ACT_MAX_M
     from repro_torch.models.transformer import layer_groups
 
@@ -2864,14 +3102,21 @@ def _zoo_want(cfg, policy, stats, enc_frames: int = 0):
             n["rms_norm"] += 2 * cfg.enc_layers + 1
         for ltype, count in layer_groups(cfg):
             for _ in range(count):
-                if cfg.mla:
+                if ltype == "s":  # in_proj, out_proj; ln1 and the gated norm; no MLP
+                    ms.extend([m] * 2)
+                    n["rms_norm"] += 2
+                    continue
+                if ltype == "r":  # w_gate, w_in, wa, wx, out_proj; ln1
+                    ms.extend([m] * 5)
+                    n["rms_norm"] += 1
+                elif cfg.mla:
                     ms.extend([m] * 3)
                     n["rms_norm"] += 2 + (1 if cfg.q_lora_rank else 0)  # ln1, kv_norm, q_norm
                 else:
                     ms.extend([m] * 4)
                     n["rms_norm"] += 3 if cfg.qk_norm else 1
-                    n["razer_kv_attention"] += 0 if prefill else 1
-                n["prefill_attention"] += 1 if prefill else 0
+                    n["razer_kv_attention"] += 0 if prefill or cfg.block_pattern else 1
+                n["prefill_attention"] += 1 if prefill and ltype != "r" else 0
                 if ltype == "c":
                     ms.extend([m, enc_m, enc_m, m])
                     n["prefill_attention"] += 1
@@ -3000,9 +3245,17 @@ def _zoo(dev, detail):
 
 # the card against the CPU at a narrow width: the largest |logit| difference
 # over a prefill and 5 teacher-forced decode steps, set from the readings on
-# the H100 over the three models: 0.0020-0.0051 under W4 + KV (K9 and K3
-# sum in another order than the plain versions), exactly 0 under W4A4 + KV
+# the H100 over phase 10's three models: 0.0020-0.0051 under W4 + KV (K9 and
+# K3 sum in another order than the plain versions), exactly 0 under W4A4 + KV
 ZOO_CARD_CPU_TOL = {"w4_kv": 0.02, "w4a4_kv": 1e-3}
+# the recurrent archs' (phase 11 (c)), from their own readings
+# (tools/card_cpu_probe.py, weight seeds 1-5): K1 sums a packed linear in
+# another order than the plain matmul, and one bf16 rounding of its output
+# flips at the prefill; no activation code moves under W4A4, and the
+# difference reaches the logits through the unquantized conv, scans, gates
+# and residual stream: W4 + KV 0-0.0107, W4A4 + KV 0-2^-10.  W4 keeps 0.02;
+# W4A4 takes 2^-8, four times its largest reading
+RECURRENT_CARD_CPU_TOL = {"w4_kv": 0.02, "w4a4_kv": 2**-8}
 
 
 def _zoo_narrow_cfg(arch):
@@ -3017,29 +3270,37 @@ def _zoo_narrow_cfg(arch):
     return cfg
 
 
-def _zoo_card_vs_cpu(dev):
-    """Phase 10 (d): each zoo model narrow, in bf16, from the same weights
-    (seed 1) on the card (the kernels) and on the CPU (the plain versions),
-    under both policies: the logits of the prefill and of 5 decode steps fed
-    the CPU run's greedy tokens within ``ZOO_CARD_CPU_TOL``, and
-    ``generate``'s tokens equal, except where the CPU's top-2 gap at the
-    first differing step is at most the largest logit difference measured
-    (a near tie the difference can flip)."""
+def _narrow_inputs(cfg):
+    """The prompts and extras of ``_zoo_card_vs_cpu`` for ``cfg``: the
+    recurrent archs take three prompts of 11 tokens (one length; past the
+    narrow RecurrentGemma's window of 8)."""
+    g = torch.Generator().manual_seed(1)
+    if cfg.encoder_decoder:
+        return [[7, 8, 9, 10, 11, 12]], {"enc_frames": torch.randn((1, cfg.enc_frames, cfg.d_model), generator=g)}
+    if cfg.ssm or cfg.block_pattern:
+        return [list(range(1, 12)), list(range(20, 31)), [40, 3, 41, 7, 42, 9, 43, 11, 44, 13, 45]], {}
+    prompts = [[1, 2, 3], [7, 8, 9, 10, 11, 12], [20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30]]
+    return prompts, {"frontend_embeds": torch.randn((3, 2, cfg.d_model), generator=g)} if cfg.frontend != "none" else {}
+
+
+def _zoo_card_vs_cpu(dev, archs=ZOO):
+    """Phase 10 (d) and 11 (c): each model of ``archs`` narrow, in bf16,
+    from the same weights (seed 1) on the card (the kernels) and on the CPU
+    (the plain versions), under both policies: the logits of the prefill
+    and of 5 decode steps fed the CPU run's greedy tokens within
+    ``ZOO_CARD_CPU_TOL`` (``RECURRENT_CARD_CPU_TOL`` for the recurrent
+    archs), and ``generate``'s tokens equal, except where the
+    CPU's top-2 gap at the first differing step is at most the largest
+    logit difference measured (a near tie the difference can flip); the
+    prompts of ``_narrow_inputs``."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import Engine, ServeConfig
 
     out = {}
-    for arch in ("deepseek_v2_236b", "qwen2_vl_7b", "whisper_base"):
+    for arch in archs:
         cfg = _zoo_narrow_cfg(arch)
         params = init_params(cfg, seed=1, device="cpu")
-        g = torch.Generator().manual_seed(1)
-        if cfg.encoder_decoder:
-            prompts = [[7, 8, 9, 10, 11, 12]]
-            extras = {"enc_frames": torch.randn((1, cfg.enc_frames, cfg.d_model), generator=g)}
-        else:
-            prompts = [[1, 2, 3], [7, 8, 9, 10, 11, 12], [20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30]]
-            extras = {"frontend_embeds": torch.randn((3, 2, cfg.d_model), generator=g)} if cfg.frontend != "none" \
-                else {}
+        prompts, extras = _narrow_inputs(cfg)
         row = {}
         for name, policy in _policies().items():
             scfg = ServeConfig(max_len=32, max_new_tokens=6, quant=policy)
@@ -3047,7 +3308,7 @@ def _zoo_card_vs_cpu(dev):
             cpu_logits = _teacher_forced(engines[0], prompts, extras)
             card_logits = _teacher_forced(engines[1], prompts, extras, fed=cpu_logits)
             diffs = [float((a - b).abs().max()) for a, b in zip(cpu_logits, card_logits)]
-            tol = ZOO_CARD_CPU_TOL[name]
+            tol = (RECURRENT_CARD_CPU_TOL if cfg.ssm or cfg.block_pattern else ZOO_CARD_CPU_TOL)[name]
             assert max(diffs) <= tol, (arch, name, diffs)
             toks = [eng.generate(prompts, extras=extras, max_new_tokens=6) for eng in engines]
             near_ties = []
@@ -3061,6 +3322,42 @@ def _zoo_card_vs_cpu(dev):
                          "tokens_equal": toks[0] == toks[1], "near_ties": near_ties}
             del engines
         out[arch] = row
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent archs through Engine.generate
+# ---------------------------------------------------------------------------
+RG_PROMPT_LEN, MAMBA_PROMPT_LEN = 3072, 1024  # four prompts each; RecurrentGemma's outrun its window of 2048
+
+
+def _recurrent(dev, detail):
+    """Phase 11: recurrentgemma_2b (RG-LRU blocks and windowed attention in
+    the pattern r, r, a; all 26 layers) from 4 prompts of 3072 random
+    tokens (longer than the window: the prefill's K9 and the decode mask
+    both cut), max_len 4096, and mamba2_370m (all 48 Mamba-2 layers) from 4
+    prompts of 1024, at full width through Engine.generate, random weights
+    (seed 0) packed on the card under W4 + KV and W4A4 + KV: a warm-up and
+    a timed generate of 16 new tokens with exact launch counts
+    (``_zoo_want``: K1 8 an RG-LRU layer, 7 an attention layer, 2 a Mamba
+    layer; K9 once an attention layer a prefill; no K3), prefill ms, decode
+    ms a step, peak memory, the device idle share of a short W4 + KV
+    generate, and serve's refusal; then each narrow on the card against the
+    CPU (``_zoo_card_vs_cpu``)."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, n, max_len in (("recurrentgemma_2b", RG_PROMPT_LEN, 4096), ("mamba2_370m", MAMBA_PROMPT_LEN, 128)):
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(1, get_config(arch).vocab_size, size=n).tolist() for _ in range(4)]
+        _, engines, _, _, row = _zoo_model(arch, dev, detail, prompts, lambda c: {}, max_len=max_len)
+        del engines
+        torch.cuda.empty_cache()
+        out[arch] = row
+        print(f"recurrent {arch} full width and depth, 4 prompts of {n} tokens: " + json.dumps(row))
+    out["card_vs_cpu"] = _zoo_card_vs_cpu(dev, archs=RECURRENT)
+    print("recurrent card vs cpu (narrow, bf16): " + json.dumps(out["card_vs_cpu"]))
+    detail["recurrent"] = out
     return out
 
 
@@ -3577,6 +3874,10 @@ def main() -> int:
     print("prefill attention (K9) at the zoo's shapes, MLA hd 192 with V 128 and whisper without the causal mask: "
           + json.dumps(k9_zoo))
     torch.cuda.empty_cache()
+    k9_err, k9_window = _check_prefill_attention_window(dev, gen, detail)
+    checks["prefill_attention"] = (max(checks["prefill_attention"][0], k9_err), checks["prefill_attention"][1])
+    print("prefill attention (K9) at RecurrentGemma's attention, hd 256 with window 2048: " + json.dumps(k9_window))
+    torch.cuda.empty_cache()
     print("kernels vs plain: " + json.dumps({k: {"max_abs_err": v[0], **v[1]} for k, v in checks.items()}))
     print("K1 split-K from (N, K) vs one split at M=128: " + json.dumps(_split_k_cost(cfg, dev, gen, detail)))
     mark("3 kernels")
@@ -3586,6 +3887,9 @@ def main() -> int:
     print("kernels at the zoo's shapes: " + json.dumps(_zoo_shapes(dev, gen, detail)))
     torch.cuda.empty_cache()
     mark("3 kernels at the zoo's shapes")
+    print("kernels at the recurrent archs' shapes: " + json.dumps(_recurrent_shapes(dev, gen, detail)))
+    torch.cuda.empty_cache()
+    mark("3 kernels at the recurrent archs' shapes")
 
     engines, pack_s = _engines(cfg, dev)
     e2e = _full_width(cfg, engines, detail, pack_s)
@@ -3638,6 +3942,10 @@ def main() -> int:
     mark("7 paper models")
     _zoo(dev, detail)
     mark("10 zoo")
+    _recurrent(dev, detail)
+    mark("11 recurrent")
+    detail["profiler_misses"] = PROFILER_MISSES
+    detail["prefill_flips"] = PREFILL_FLIPS
     print("seconds by phase: " + json.dumps(phase_s))
 
     meta = {
@@ -3652,8 +3960,9 @@ def main() -> int:
         "prefill_attention": ("src/repro_torch/csrc/prefill_attention.cu",
                               "src/repro/models/attention.py:54 (chunked_attention, jnp: no Pallas kernel)",
                               "K9, causal GQA prefill, B=8 S=128 H=24 KVH=8 hd=128, q bf16, K/V f32 (max_abs_err: "
-                              "the largest over every shape held against the plain version, MLA's hd 192 and "
-                              "whisper's non-causal shapes included)"),
+                              "the largest over every shape held against the plain version, MLA's hd 192, "
+                              "whisper's non-causal shapes and RecurrentGemma's hd 256 with window 2048 "
+                              "included)"),
         "razer_act_qdq": ("src/repro_torch/csrc/razer_quantize.cu", "src/repro/kernels/razer_quantize.py:103",
                           "one layer's 7 activation fake-quants at decode M=4, bf16"),
         "razer_kv_attention": ("src/repro_torch/csrc/razer_kv_attention.cu",

@@ -26,8 +26,11 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The JAX package's parameter tree -> the port's.
 
     Scan-stacked groups (``layers_<g>`` and whisper's ``enc_layers``: dicts
-    of (L, ...) arrays) become lists of L per-layer dicts; every other leaf
-    converts as it is."""
+    of (L, ...) arrays) become lists of L per-layer dicts, whatever the
+    layer type: the "s" and "r" groups' mixers (``in_proj``, ``conv_w``,
+    ``conv_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``, ``out_proj``;
+    ``w_in``, ``w_gate``, ``wa``, ``wx``, ``a_param``) unstack like the
+    attention layers'; every other leaf converts as it is."""
     device = resolve_device(device)
 
     def conv(t):

@@ -8,7 +8,7 @@ from repro_torch.models.config import ArchConfig
 
 PAPER_ARCHS = ("llama2_7b", "llama3_1_8b", "qwen3_32b")
 ARCHS = ("llama3_2_3b", "dbrx_132b", "llama3_1_8b", "llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b",
-         "deepseek_coder_33b", "deepseek_v2_236b", "qwen2_vl_7b", "whisper_base")
+         "deepseek_coder_33b", "deepseek_v2_236b", "qwen2_vl_7b", "whisper_base", "recurrentgemma_2b", "mamba2_370m")
 
 
 def get_config(name: str) -> ArchConfig:

@@ -11,7 +11,9 @@
 // around it.
 //
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] * scale) @ v[b, j, h / G]
-//   over keys j <= q_offset + i (causal) or all j < Skv
+//   over keys j <= q_offset + i (causal) or all j < Skv, and with a sliding
+//   window w > 0 only keys j > q_offset + i - w (RecurrentGemma's local
+//   attention, src/repro/models/attention.py:112)
 //
 // q and k have head width HD, v and out DV: DV = HD at hd 16, 32, 64 and
 // 128; at HD 192, MLA's qk_nope + qk_rope (DeepSeek-V2), V is 128 wide
@@ -23,6 +25,17 @@
 // bytes with V at 192 and 229,504 with V at 128, against the H100's 232,448
 // a block.
 //
+// At HD 256 (RecurrentGemma) the tensor-core body takes bf16 K and V only,
+// with two ring stages and no low-tile region: 2 heads x 32,768 (q) + 2 x
+// 65,536 (ring) + 128 = 196,736 bytes, where three stages and the low tiles
+// would need 360,576 for one head.  bf16 K/V -- what the exact-length
+// prefill attends -- have no low parts, so nothing is left out; keeping the
+// 64-key chunk keeps the arithmetic of every other width.  A bf16 q with
+// f32 K/V at HD 256 runs the f32 body (the choice is by the dtypes, made
+// the same way for every call: kernels/prefill_attention.py, `kernel_body`).
+// Two heads a block, not three: o is 128 f32 registers a thread at HD 256,
+// which needs the 255 registers 256 threads a block leave.
+//
 // Two bodies, chosen by q's dtype alone (kernels/prefill_attention.py,
 // `kernel_body`): a bf16 q -- the serving path, whose compute dtype is bf16
 // -- runs the tensor-core body; an f32 q (the f32 engines the checks run)
@@ -31,11 +44,16 @@
 // choice is by dtype, not a fallback: a failed build or launch raises.
 //
 // Arithmetic shared by both bodies, per query row:
-//  * keys go in chunks of W = 64 positions from position 0 up to the
-//    block's last row's causal limit; a key past the row's limit scores
-//    -1e30, so its p is exactly 0, and a chunk with no valid key for a row
-//    leaves that row's state unchanged (x 1 and + 0, both exact; chunk 0
-//    always holds key 0, which every row may see);
+//  * keys go in chunks of W = 64 positions, from the chunk that holds the
+//    block's first row's first key (chunk 0 without a window) up to the
+//    block's last row's causal limit; a key outside the row's range
+//    [first, limit] scores -1e30 and its p is exactly 0; a chunk with no
+//    valid key for a row leaves that row's state unchanged: its max is then
+//    taken as 0 for the exponent, so every p is exp2(-1e30) = 0, alpha is
+//    exp2(m - m) = 1, and l x 1 + 0 and o x 1 + 0 are exact.  So the chunks
+//    a block walks before a row's first key (a window's rows) or past its
+//    limit (causal rows) leave no trace in it, and its first valid chunk
+//    starts from m = -1e30, l = 0, o = 0 wherever the block began;
 //  * m' = max(m, chunk max); p = exp(score - m'); alpha = exp(m - m');
 //    l = l alpha + (p summed in a fixed order over the chunk);
 //    acc = acc alpha + p v summed in a fixed order;
@@ -145,13 +163,17 @@ struct Params {
   void* ws;       // the tensor-core body's split K/V tiles (B, KVH, ceil(Skv / 64)) x 3 x 64 x (HD + DV) bf16
   int* flags;     // (B, KVH, ceil(Skv / 64)): the chunk has non-zero low tiles
   int q_bf16, k_bf16, v_bf16;  // 1: bf16, 0: f32
-  int B, Sq, Skv, H, KVH, q_offset, causal;
+  int B, Sq, Skv, H, KVH, q_offset, causal, window;
   float scale;
 };
 
 // the last key row `pos` may attend
 __device__ __forceinline__ int row_limit(const Params& p, int pos) {
   return p.causal ? min(p.q_offset + pos, p.Skv - 1) : p.Skv - 1;
+}
+// the first key row `pos` may attend: past its window, else 0
+__device__ __forceinline__ int row_first(const Params& p, int pos) {
+  return p.window > 0 ? max(p.q_offset + pos - p.window + 1, 0) : 0;
 }
 
 // ===========================================================================
@@ -170,7 +192,6 @@ using razer_tile::wgmma_fence;
 using razer_tile::wgmma_wait;
 
 constexpr int MAX_GB = 3;                  // query heads per block, at most: one warpgroup each
-constexpr int MAX_THREADS = 128 * MAX_GB;
 constexpr size_t MAX_SMEM = 232448;        // dynamic shared memory a block can have on an H100
 
 // mbarriers: one arrival (with the bytes to expect) completes a phase once
@@ -261,22 +282,26 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t d
 
 template <int HD, int DV>
 struct Geo {
+  static constexpr bool LOW_TILES = HD != 256;  // f32 K/V taken: low tiles; at HD 256 bf16 K/V only
   static constexpr int KT = W * HD * 2;    // bytes of one K part tile (and of a q tile) of a chunk
   static constexpr int VT = W * DV * 2;    // bytes of one V^T part tile
   static constexpr int STAGE = KT + VT;    // a ring stage: K hi, V^T hi
-  static constexpr int LOWS = 2 * STAGE;   // a chunk's low tiles: K mid, K lo, V^T mid, V^T lo
-  static constexpr int CHUNK = 3 * STAGE;  // a chunk in the workspace: K hi, V^T hi, then its low tiles
+  static constexpr int LOWS = LOW_TILES ? 2 * STAGE : 0;  // a chunk's low tiles: K mid, K lo, V^T mid, V^T lo
+  static constexpr int CHUNK = STAGE + LOWS;  // a chunk in the workspace: K hi, V^T hi, then its low tiles
   static constexpr int NUK = W * HD / 256;  // stmatrix x4 units (four 8 x 8 blocks) of K's chunk
   static constexpr int NUV = W * DV / 256;  // ... and of V's
-  static constexpr int NST = 3;            // stages of the hi tiles' ring
+  static constexpr int NST = LOW_TILES ? 3 : 2;  // stages of the hi tiles' ring
   static constexpr int NS = DV < 64 ? DV : 64;  // output dims per P V slice (its accumulators: NS / 2 a thread)
+  static constexpr int GB_CAP = HD == 256 ? 2 : MAX_GB;  // heads a block, at most: o's registers at HD 256
   // the attention kernel's dynamic shared memory for gb heads: q tiles, the
   // ring of (K hi, V^T hi) stages, one chunk's four low tiles, the
   // stages' and the low tiles' mbarriers and release counts
   static constexpr size_t bytes(int gb) { return (size_t)gb * KT + (size_t)NST * STAGE + LOWS + 128; }
   static constexpr size_t split_bytes() { return (size_t)CHUNK; }
-  // the most heads a block can hold in shared memory
-  static constexpr int max_gb() { return bytes(3) <= MAX_SMEM ? 3 : bytes(2) <= MAX_SMEM ? 2 : 1; }
+  // the most heads a block can hold in shared memory and registers
+  static constexpr int max_gb() {
+    return GB_CAP >= 3 && bytes(3) <= MAX_SMEM ? 3 : GB_CAP >= 2 && bytes(2) <= MAX_SMEM ? 2 : 1;
+  }
   static_assert(bytes(1) <= MAX_SMEM, "one head a block must fit the H100's shared memory");
 };
 
@@ -347,9 +372,11 @@ __global__ void __launch_bounds__(256) prefill_attention_tc_split_kernel(const P
   const int c = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const size_t slot = ((size_t)b * p.KVH + kh) * gridDim.x + c;
   const bool low = __syncthreads_or(convert<HD, DV, false>(smem, p, b, kh, c * W));
-  if (low) {
-    convert<HD, DV, true>(smem, p, b, kh, c * W);
-    __syncthreads();
+  if constexpr (Gm::LOW_TILES) {
+    if (low) {
+      convert<HD, DV, true>(smem, p, b, kh, c * W);
+      __syncthreads();
+    }
   }
   uint4* dst = reinterpret_cast<uint4*>(static_cast<uint8_t*>(p.ws) + slot * Gm::CHUNK);
   const uint4* src = reinterpret_cast<const uint4*>(smem);
@@ -361,7 +388,7 @@ __global__ void __launch_bounds__(256) prefill_attention_tc_split_kernel(const P
 // the attention
 // ---------------------------------------------------------------------------
 template <int HD, int DV>
-__global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(const Params p) {
+__global__ void __launch_bounds__(128 * Geo<HD, DV>::GB_CAP, 1) prefill_attention_tc_kernel(const Params p) {
   using Gm = Geo<HD, DV>;
   constexpr int NO = DV / 2;  // output accumulators per thread
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -385,25 +412,30 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
   const int* flags = p.flags + ((size_t)b * p.KVH + kh) * nch;
   const int last = min(r0 + BQ, p.Sq) - 1;  // the block's last real position
   const int chunks = row_limit(p, last) / W + 1;
+  const int first = row_first(p, r0) / W;  // the chunk of the block's first row's first key
+  const bool v_bf16 = !Gm::LOW_TILES || p.v_bf16;  // at HD 256 K and V are bf16
 
-  // chunk c's hi tiles into its stage; the low tiles of the first flagged chunk from c on
+  // chunk c's hi tiles into its stage (the ring counts from `first`); the
+  // low tiles of the first flagged chunk from c on
   auto load_hi = [&](int c) {
     if (c >= chunks) return;
-    uint64_t* bar = full + c % Gm::NST;
+    uint64_t* bar = full + (c - first) % Gm::NST;
     mbar_expect(bar, Gm::STAGE);
-    bulk_copy(ring + (c % Gm::NST) * Gm::STAGE, ws + (size_t)c * Gm::CHUNK, Gm::STAGE, bar);
+    bulk_copy(ring + ((c - first) % Gm::NST) * Gm::STAGE, ws + (size_t)c * Gm::CHUNK, Gm::STAGE, bar);
   };
   auto load_lows = [&](int c) {
-    while (c < chunks && !flags[c]) ++c;
-    if (c >= chunks) return;
-    mbar_expect(full + Gm::NST, Gm::LOWS);
-    bulk_copy(lows, ws + (size_t)c * Gm::CHUNK + Gm::STAGE, Gm::LOWS, full + Gm::NST);
+    if constexpr (Gm::LOW_TILES) {
+      while (c < chunks && !flags[c]) ++c;
+      if (c >= chunks) return;
+      mbar_expect(full + Gm::NST, Gm::LOWS);
+      bulk_copy(lows, ws + (size_t)c * Gm::CHUNK + Gm::STAGE, Gm::LOWS, full + Gm::NST);
+    }
   };
   if (tid == 0) {
     for (int i = 0; i <= Gm::NST; ++i) mbar_init(full + i, 1), done[i] = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int c = 0; c < Gm::NST; ++c) load_hi(c);
-    load_lows(0);
+    for (int c = first; c < first + Gm::NST; ++c) load_hi(c);
+    load_lows(first);
   }
 
   // q tiles: row i of tile j holds position r0 + i of head g0 + j; rows past Sq are zero
@@ -421,7 +453,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
   __syncthreads();      // everyone's, and the barriers are initialized
 
   const int pos0 = r0 + 16 * (warp & 3) + gq, lim0 = row_limit(p, pos0), lim1 = row_limit(p, pos0 + 8);
+  const int lo0 = row_first(p, pos0), lo1 = row_first(p, pos0 + 8);
   const int wlim = row_limit(p, r0 + 16 * (warp & 3));  // the warp's first row's limit: the least of its rows
+  const int wlo = row_first(p, r0 + 16 * (warp & 3) + 15);  // its last row's first key: the greatest
   const float sc = __fmul_rn(p.scale, 1.4426950408889634f);  // scores in base-2 units
 
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.0f, 0.0f};
@@ -436,14 +470,14 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
   // holds the warpgroups together, so one's softmax runs beside another's
   // wgmmas.
   int nlow = 0;  // flagged chunks this warpgroup has passed
-  for (int c = 0; c < chunks; ++c) {
-    const int c0 = c * W;
-    mbar_wait(full + c % Gm::NST, (c / Gm::NST) & 1);
-    const bool low = flags[c] != 0;  // some K or V value of the chunk is not exact in bf16
+  for (int c = first; c < chunks; ++c) {
+    const int c0 = c * W, st = (c - first) % Gm::NST;
+    mbar_wait(full + st, ((c - first) / Gm::NST) & 1);
+    const bool low = Gm::LOW_TILES && flags[c] != 0;  // some K or V value of the chunk is not exact in bf16
     if (low) mbar_wait(full + Gm::NST, nlow++ & 1);
-    const uint8_t* kt = ring + (c % Gm::NST) * Gm::STAGE;
+    const uint8_t* kt = ring + st * Gm::STAGE;
     const uint8_t* vt = kt + Gm::KT;
-    const bool k_low = low && !p.k_bf16, v_low = low && !p.v_bf16;  // bf16 tensors have no low tiles
+    const bool k_low = low && !p.k_bf16, v_low = low && !v_bf16;  // bf16 tensors have no low tiles
 
     // ---- S = q K^T over the chunk's 64 keys: per k-step hi, then mid and lo where flagged ----
     float s[32];
@@ -466,17 +500,17 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
 
     // ---- scale, mask, online softmax: s[4j + e] is row pos0 + 8 (e >> 1), key c0 + 8j + 2tq + (e & 1) ----
     float mx0 = -1e30f, mx1 = -1e30f;
-    if (c0 + W - 1 <= wlim) {  // every key of the chunk is visible to every row of this warp
+    if (c0 + W - 1 <= wlim && c0 >= wlo) {  // every key of the chunk is visible to every row of this warp
 #pragma unroll
       for (int j = 0; j < 32; ++j) s[j] = __fmul_rn(s[j], sc);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int key = c0 + 8 * j + 2 * tq;
-        s[4 * j] = key <= lim0 ? __fmul_rn(s[4 * j], sc) : -1e30f;
-        s[4 * j + 1] = key + 1 <= lim0 ? __fmul_rn(s[4 * j + 1], sc) : -1e30f;
-        s[4 * j + 2] = key <= lim1 ? __fmul_rn(s[4 * j + 2], sc) : -1e30f;
-        s[4 * j + 3] = key + 1 <= lim1 ? __fmul_rn(s[4 * j + 3], sc) : -1e30f;
+        s[4 * j] = key <= lim0 && key >= lo0 ? __fmul_rn(s[4 * j], sc) : -1e30f;
+        s[4 * j + 1] = key + 1 <= lim0 && key + 1 >= lo0 ? __fmul_rn(s[4 * j + 1], sc) : -1e30f;
+        s[4 * j + 2] = key <= lim1 && key >= lo1 ? __fmul_rn(s[4 * j + 2], sc) : -1e30f;
+        s[4 * j + 3] = key + 1 <= lim1 && key + 1 >= lo1 ? __fmul_rn(s[4 * j + 3], sc) : -1e30f;
       }
     }
 #pragma unroll
@@ -490,13 +524,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xFFFFFFFFu, mx1, 2));
     const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
     const float al0 = exp2f(__fsub_rn(m[0], mn0)), al1 = exp2f(__fsub_rn(m[1], mn1));
+    // a row with no valid key yet: its p are exp2(-1e30 - 0) = 0, not exp2(0)
+    const float me0 = mn0 == -1e30f ? 0.0f : mn0, me1 = mn1 == -1e30f ? 0.0f : mn1;
     float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      s[4 * j] = exp2f(__fsub_rn(s[4 * j], mn0));
-      s[4 * j + 1] = exp2f(__fsub_rn(s[4 * j + 1], mn0));
-      s[4 * j + 2] = exp2f(__fsub_rn(s[4 * j + 2], mn1));
-      s[4 * j + 3] = exp2f(__fsub_rn(s[4 * j + 3], mn1));
+      s[4 * j] = exp2f(__fsub_rn(s[4 * j], me0));
+      s[4 * j + 1] = exp2f(__fsub_rn(s[4 * j + 1], me0));
+      s[4 * j + 2] = exp2f(__fsub_rn(s[4 * j + 2], me1));
+      s[4 * j + 3] = exp2f(__fsub_rn(s[4 * j + 3], me1));
       sum0 = __fadd_rn(__fadd_rn(sum0, s[4 * j]), s[4 * j + 1]);
       sum1 = __fadd_rn(__fadd_rn(sum1, s[4 * j + 2]), s[4 * j + 3]);
     }
@@ -517,7 +553,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float x0 = s[8 * kk + 2 * r], x1 = s[8 * kk + 2 * r + 1];
-        if (p.v_bf16) {  // P rounded to bf16, as the plain version casts it to V's dtype
+        if (v_bf16) {  // P rounded to bf16, as the plain version casts it to V's dtype
           ph[kk][r] = bf16x2_bits(x0, x1);
           pm[kk][r] = pl[kk][r] = 0u;
         } else {
@@ -536,7 +572,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
         const int off = sl * Gm::NS * W * 2 + 256 * kk;  // V^T rows (dims) sl NS .., keys 16 kk ..
         const uint64_t dv = desc(vt + off, W);
         razer_tile::Wgmma<Gm::NS>::mma(a, ph[kk], dv);
-        if (!p.v_bf16) {
+        if (!v_bf16) {
           razer_tile::Wgmma<Gm::NS>::mma(a, pm[kk], dv);
           razer_tile::Wgmma<Gm::NS>::mma(a, pl[kk], dv);
           if (v_low) {
@@ -566,7 +602,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) prefill_attention_tc_kernel(co
         done[c % Gm::NST] = 0;
         load_hi(c + Gm::NST);
       }
-      if (low && atomicAdd(done + Gm::NST, 1) == GB - 1) {
+      if (Gm::LOW_TILES && low && atomicAdd(done + Gm::NST, 1) == GB - 1) {
         done[Gm::NST] = 0;
         load_lows(c + 1);
       }
@@ -678,12 +714,13 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
   stage<HD>(qs, S::QK_STRIDE, p.q, ((size_t)b * p.Sq + r0) * p.H * HD + (size_t)h * HD, (size_t)p.H * HD, BQ,
             rows, p.q_bf16);
 
-  // each of this thread's rows: its last key (causal limit)
-  int lim[4];
+  // each of this thread's rows: its first and last keys (window, causal limit)
+  int lim[4], lo[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) lim[r] = row_limit(p, r0 + ty + 16 * r);
+  for (int r = 0; r < 4; ++r) lim[r] = row_limit(p, r0 + ty + 16 * r), lo[r] = row_first(p, r0 + ty + 16 * r);
   const int block_lim = row_limit(p, r0 + rows - 1);
   const int chunks = block_lim < 0 ? 0 : block_lim / W + 1;
+  const int first = row_first(p, r0) / W;  // the chunk of the block's first row's first key
 
   float m[4], l[4], acc[4][DPT];
 #pragma unroll
@@ -695,7 +732,7 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
   }
 
   const size_t k_row = (size_t)p.KVH * HD, v_row = (size_t)p.KVH * DV;
-  for (int c = 0; c < chunks; ++c) {
+  for (int c = first; c < chunks; ++c) {
     const int c0 = c * W;
     __syncthreads();  // the last chunk's K, V and P are consumed
     const size_t first = (size_t)b * p.Skv + c0;  // the chunk's first key row
@@ -731,11 +768,12 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_f32_kernel(const Pa
     bool live[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      live[r] = c0 <= lim[r];  // the same for the row's 16 threads
+      live[r] = c0 <= lim[r] && c0 + W - 1 >= lo[r];  // the chunk holds a key of the row (the same for its 16 threads)
       float mx = -1e30f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float sc = c0 + tx + 16 * j <= lim[r] ? __fmul_rn(s[r][j], p.scale) : -1e30f;
+        const int key = c0 + tx + 16 * j;
+        const float sc = key <= lim[r] && key >= lo[r] ? __fmul_rn(s[r][j], p.scale) : -1e30f;
         s[r][j] = sc;
         mx = fmaxf(mx, sc);
       }
@@ -827,32 +865,42 @@ cudaError_t launch(const Params& p, cudaStream_t st) {
 
 }  // namespace f32
 
+// the tensor-core body for a bf16 q, with bf16 K/V at HD 256; else the f32 body
+inline bool tensor_core_body(int q_bf16, int k_bf16, int v_bf16, int hd) {
+  return q_bf16 && (hd != 256 || (k_bf16 && v_bf16));
+}
+
 template <int HD, int DV = HD>
 cudaError_t launch(const Params& p, cudaStream_t st) {
-  return p.q_bf16 ? tc::launch<HD, DV>(p, st) : f32::launch<HD, DV>(p, st);
+  return tensor_core_body(p.q_bf16, p.k_bf16, p.v_bf16, HD) ? tc::launch<HD, DV>(p, st) : f32::launch<HD, DV>(p, st);
 }
 
 }  // namespace
 
 // q (B, Sq, H, hd), k (B, Skv, KVH, hd) and v (B, Skv, KVH, dv), each
 // contiguous bf16 (*_bf16 = 1) or f32, q 16-byte aligned; out (B, Sq, H,
-// dv) in q's dtype.  A bf16 q runs the tensor-core body, which first splits
-// K/V into ws (B x KVH x ceil(Skv / 64) x 3 x 64 x (hd + dv) bf16, 16-byte
-// aligned) and flags (B x KVH x ceil(Skv / 64) ints); an f32 q runs the
-// f32 body, which reads neither.  (hd, dv) in {(16, 16), (32, 32), (64,
-// 64), (128, 128), (192, 128)}, H % KVH == 0, B <= 65535, H <= 65535, Sq
-// <= 65535 x 64.  Query i sits at position q_offset + i and key j at j;
-// causal keeps keys j <= q_offset + i, else every key is attended.
+// dv) in q's dtype.  A bf16 q (at hd 256 with bf16 K/V) runs the
+// tensor-core body, which first splits K/V into ws (B x KVH x ceil(Skv /
+// 64) x P x 64 x (hd + dv) bf16, P = 3 part tiles, 1 at hd 256; 16-byte
+// aligned) and flags (B x KVH x ceil(Skv / 64) ints); otherwise the f32
+// body runs, which reads neither.  (hd, dv) in {(16, 16), (32, 32), (64,
+// 64), (128, 128), (192, 128), (256, 256)}, H % KVH == 0, B <= 65535, H <=
+// 65535, Sq <= 65535 x 64.  Query i sits at position q_offset + i and key j
+// at j; causal keeps keys j <= q_offset + i, else every key is attended;
+// window > 0 keeps only keys j > q_offset + i - window, and every row must
+// keep one (q_offset + Sq - window <= Skv - 1).
 // Returns cudaErrorInvalidValue on arguments it does not take, else
 // cudaGetLastError() after the launches.
 extern "C" int prefill_attention_launch(const void* q, const void* k, const void* v, void* out, void* ws, int* flags,
                                         int q_bf16, int k_bf16, int v_bf16, int B, int Sq, int Skv, int H, int KVH,
-                                        int hd, int dv, int q_offset, int causal, float scale, void* stream) {
+                                        int hd, int dv, int q_offset, int causal, int window, float scale,
+                                        void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH || B > 65535 || H > 65535 || q_offset < 0 ||
-      Sq > 65535 * BQ || dv != (hd == 192 ? 128 : hd))
+      Sq > 65535 * BQ || dv != (hd == 192 ? 128 : hd) || window < 0 ||
+      (window > 0 && q_offset + Sq - window > Skv - 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (q_bf16 && (!ws || !flags)) return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, out, ws, flags, q_bf16, k_bf16, v_bf16, B, Sq, Skv, H, KVH, q_offset, causal, scale};
+  if (tensor_core_body(q_bf16, k_bf16, v_bf16, hd) && (!ws || !flags)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{q, k, v, out, ws, flags, q_bf16, k_bf16, v_bf16, B, Sq, Skv, H, KVH, q_offset, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return static_cast<int>(launch<16>(p, st));
@@ -860,6 +908,7 @@ extern "C" int prefill_attention_launch(const void* q, const void* k, const void
     case 64: return static_cast<int>(launch<64>(p, st));
     case 128: return static_cast<int>(launch<128>(p, st));
     case 192: return static_cast<int>(launch<192, 128>(p, st));
+    case 256: return static_cast<int>(launch<256>(p, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -215,18 +215,19 @@ def razer_paged_kv_attention_verify(q: torch.Tensor, cache, page_table: torch.Te
     return out.to(q.dtype)
 
 
-def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, q_offset: int = 0,
-                      kv_chunk: int = 1024) -> torch.Tensor:
-    """GQA prefill attention, causal or not, q (B, Sq, H, hd) against k
-    (B, Skv, KVH, hd) and v (B, Skv, KVH, dv) -> (B, Sq, H, dv) in q's
-    dtype (dv = hd, or MLA's narrower V).  On the card the prefill kernel
-    (K9), whose rows do not depend on the batch or the padding, at the
-    widths it is built for (anything else raises); ``kv_chunk`` is the
-    plain version's chunk and does not reach the kernel."""
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
+                      q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
+    """GQA prefill attention, causal or not, with an optional sliding
+    ``window``, q (B, Sq, H, hd) against k (B, Skv, KVH, hd) and v (B, Skv,
+    KVH, dv) -> (B, Sq, H, dv) in q's dtype (dv = hd, or MLA's narrower V).
+    On the card the prefill kernel (K9), whose rows do not depend on the
+    batch or the padding, at the widths it is built for (anything else
+    raises); ``kv_chunk`` is the plain version's chunk and does not reach
+    the kernel."""
     if q.is_cuda:
-        return prefill_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        return prefill_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window,
                                       q_offset=q_offset)
-    return ref.chunked_attention_ref(q, k, v, causal=causal, q_offset=q_offset, kv_chunk=kv_chunk)
+    return ref.chunked_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset, kv_chunk=kv_chunk)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -83,11 +83,12 @@ def _pick_chunk(s: int, target: int = 1024) -> int:
 
 
 def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                          q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
+                          window: int = 0, q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
     """Prefill attention as the JAX package computes it: an online-softmax
     walk over KV chunks of ``kv_chunk`` (halved until it divides Skv), each
     a batched matmul.  q (B, Sq, H, hd); k, v (B, Skv, KVH, hd) -> (B, Sq,
-    H, hd) in q's dtype; ``causal=False`` attends every key.  Masked scores
+    H, hd) in q's dtype; ``causal=False`` attends every key, and ``window``
+    > 0 drops keys at or before the query's position - window.  Masked scores
     are -1e30, P is cast to V's dtype before the PV product, and the output
     is acc / max(l, 1e-30).  V may be narrower than q and k (MLA's V: (B,
     Skv, KVH, dv) -> (B, Sq, H, dv)), which equals attending V zero-padded
@@ -110,9 +111,11 @@ def chunked_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, 
         kblk = k[:, c0:c0 + kc].to(op).float().permute(0, 2, 3, 1)  # (b,kvh,hd,kc)
         vblk = v[:, c0:c0 + kc].permute(0, 2, 1, 3)  # (b,kvh,kc,hd)
         s = (qg @ kblk[:, :, None]) * scale  # (b,kvh,g,sq,kc)
+        kpos = c0 + torch.arange(kc, device=q.device)
         if causal:
-            kpos = c0 + torch.arange(kc, device=q.device)
             s = torch.where(kpos[None, :] <= qpos[:, None], s, torch.full_like(s, -1e30))
+        if window:
+            s = torch.where(kpos[None, :] > qpos[:, None] - window, s, torch.full_like(s, -1e30))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)

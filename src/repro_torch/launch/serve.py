@@ -227,6 +227,8 @@ def main(argv=None):
     sys_prompt = rng.integers(1, cfg.vocab_size, size=args.shared_prefix).tolist()
     reqs = [sys_prompt + rng.integers(1, cfg.vocab_size, size=int(rng.integers(4, 16))).tolist()
             for _ in range(args.requests)]
+    if cfg.ssm or cfg.block_pattern:
+        reqs = [r[:4] for r in reqs]  # the recurrent archs' generate takes prompts of one length
     extras = {}
     if cfg.encoder_decoder:
         # the audio frontend stub's input: random frame embeddings per request

@@ -40,7 +40,7 @@ def _softmax_scale(hd: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
 
 
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True, window: int = 0,
                       q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
     """q (B, Sq, H, hd); k (B, Skv, KVH, hd); v (B, Skv, KVH, dv) with H %
     KVH == 0 -> (B, Sq, H, dv).  V may be narrower than q and k (MLA's
@@ -49,21 +49,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     zero-padded to hd, sliced to dv.
 
     Query i sits at position ``q_offset + i`` and key j at position j; the
-    causal mask keeps key positions <= the query's.  The prefix-cached
-    continuation prefill passes the cached length as ``q_offset``, with K/V
-    laid out so that every entry's position is its index.  On the card the
-    prefill kernel (K9) walks each row's keys in fixed chunks from position
-    0, so a row's bits do not depend on the batch or the padding
-    (``kv_chunk`` is the plain version's); on the CPU the plain version runs
-    (``kernels.ref.chunked_attention_ref``, the JAX package's computation)."""
+    causal mask keeps key positions <= the query's, and ``window`` > 0
+    (sliding-window attention) also drops keys at or before the query's
+    position - window.  The prefix-cached continuation prefill passes the
+    cached length as ``q_offset``, with K/V laid out so that every entry's
+    position is its index.  On the card the prefill kernel (K9) walks each
+    row's keys in fixed chunks, so a row's bits do not depend on the batch
+    or the padding (``kv_chunk`` is the plain version's); on the CPU the
+    plain version runs (``kernels.ref.chunked_attention_ref``, the JAX
+    package's computation)."""
     from repro_torch.kernels import ops
 
-    return ops.prefill_attention(q, k, v, causal=causal, q_offset=q_offset, kv_chunk=kv_chunk)
+    return ops.prefill_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, kv_chunk=kv_chunk)
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cur_len) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, cur_len, *,
+                     window: int = 0) -> torch.Tensor:
     """One query per sequence: q (B, 1, H, hd) against (B, Smax, KVH, hd)
-    caches; positions >= cur_len (int or (B,)) are masked."""
+    caches; positions >= cur_len (int or (B,)) are masked, and with
+    ``window`` > 0 also positions <= cur_len - 1 - window."""
     b, _, h, hd = q.shape
     _, smax, kvh, _ = k_cache.shape
     g = h // kvh
@@ -74,6 +78,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     pos = torch.arange(smax, device=q.device)
     cur = torch.as_tensor(cur_len, device=q.device).reshape(-1, 1)
     mask = pos[None, :] < cur
+    if window:
+        mask &= pos[None, :] > cur - 1 - window
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
@@ -104,12 +110,13 @@ def _qkv(x: torch.Tensor, p, cfg: ArchConfig, quant: QuantPolicy, positions: tor
 
 
 def gqa_forward(x: torch.Tensor, p, cfg: ArchConfig, *, quant: QuantPolicy = BF16, positions: torch.Tensor,
-                causal: bool = True) -> torch.Tensor:
+                window: int = 0, causal: bool = True) -> torch.Tensor:
     """Full-sequence attention block at ``positions`` (B, S) (causal by
-    default; whisper's encoder passes ``causal=False``)."""
+    default; whisper's encoder passes ``causal=False``; ``window`` > 0:
+    sliding-window attention)."""
     b, s, _ = x.shape
     q, k, v = _qkv(x, p, cfg, quant, positions)
-    out = chunked_attention(q, k, v, causal=causal)
+    out = chunked_attention(q, k, v, causal=causal, window=window)
     return qlinear(out.reshape(b, s, -1), p["wo"], quant)
 
 
@@ -132,7 +139,7 @@ def _write_pages(cache, k: torch.Tensor, v: torch.Tensor, pid: torch.Tensor, slo
 
 
 def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache, cur_len: torch.Tensor, *,
-               quant: QuantPolicy = BF16, positions3: Optional[torch.Tensor] = None,
+               quant: QuantPolicy = BF16, window: int = 0, positions3: Optional[torch.Tensor] = None,
                pages: Optional[torch.Tensor] = None):
     """One-token decode at per-sequence positions ``cur_len`` (B,).
 
@@ -140,13 +147,19 @@ def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache, cur_len: torch.Tensor
     ``serving.kvcache``, or -- with ``pages``, the (B, NP) page table -- one
     layer's slice of the paged pool (``serving.pagepool``).  The new token's
     K/V is written into it in place and attention runs over ``cur_len + 1``
-    positions.  ``positions3`` (3, B, 1) are M-RoPE's streams (default:
+    positions, with ``window`` > 0 over the last ``window`` of them: as in
+    the reference, the packed cache is then dequantized whole
+    (``quantized_kv_append``) and attended by the plain
+    ``decode_attention``, not the fused kernel, and the paged pool refuses
+    a window.  ``positions3`` (3, B, 1) are M-RoPE's streams (default:
     ``cur_len`` in all three).  Returns (y, cache)."""
     from repro_torch.kernels import ops
-    from repro_torch.serving.kvcache import quantized_kv_write
+    from repro_torch.serving.kvcache import quantized_kv_append, quantized_kv_write
 
     b = x.shape[0]
     cur = torch.as_tensor(cur_len, device=x.device).reshape(-1).expand(b)
+    if pages is not None and window != 0:
+        raise ValueError("paged KV decode does not support sliding windows")
     q, k, v = _qkv(x, p, cfg, quant, cur.reshape(b, 1), positions3)
     if pages is not None:
         # idle slots (cur_len 0, all-null page row) land on the null page
@@ -154,14 +167,18 @@ def gqa_decode(x: torch.Tensor, p, cfg: ArchConfig, cache, cur_len: torch.Tensor
         rows = torch.arange(b, device=x.device)
         _write_pages(cache, k[:, 0], v[:, 0], pages[rows, cur.long() // ps], cur % ps)
         out = ops.razer_paged_kv_attention(q, cache, pages, cur + 1)
-    elif "k_codes" in cache:
+    elif "k_codes" in cache and not window:
         cache = quantized_kv_write(cache, k, v, cur)
         out = ops.razer_kv_attention(q, cache, cur + 1)
     else:
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, cur.long()] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, cur.long()] = v[:, 0].to(cache["v"].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], cur + 1)
+        if "k_codes" in cache:
+            k_cache, v_cache, cache = quantized_kv_append(cache, k, v, cur)
+        else:
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, cur.long()] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, cur.long()] = v[:, 0].to(cache["v"].dtype)
+            k_cache, v_cache = cache["k"], cache["v"]
+        out = decode_attention(q, k_cache, v_cache, cur + 1, window=window)
     return qlinear(out.reshape(b, 1, -1), p["wo"], quant), cache
 
 

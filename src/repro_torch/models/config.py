@@ -1,6 +1,6 @@
 """ArchConfig for the port's models (counterpart of
-``repro.models.config``): the fields the dense GQA, MoE, MLA, M-RoPE and
-encoder-decoder paths read."""
+``repro.models.config``): the fields the dense GQA, MoE, MLA, M-RoPE,
+encoder-decoder, Mamba-2 (SSD) and RG-LRU hybrid paths read."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -12,7 +12,7 @@ import torch
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port runs "dense", "moe", "vlm" and "audio"
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -48,6 +48,19 @@ class ArchConfig:
     qk_rope_dim: int = 64
     v_head_dim: int = 128
 
+    # SSM (mamba2)
+    ssm: bool = False
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64
+    conv_kernel: int = 4
+
+    # hybrid (recurrentgemma): per-layer types, 'r' = RG-LRU, 'a' = local attention
+    block_pattern: Tuple[str, ...] = ()
+    window: int = 0  # local attention window (0 = full)
+    lru_width: Optional[int] = None
+
     # encoder-decoder (whisper)
     encoder_decoder: bool = False
     enc_layers: int = 0
@@ -60,6 +73,8 @@ class ArchConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
+    supports_long_context: bool = False  # sub-quadratic archs (ssm, hybrid)
+
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.num_heads
@@ -71,6 +86,16 @@ class ArchConfig:
     @property
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
+
+    @property
+    def layer_types(self) -> Tuple[str, ...]:
+        """Per-layer block type: "a" attention, "r" RG-LRU, "s" Mamba-2."""
+        if self.block_pattern:
+            pat = self.block_pattern
+            return tuple(pat[i % len(pat)] for i in range(self.num_layers))
+        if self.ssm:
+            return ("s",) * self.num_layers
+        return ("a",) * self.num_layers
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the JAX package's sizes)."""
@@ -92,6 +117,10 @@ class ArchConfig:
                       first_dense_layers=min(self.first_dense_layers, 1), capacity_factor=8.0)
         if self.mla:
             kw.update(kv_lora_rank=32, q_lora_rank=0, qk_nope_dim=hd, qk_rope_dim=8, v_head_dim=hd)
+        if self.ssm:
+            kw.update(ssm_state=16, ssm_head_dim=8, ssm_chunk=8)
+        if self.block_pattern:
+            kw.update(window=8, lru_width=heads * hd)
         if self.encoder_decoder:
             kw.update(enc_layers=2, enc_frames=12)
         return replace(self, **kw)

@@ -1,6 +1,7 @@
 """Model assembly (PyTorch port of ``repro.models.transformer``): decoder
 stacks of attention layers (GQA or MLA) with a dense MLP or an MoE
-feed-forward, and whisper's encoder-decoder.
+feed-forward, whisper's encoder-decoder, Mamba-2 stacks and RecurrentGemma's
+RG-LRU / local-attention hybrid.
 
 Parameters are a dict: ``embed``, ``final_norm``, optionally ``lm_head``, and
 one ``layers_<g>`` list of per-layer dicts per layer group (``layer_groups``:
@@ -9,13 +10,16 @@ runs of consecutive layers of one type).  An ``"a"`` layer holds ``ln1``,
 (SwiGLU {gate, up, down} or GELU with biases); an ``"m"`` layer holds
 ``moe`` (router, expert banks, optional shared experts) in place of
 ``mlp``; a ``"c"`` layer (whisper's decoder) adds ``ln_x`` and ``xattn``,
-its cross-attention.  An encoder-decoder also holds ``enc_layers``, a list
-of ``"a"`` layers, and ``enc_norm``.  The keys keep the JAX package's names
+its cross-attention; an ``"s"`` layer (Mamba-2) holds ``ln1`` and the SSD
+``mixer`` only, an ``"r"`` layer the RG-LRU ``mixer`` beside ``ln2`` and
+``mlp``.  An encoder-decoder also holds ``enc_layers``, a list of ``"a"``
+layers, and ``enc_norm``.  The keys keep the JAX package's names
 for its scan-stacked groups, so the policy rules resolve the same
 '/'-joined paths (``layers_0/mixer/wq``, ``layers_1/moe/experts/gate``);
 the JAX ``lax.scan`` over a group is a loop here.  Caches are one per
 layer, in layer order across the groups: ``{"k", "v"}`` for GQA, the
-latent ``{"c", "kr"}`` for MLA.
+latent ``{"c", "kr"}`` for MLA, the recurrent ``{"h", "conv"}`` state for
+``"s"`` and ``"r"``.
 """
 from __future__ import annotations
 
@@ -29,25 +33,26 @@ from repro_torch.device import resolve_device
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ArchConfig
 from .layers import (dense_init, embed, embedding_init, gelu_mlp, gelu_mlp_init, rms_norm, swiglu, swiglu_init,
                      unembed)
 
-__all__ = ["layer_groups", "init_params", "encode", "prefill", "prefill_paged_suffix", "decode_step",
+__all__ = ["layer_groups", "init_params", "init_caches", "encode", "prefill", "prefill_paged_suffix", "decode_step",
            "decode_verify"]
 
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def layer_groups(cfg: ArchConfig) -> List[Tuple[str, int]]:
     """[(block_type, count)] for runs of consecutive same-type layers: "a"
     attention + dense MLP, "m" attention + MoE (after ``first_dense_layers``
-    dense ones), "c" whisper's decoder block with cross-attention."""
+    dense ones), "c" whisper's decoder block with cross-attention, "s"
+    Mamba-2's SSD mixer alone, "r" RG-LRU + MLP (``cfg.layer_types``)."""
+    types = list(cfg.layer_types)
     if cfg.moe:
         nd = cfg.first_dense_layers
         types = ["a"] * nd + ["m"] * (cfg.num_layers - nd)
-    else:
-        types = ["a"] * cfg.num_layers
     if cfg.encoder_decoder:
         types = ["c"] * cfg.num_layers
     groups: List[Tuple[str, int]] = []
@@ -71,7 +76,10 @@ def _mlp(x: torch.Tensor, lp, cfg: ArchConfig, quant: QuantPolicy) -> torch.Tens
 
 
 def _ffn(x: torch.Tensor, lp, ltype: str, cfg: ArchConfig, quant: QuantPolicy) -> torch.Tensor:
-    """The residual feed-forward half of a layer: the MLP or MoE."""
+    """The residual feed-forward half of a layer: the MLP or MoE (none in
+    an "s" layer)."""
+    if ltype == "s":
+        return x
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if ltype == "m":
         y, _ = moe_mod.moe_forward(h2, lp["moe"], cfg, quant=quant)
@@ -100,11 +108,20 @@ def _gqa_init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
     return mixer
 
 
+def _mixer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Dict[str, Any]:
+    if ltype == "s":
+        return ssm_mod.mamba2_init(gen, cfg, device=device, dtype=cfg.pdtype)
+    if ltype == "r":
+        return ssm_mod.rglru_init(gen, cfg, device=device, dtype=cfg.pdtype)
+    return attn.mla_init(gen, cfg, device=device, dtype=cfg.pdtype) if cfg.mla else _gqa_init(gen, cfg, device)
+
+
 def _layer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Dict[str, Any]:
     d, dt = cfg.d_model, cfg.pdtype
-    mixer = attn.mla_init(gen, cfg, device=device, dtype=dt) if cfg.mla else _gqa_init(gen, cfg, device)
-    p = {"ln1": torch.zeros(d, dtype=dt, device=device), "mixer": mixer,
-         "ln2": torch.zeros(d, dtype=dt, device=device)}
+    p = {"ln1": torch.zeros(d, dtype=dt, device=device), "mixer": _mixer_init(gen, cfg, ltype, device)}
+    if ltype == "s":  # the SSD mixer has no MLP
+        return p
+    p["ln2"] = torch.zeros(d, dtype=dt, device=device)
     if ltype == "m":
         p["moe"] = moe_mod.moe_init(gen, cfg, device=device, dtype=dt)
     elif cfg.act_fn == "gelu":
@@ -138,6 +155,25 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, A
         p["enc_layers"] = [_layer_init(gen, cfg, "a", device) for _ in range(cfg.enc_layers)]
         p["enc_norm"] = torch.zeros(cfg.d_model, dtype=cfg.pdtype, device=device)
     return p
+
+
+def _cache_init(cfg: ArchConfig, ltype: str, batch: int, max_len: int, dtype, device) -> Dict[str, torch.Tensor]:
+    if ltype == "s":
+        return ssm_mod.mamba2_state_init(cfg, batch, device=device, dtype=dtype)
+    if ltype == "r":
+        return ssm_mod.rglru_state_init(cfg, batch, device=device, dtype=dtype)
+    if cfg.mla:
+        return attn.mla_cache_init(cfg, batch, max_len, device=device, dtype=dtype)
+    return {n: torch.zeros((batch, max_len, cfg.num_kv_heads, cfg.hd), dtype=dtype, device=device) for n in ("k", "v")}
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16, device="cuda"):
+    """Empty decode state, one entry per layer: bf16 ``{"k", "v"}`` (GQA)
+    or ``{"c", "kr"}`` (MLA) of ``max_len`` positions, or the ``{"h",
+    "conv"}`` recurrent state of an "s" or "r" layer (h float32)."""
+    device = resolve_device(device)
+    return [_cache_init(cfg, ltype, batch, max_len, dtype, device) for ltype, count in layer_groups(cfg)
+            for _ in range(count)]
 
 
 def _head(params) -> torch.Tensor:
@@ -218,7 +254,11 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
     caches: List[Dict[str, torch.Tensor]] = []
     for ltype, lp in _layers(params, cfg):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.mla:
+        if ltype in ("s", "r"):
+            mix, cache = (ssm_mod.mamba2_prefill if ltype == "s" else ssm_mod.rglru_prefill)(h, lp["mixer"], cfg,
+                                                                                            quant)
+            x = x + mix
+        elif cfg.mla:
             c, kr = attn._mla_ckv(h, lp["mixer"], cfg, quant, positions)
             x = x + attn.mla_forward(h, lp["mixer"], cfg, quant=quant, positions=positions, ckv=(c, kr))
             cache = attn.mla_cache_init(cfg, b, max_len, device=dev, dtype=cfg.cdtype)
@@ -232,10 +272,9 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
                 k_att, v_att = _qdq_kv(k, cfg.hd), _qdq_kv(v, cfg.hd)
             else:
                 k_att, v_att = k, v
-            mix = attn.chunked_attention(q, k_att, v_att, causal=True)
+            mix = attn.chunked_attention(q, k_att, v_att, causal=True, window=_window(cfg, ltype))
             x = x + qlinear(mix.reshape(b, s, -1), lp["mixer"]["wo"], quant)
-            cache = {n: torch.zeros((b, max_len, cfg.num_kv_heads, cfg.hd), dtype=cfg.cdtype, device=dev)
-                     for n in ("k", "v")}
+            cache = _cache_init(cfg, ltype, b, max_len, cfg.cdtype, dev)
             cache["k"][:, :s] = k
             cache["v"][:, :s] = v
         caches.append(cache)
@@ -247,6 +286,12 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
     else:
         x_last = x[:, -1:]
     return unembed(x_last, _head(params))[:, 0], caches, enc
+
+
+def _window(cfg: ArchConfig, ltype: str) -> int:
+    """The sliding window of a layer's attention: the config's for the "a"
+    layers of a block-pattern hybrid, else 0 (full)."""
+    return cfg.window if ltype == "a" and cfg.block_pattern else 0
 
 
 def _gqa_stack_only(cfg: ArchConfig, what: str) -> None:
@@ -316,19 +361,26 @@ def decode_step(params, token: torch.Tensor, caches, cur_len: torch.Tensor, cfg:
     returned (whisper's cross-attention reads it every step);
     ``positions3`` (3, B, 1): M-RoPE's streams.  With ``pages`` (B, NP) the
     caches are the paged pool's per-layer views and every layer shares the
-    table (GQA only)."""
+    table (GQA only).  An "s" or "r" layer steps its recurrent state; a
+    hybrid's "a" layers attend their window."""
     x = embed(token[:, None], params["embed"], cfg.cdtype)
     if cfg.encoder_decoder:
         x = x + _sinusoid_at(torch.as_tensor(cur_len, device=x.device), cfg.d_model).to(x.dtype)[None, None, :]
     for i, (ltype, lp) in enumerate(_layers(params, cfg)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        if cfg.mla:
+        if ltype in ("s", "r"):
+            if pages is not None:
+                raise ValueError("paged KV decode supports GQA attention only (not "
+                                 + ("SSM" if ltype == "s" else "RG-LRU") + " state)")
+            step = ssm_mod.mamba2_decode if ltype == "s" else ssm_mod.rglru_decode
+            mix, caches[i] = step(h, lp["mixer"], cfg, caches[i], quant=quant)
+        elif cfg.mla:
             if pages is not None:
                 raise ValueError("paged KV decode supports GQA attention only (not MLA)")
             mix, caches[i] = attn.mla_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant)
         else:
             mix, caches[i] = attn.gqa_decode(h, lp["mixer"], cfg, caches[i], cur_len, quant=quant,
-                                             positions3=positions3, pages=pages)
+                                             window=_window(cfg, ltype), positions3=positions3, pages=pages)
         x = _ffn(_cross(x + mix, lp, ltype, cfg, quant, enc), lp, ltype, cfg, quant)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(x, _head(params))[:, 0], caches

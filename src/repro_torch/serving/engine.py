@@ -231,12 +231,15 @@ class Engine:
         return b if cap is None else min(b, cap)
 
     def _check_prompts(self, prompts: Sequence[Sequence[int]], n_new: int) -> None:
+        """Refuse what the fixed caches cannot hold.  A pure SSM stack keeps
+        a recurrent state, not a (max_len,) cache, so only the empty-prompt
+        check applies to it, as in the reference."""
         if not prompts:
             raise ValueError("Engine.generate needs at least one prompt")
         for i, p in enumerate(prompts):
             if len(p) == 0:
                 raise ValueError(f"prompt {i} is empty; every prompt needs >= 1 token")
-            if len(p) + n_new > self.scfg.max_len:
+            if not self.cfg.ssm and len(p) + n_new > self.scfg.max_len:
                 raise ValueError(f"prompt {i} ({len(p)} tokens) + max_new_tokens ({n_new}) exceeds "
                                  f"ServeConfig.max_len ({self.scfg.max_len})")
 
@@ -264,7 +267,8 @@ class Engine:
 
     def _quantize_caches(self, caches):
         """bf16 GQA caches -> the packed layout (App. C.1); MLA's latent
-        ``{"c", "kr"}`` caches stay bf16, as in the reference."""
+        ``{"c", "kr"}`` caches and the recurrent ``{"h", "conv"}`` states
+        stay as they are, as in the reference."""
         from repro_torch.serving.kvcache import kv_quantize
 
         out = []
@@ -295,9 +299,13 @@ class Engine:
         attending the in-pass K/V, and whisper's encoder output goes to
         every decode step.  Whisper decodes one sequence at a time (the
         reference's position embedding fails on a batch; here a
-        ``ValueError``)."""
+        ``ValueError``).  The recurrent archs (Mamba-2, the RG-LRU hybrid)
+        prefill at the exact length too: a padded step would enter their
+        recurrent state, so their prompts must have one length."""
         n_new = max_new_tokens or self.scfg.max_new_tokens
         self._check_prompts(prompts, n_new)
+        if self._recurrent() and len({len(p) for p in prompts}) != 1:
+            raise ValueError("recurrent archs need equal prompt lengths")
         b = len(prompts)
         toks, lens, _ = self._prefill_input(prompts, extras)
 
@@ -327,14 +335,18 @@ class Engine:
                       "batch": b, "bucket": toks.shape[1]}
         return out
 
+    def _recurrent(self) -> bool:
+        return bool(self.cfg.ssm or self.cfg.block_pattern)
+
     def _bucketed(self, extras: Optional[Dict[str, Any]]) -> bool:
-        return not (self.cfg.encoder_decoder or self.cfg.frontend != "none" or extras)
+        return not (self._recurrent() or self.cfg.encoder_decoder or self.cfg.frontend != "none" or extras)
 
     def _prefill_input(self, prompts: Sequence[Sequence[int]], extras: Optional[Dict[str, Any]] = None):
         """``generate``'s prefill input: (tokens (B, S) int64 zero-padded,
         lengths (B,) int32, bucketed).  S is the power-of-two bucket of the
-        longest prompt for GQA and MLA stacks, its exact length for archs
-        with a frontend, an encoder-decoder or any ``extras``."""
+        longest prompt for GQA and MLA stacks, its exact length for the
+        recurrent archs and archs with a frontend, an encoder-decoder or any
+        ``extras``."""
         lens = np.array([len(p) for p in prompts], np.int32)
         bucketed = self._bucketed(extras)
         s = self._bucket(int(lens.max()), cap=self.scfg.max_len) if bucketed else int(lens.max())

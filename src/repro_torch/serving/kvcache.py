@@ -18,7 +18,8 @@ from repro_torch.core.packing import pack_fp4_codes, pack_scale_meta, unpack_fp4
 from repro_torch.core.policy import TensorSpec
 from repro_torch.models.config import ArchConfig
 
-__all__ = ["KV_SV", "kv_quantize", "kv_dequantize", "quantized_gqa_cache_init", "quantized_kv_write"]
+__all__ = ["KV_SV", "kv_quantize", "kv_dequantize", "quantized_gqa_cache_init", "quantized_kv_write",
+           "quantized_kv_append", "quantized_kv_prefill"]
 
 KV_SV = (5.0, -5.0)
 KV_SPEC = TensorSpec.kv()
@@ -88,4 +89,28 @@ def quantized_kv_write(cache: Dict[str, torch.Tensor], k_new: torch.Tensor, v_ne
     vc, vm = kv_quantize(v_new[:, 0])
     for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
         cache[name][rows, pos] = val
+    return cache
+
+
+def quantized_kv_append(cache: Dict[str, torch.Tensor], k_new: torch.Tensor, v_new: torch.Tensor,
+                        cur_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Write one token's K/V (B, 1, KVH, hd) at ``cur_len`` (B,) as
+    ``quantized_kv_write`` does, then dequantize the whole caches -> (K, V
+    in the new K/V's dtypes, the cache).  The windowed decode reads these
+    through the plain ``decode_attention``, as the reference's does."""
+    hd = k_new.shape[-1]
+    cache = quantized_kv_write(cache, k_new, v_new, cur_len)
+    k_full = kv_dequantize(cache["k_codes"], cache["k_meta"], hd)
+    v_full = kv_dequantize(cache["v_codes"], cache["v_meta"], hd)
+    return k_full.to(k_new.dtype), v_full.to(v_new.dtype), cache
+
+
+def quantized_kv_prefill(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Quantize a whole prefill's K/V (B, S, KVH, hd) and write it into
+    positions [0, S) of every sequence, in place."""
+    kc, km = kv_quantize(k)
+    vc, vm = kv_quantize(v)
+    s = k.shape[1]
+    for name, val in (("k_codes", kc), ("k_meta", km), ("v_codes", vc), ("v_meta", vm)):
+        cache[name][:, :s] = val.to(cache[name].dtype)
     return cache

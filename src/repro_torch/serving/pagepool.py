@@ -111,11 +111,12 @@ def _check_paged_arch(cfg: ArchConfig) -> None:
     per-token GQA cache cannot page it (they keep the static engine path).
     Modality frontends are refused too: ``serve`` has no extras path, so a
     VLM or audio prefill would drop its frontend embeddings."""
-    if cfg.mla or cfg.encoder_decoder or cfg.frontend != "none":
+    if cfg.mla or cfg.ssm or cfg.block_pattern or cfg.encoder_decoder or cfg.frontend != "none":
         raise ValueError(
             "paged KV serving supports pure GQA-attention stacks (dense or MoE); "
             f"arch {cfg.name!r} has "
-            + ", ".join(k for k, v in [("mla", cfg.mla), ("encoder_decoder", cfg.encoder_decoder),
+            + ", ".join(k for k, v in [("mla", cfg.mla), ("ssm", cfg.ssm), ("block_pattern", bool(cfg.block_pattern)),
+                                       ("encoder_decoder", cfg.encoder_decoder),
                                        (f"a {cfg.frontend} frontend", cfg.frontend != "none")] if v)
             + " -- use Engine.generate (static batching) for it")
     if cfg.hd % 16 != 0:

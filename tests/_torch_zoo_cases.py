@@ -8,9 +8,11 @@ drawn nonzero from a seed.
 ``run_case`` returns what the tests compare: the prefill's last logits, the
 logits of every decode step (both engines fed the JAX engine's greedy
 tokens), the caches right after prefill (packed GQA bytes, or MLA's latent
-``c`` / ``kr``), and both engines' ``generate`` output.  DeepSeek-V2 takes
-``generate``'s bucketed prefill; Qwen2-VL (with ``frontend_embeds``) and
-whisper (with ``enc_frames``, one prompt) the exact-length one.
+``c`` / ``kr``, or the recurrent ``h`` / ``conv`` states), and both
+engines' ``generate`` output.  DeepSeek-V2 takes ``generate``'s bucketed
+prefill; Qwen2-VL (with ``frontend_embeds``), whisper (with ``enc_frames``,
+one prompt) and the recurrent archs (``RECURRENT_PROMPTS``, of one length)
+the exact-length one.
 """
 import dataclasses
 
@@ -32,6 +34,10 @@ from repro_torch.serving.engine import Engine, ServeConfig
 
 PROMPTS = [[1, 2, 3], [7, 8, 9, 10, 11, 12], [20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30]]
 WHISPER_PROMPTS = [[7, 8, 9, 10, 11, 12]]
+# the recurrent archs take prompts of one length; 11 tokens outrun the
+# reduced RecurrentGemma's window of 8, so the prefill and decode masks bite
+RECURRENT_PROMPTS = [[1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], [20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30],
+                     [40, 3, 41, 7, 42, 9, 43, 11, 44, 13, 45]]
 MAX_LEN = 32
 N_NEW = 6
 LOGIT_TOL = 1e-5  # the engine tests' f32 tolerance (tests/test_torch_engine.py)
@@ -113,10 +119,16 @@ def _caches(jcache, tcache, n_layers):
     return jl, tl
 
 
+def prompts_of(cfg):
+    if cfg.encoder_decoder:
+        return WHISPER_PROMPTS
+    return RECURRENT_PROMPTS if cfg.ssm or cfg.block_pattern else PROMPTS
+
+
 def run_case(arch: str, policy: str):
     torch.set_num_threads(2)
     je, te = engines(arch, policy)
-    prompts = WHISPER_PROMPTS if te.cfg.encoder_decoder else PROMPTS
+    prompts = prompts_of(te.cfg)
     jx, tx = extras(te.cfg, len(prompts))
     toks, lens, bucketed = te._prefill_input(prompts, tx)
     tlast, tcache, tenc = te._prefill_batch(toks, lens, tx)

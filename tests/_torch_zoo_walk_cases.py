@@ -70,10 +70,24 @@ def test_serving_paths_raise_the_pool_refusal(zoo, how):
 
 
 def test_paged_paths_refuse_as_the_reference(zoo):
-    """The layer-level checks behind the pool's: MLA's paged decode, and the
-    verify step and prefix-cached prefill on non-GQA layer types."""
+    """The layer-level checks behind the pool's: MLA's, the SSM's and the
+    RG-LRU's paged decode, and the verify step and prefix-cached prefill on
+    non-GQA layer types."""
     arch, _, tcfg, _, eng = zoo
     tok = torch.zeros(1, dtype=torch.long)
+    first = ttf.layer_groups(tcfg)[0][0]
+    if first in ("s", "r"):
+        state = "SSM" if first == "s" else "RG-LRU"
+        with pytest.raises(ValueError, match=rf"paged KV decode supports GQA attention only \(not {state} state\)"):
+            ttf.decode_step(eng.params, tok, [{}] * tcfg.num_layers, torch.zeros(1, dtype=torch.int32), tcfg,
+                            eng.policy, pages=torch.zeros((1, 2), dtype=torch.int32))
+        with pytest.raises(ValueError, match="speculative verify supports paged GQA attention stacks only, got "
+                                             f"layer type '{first}'"):
+            ttf.decode_verify(eng.params, tok[:, None], [], torch.zeros(1, dtype=torch.int32), tcfg, eng.policy,
+                              pages=torch.zeros((1, 2), dtype=torch.int32))
+        with pytest.raises(ValueError, match="prefix-cached prefill supports GQA attention stacks only"):
+            ttf.prefill_paged_suffix(eng.params, tok[:, None], [], torch.zeros(1, dtype=torch.int32), 1, 1, tcfg,
+                                     eng.policy)
     if tcfg.mla:
         with pytest.raises(ValueError, match=r"paged KV decode supports GQA attention only \(not MLA\)"):
             ttf.decode_step(eng.params, tok, [{}] * tcfg.num_layers, torch.zeros(1, dtype=torch.int32), tcfg,

@@ -40,4 +40,4 @@ def test_paper_archs_are_the_reference_set():
 
 def test_unknown_arch_raises():
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("mamba2_370m")
+        get_config("not_an_arch")

@@ -21,9 +21,14 @@ def _linears(cfg):
     """(name, K, N) of every packed linear of a full-width config: the
     attention block's (GQA, or MLA's q_a / kv_a / wo, and q_b, which the
     default rules keep dense with kv_b, planned as well), whisper's
-    cross-attention, the dense layers' MLP (SwiGLU or GELU) and the shared
-    experts."""
+    cross-attention, the dense layers' MLP (SwiGLU or GELU), the shared
+    experts, the RG-LRU block's five projections, or Mamba-2's in_proj and
+    out_proj (its blocks have no attention and no MLP)."""
     d = cfg.d_model
+    if cfg.ssm:
+        d_inner = cfg.ssm_expand * d
+        return [("in_proj", d, 2 * d_inner + 2 * cfg.ssm_state + d_inner // cfg.ssm_head_dim),
+                ("out_proj", d_inner, d)]
     if cfg.mla:
         h, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
         att = [("q_a", d, cfg.q_lora_rank), ("q_b", cfg.q_lora_rank, h * (dn + dr)),
@@ -33,6 +38,9 @@ def _linears(cfg):
         att = [("wq", d, q), ("wk", d, kv), ("wv", d, kv), ("wo", q, d)]
     if cfg.encoder_decoder:
         att += [(f"xattn_{n}", k, nn) for n, k, nn in att]
+    if cfg.block_pattern:
+        w = cfg.lru_width or d
+        att += [("w_in", d, w), ("w_gate", d, w), ("wa", w, w), ("wx", w, w), ("out_proj", w, d)]
     mlp = [("up", d, cfg.d_ff), ("down", cfg.d_ff, d)] if cfg.act_fn == "gelu" else \
         [("gate", d, cfg.d_ff), ("up", d, cfg.d_ff), ("down", cfg.d_ff, d)]
     if not cfg.n_experts or cfg.first_dense_layers:
@@ -46,8 +54,8 @@ def _linears(cfg):
 def _packed_shapes():
     """(name, E, K, N) of every packed GEMM of every full-width config of
     the port (``ARCHS``: llama3_2_3b, dbrx_132b, the six dense models of
-    the paper's evaluation, deepseek_v2_236b, qwen2_vl_7b and
-    whisper_base), meshless and as tp 2 K-shards (local K = K / 2), with
+    the paper's evaluation, deepseek_v2_236b, qwen2_vl_7b, whisper_base,
+    recurrentgemma_2b and mamba2_370m), meshless and as tp 2 K-shards (local K = K / 2), with
     the expert banks on E and on the (2, *) mesh's E / 2."""
     out = []
     for arch in ARCHS:
@@ -75,7 +83,9 @@ def test_shapes_cover_the_tp2_local_ks():
         2560, 12800, 3584, 9600,  # qwen3_32b (d 5120, f 25600), deepseek_coder_33b (d 7168, f 19200)
         768, 8192,  # deepseek_v2_236b (q_lora 1536 and expert d_ff 1536, MLA's wo 128 x 128)
         1792, 9472,  # qwen2_vl_7b (d 3584, f 18944)
-        256, 1024}  # whisper_base (d 512, f 2048)
+        256, 1024,  # whisper_base (d 512, f 2048)
+        1280, 3840,  # recurrentgemma_2b (d and lru width 2560, f 7680)
+        512}  # mamba2_370m (d 1024; out_proj's d_inner 2048 gives 1024)
 
 
 @pytest.mark.parametrize("name,e,k,n", SHAPES, ids=[s[0] for s in SHAPES])

@@ -159,8 +159,10 @@ def test_split_arithmetic_holds_the_f32_kv_tolerance(kv, g, hd):
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "tensor_core"), (torch.float32, "f32")])
 def test_body_follows_q_dtype_alone(dtype, body):
     """A bf16 q runs the tensor-core body (the split, then the attention), an
-    f32 q the f32 body; nothing else enters the choice."""
+    f32 q the f32 body; below hd 256 nothing else enters the choice (at hd
+    256 the K/V dtype does: ``test_hd256_body_needs_bf16_kv``)."""
     assert kernel_body(dtype) == body
+    assert all(kernel_body(dtype, hd, kv_bf16) == body for hd in HEAD_DIMS if hd != 256 for kv_bf16 in (0, 1))
     assert kernel_names(dtype) == ({"tensor_core": ("prefill_attention_tc_split_kernel", "prefill_attention_tc_kernel"),
                                     "f32": ("prefill_attention_f32_kernel",)}[body])
 
@@ -190,7 +192,7 @@ def _args(dtype=torch.bfloat16, hd=64, h=6, kvh=2, kv_dtype=torch.float32):
     (dict(dtype=torch.float16), "bf16/f32"),
     (dict(kv_dtype=torch.float16), "bf16/f32"),
     (dict(hd=48), "unsupported heads"),
-    (dict(hd=256), "unsupported heads"),
+    (dict(hd=512), "unsupported heads"),
     (dict(h=5, kvh=2), "unsupported heads"),
 ])
 def test_wrapper_refuses(case, match):
@@ -211,3 +213,26 @@ def test_wrapper_refuses_a_negative_offset_and_mismatched_shapes():
     with pytest.raises(ValueError, match="contiguous"):
         prefill_attention_cuda(q, k.transpose(1, 2), v)
     assert 64 in HEAD_DIMS and 48 not in HEAD_DIMS
+
+
+def test_hd256_body_needs_bf16_kv():
+    """At hd 256 the tensor-core body holds no low tiles: a bf16 q with bf16
+    K/V runs it (one part tile a chunk in the workspace), with f32 K or V
+    the f32 body, as the C entry chooses."""
+    assert kernel_body(torch.bfloat16, 256, True) == "tensor_core"
+    assert kernel_body(torch.bfloat16, 256, False) == "f32"
+    assert kernel_body(torch.float32, 256, True) == "f32"
+    assert kernel_names(torch.bfloat16, 256, False) == ("prefill_attention_f32_kernel",)
+    assert workspace_shapes(4, 3072, 1, 256) == ((4 * 48 * 2 * 64 * 256 * 2,), (4 * 48,))
+
+
+def test_wrapper_refuses_a_window_that_leaves_a_row_no_key():
+    """With a window every row must keep a key: the plain version would give
+    a row with none the mean of V, the kernel zeros."""
+    q, k, v = _args()
+    with pytest.raises(ValueError, match="window"):
+        prefill_attention_cuda(q, k, v, window=-1)
+    with pytest.raises(ValueError, match="has no key"):
+        prefill_attention_cuda(q, k, v, q_offset=4, window=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):  # the last query, at 8, keeps key 8
+        prefill_attention_cuda(q, k, v, window=1)
