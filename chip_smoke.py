@@ -4,8 +4,8 @@
 
 Phases, each printing one line (and failing the run with a traceback):
   1. device  -- the card's name and power limit (exits non-zero without CUDA);
-  2. build   -- nvcc builds the kernels from the seven src/repro_torch/csrc/*.cu;
-  3. kernels -- each of the ten kernels against its plain PyTorch version on
+  2. build   -- nvcc builds the kernels from the nine src/repro_torch/csrc/*.cu;
+  3. kernels -- each of the twelve kernels against its plain PyTorch version on
                 the card, K1-K5 at the full-width llama3_2_3b shapes and the
                 grouped GEMM K6 at the full-width dbrx_132b expert banks, with
                 times, and the bit-identities the serving invariants rest on:
@@ -125,8 +125,8 @@ Phases, each printing one line (and failing the run with a traceback):
                 with the qkv biases and qk-norm gains drawn nonzero:
                 llama3_1_8b at full depth (32 layers) through generate and
                 serve under W4 + KV, vanilla, and speculate_k=2 with a bf16
-                draft, and under W4A4 + KV vanilla on its first 16 layers
-                (LLAMA8B_W4A4_LAYERS: the room went to phase 11; its W4A4
+                draft, and under W4A4 + KV vanilla on its first 4 layers
+                (LLAMA8B_W4A4_LAYERS: the room went to phases 11 and 12; its W4A4
                 speculative serve was cut for phase 10 and runs in phase
                 4c on llama3_2_3b), each part on the phase clock;
                 llama2_7b, qwen3_8b, qwen3_32b,
@@ -218,6 +218,29 @@ the CUDA-event time, which at decode sizes is the host's issue rate; a
 row whose kernel the profiler does not record in three tries keeps its
 event time and says its device time is missing (a fault of the profiler,
 not of the kernel: every correctness check stays a hard failure).
+Phase 3 also holds the training path's backward kernels against autograd
+through their plain versions (BWD_TOL of max |want|; a repeat's bits
+equal), timed beside the plain backward and the library's (each a
+backward alone): K9's backward at llama3_2_3b's heads, bf16, causal, B 1 x
+4096 and B 4 x 512 (beside F.scaled_dot_product_attention's backward), K10's
+at d 3072, M 4 and 4096 (beside F.rms_norm's with the f32 gain).
+ 12. training -- (a) llama3_2_3b at full width and depth, random weights
+                (seed 0), f32 parameters and AdamW moments, bf16 compute,
+                remat "full", 1 x 4096 tokens of the synthetic Markov data:
+                3 steps of make_train_step under bf16, 3 under
+                fakequant(ste=True) and 1 under W4A4 fakequant(ste=True);
+                losses and gradient norms finite, the parameters moved,
+                exact launches a step (K9 2 a layer and K10 2 a norm but
+                the final one: the step's forward and the backward's
+                recompute of each layer; K9's backward 1 a layer, K10's 1 a
+                norm; K2 14 a layer under W4A4), step seconds, tokens/s,
+                6 N D over step time against 989 TFLOP/s, peak memory; (b)
+                reduced llama3_2_3b in f32, 3 steps on the card and on the
+                CPU from the same init: losses within 1e-5 relative,
+                parameters within the sign-flip bound; (c) launch.train
+                --steps 4 --ckpt-every 2 then launch.serve --ckpt from its
+                checkpoint, and a ResilientLoop with a NodeFailure at step
+                3 ending with the uninterrupted run's state, bit for bit.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -381,13 +404,33 @@ def _counters():
             "prefill_attention": (prefill_attention_cuda, "launches"), "rms_norm": (rms_norm_cuda, "launches")}
 
 
+def _train_counters():
+    """name -> (wrapper, counter attribute) of the backward kernels, which
+    only a training step launches (kept apart from ``_counters``, whose
+    counts the serving phases compare whole)."""
+    from repro_torch.kernels.prefill_attention_bwd import prefill_attention_bwd_cuda
+    from repro_torch.kernels.rms_norm_bwd import rms_norm_bwd_cuda
+
+    return {"prefill_attention_bwd": (prefill_attention_bwd_cuda, "launches"),
+            "rms_norm_bwd": (rms_norm_bwd_cuda, "launches")}
+
+
 def _reset_counts():
-    for fn, attr in _counters().values():
+    for fn, attr in list(_counters().values()) + list(_train_counters().values()):
         setattr(fn, attr, 0)
 
 
 def _read_counts():
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+def _main_path_train_counts():
+    """The backward kernels' counts of a main-path run (reset just before
+    it), added to the totals the kernels line reports."""
+    counts = {name: getattr(fn, attr) for name, (fn, attr) in _train_counters().items()}
+    for name, n in counts.items():
+        MAIN_PATH_LAUNCHES[name] = MAIN_PATH_LAUNCHES.get(name, 0) + n
+    return counts
 
 
 MAIN_PATH_LAUNCHES = {}  # kernel -> launches summed over every main-path run
@@ -2423,10 +2466,12 @@ def _disagg_long(cfg, eng, detail, long_context, chunk_tokens=512, n_new=32):
 # phase 7: the paper's dense models at full width
 # ---------------------------------------------------------------------------
 PAPER_CUT = ("llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b", "deepseek_coder_33b")
-# llama3_1_8b's W4A4 + KV generate and serve run its first 16 of 32 layers
+# llama3_1_8b's W4A4 + KV generate and serve run its first 4 of 32 layers
 # (the W4 + KV ones, and phases 8 and 9 on them, keep all 32): the room went
-# to phase 11; phase 7's clock keeps what each part takes
-LLAMA8B_W4A4_LAYERS = 16
+# to phase 11 (32 -> 16) and to phase 12 and phase 3's backward checks (16
+# -> 4, tools/phase_depth_cost.py --depths 16 4); phase 7's clock keeps what
+# each part takes
+LLAMA8B_W4A4_LAYERS = 4
 
 
 def _llama8b_w4a4_part(raw, cfg, n, dev, detail):
@@ -3812,6 +3857,334 @@ def _parallel_dbrx(dev, detail):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (training): the backward kernels against autograd through the plain versions
+# ---------------------------------------------------------------------------
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}  # of max |want|, as tests/test_torch_cuda_train.py
+
+
+def _bwd_close(got, want, dtype, what):
+    """max |got - want| within BWD_TOL[dtype] of max |want| (f32 inputs: f32
+    sums in another order; bf16: bf16 outputs, and autograd through the
+    plain version rounds P and dP to bf16 where the kernel keeps f32) ->
+    the error relative to max |want|."""
+    err, scale = float((got.float() - want.float()).abs().max()), float(want.float().abs().max())
+    assert err <= BWD_TOL[dtype] * scale, (what, err, scale)
+    return err / scale
+
+
+def _backward_ms(out, inputs, grad, reps):
+    """Event ms of a backward alone: autograd.grad over a graph kept for
+    repeats (the forward runs once, outside the timing)."""
+    return _cuda_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), reps=reps, warmup=1)
+
+
+def _check_attention_bwd(cfg, dev, gen, detail, shapes=((1, 4096), (4, 512))):
+    """K9's backward at llama3_2_3b's heads (24 / 8, hd 128), bf16 q, K, V
+    and dO, causal, at B 1 x 4096 (phase 12's step) and B 4 x 512: dq, dk,
+    dv against autograd through the plain version (``BWD_TOL``), the bits
+    of a repeat equal; timed (event and profiler device ms, the two kernels
+    of a call) beside the plain version's backward and the backward of
+    F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) through
+    autograd, each a backward alone.  Bound: the bytes of q, k, v, o, dO in
+    and dq, dk, dv out, or 10 hd operations a kept (query, key) pair and
+    head (S, dP, dV, dQ, dK), bf16 peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import prefill_attention_bwd as pab
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prefill_attention import prefill_attention_cuda
+
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    out, worst = {}, 0.0
+    for b, s in shapes:
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        dout = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        o = prefill_attention_cuda(q, k, v)
+        run = lambda: pab.prefill_attention_bwd_cuda(q, k, v, o, dout)  # noqa: E731
+        got = run()
+        assert all(torch.equal(x, y) for x, y in zip(got, run())), "K9's backward bits do not repeat"
+        qp, kp, vp = (t.detach().requires_grad_(True) for t in (q, k, v))
+        plain_out = ref.chunked_attention_ref(qp, kp, vp)
+        want = torch.autograd.grad(plain_out, (qp, kp, vp), dout, retain_graph=True)
+        errs = {n: _bwd_close(x, y, torch.bfloat16, f"K9 bwd {n} B {b} x {s}") for n, x, y in
+                zip(("dq", "dk", "dv"), got, want)}
+        worst = max(worst, *errs.values())
+        del got, want
+        reps = 5 if s >= 4096 else 20
+        plain_ms = _backward_ms(plain_out, (qp, kp, vp), dout, reps=2)
+        del plain_out
+        ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        library_ms = _backward_ms(lib_out, (ql, kl, vl), dout.transpose(1, 2).contiguous(), reps=reps)
+        del lib_out
+        pairs = b * s * (s + 1) // 2
+        bound, by = _bound_ms((q.numel() * 3 + k.numel() * 2 + v.numel() * 2 + dout.numel()) * 2, 10 * hd * h * pairs)
+        row = {"relative_err": errs, "ms": _cuda_ms(run, reps=reps), "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound, "bound_by": by, "shape": [b, s, h, kvh, hd], "dtype": "bfloat16",
+               "operations": 10 * hd * h * pairs}
+        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in pab.kernel_names()}
+        row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
+        row["launches_per_call"] = len(pab.kernel_names())
+        out[(b, s)] = row
+        detail[f"prefill_attention_bwd_B{b}_S{s}"] = row
+    return worst, out[shapes[0]], out
+
+
+def _check_rms_norm_bwd(cfg, dev, gen, detail, ms=(4, 4096)):
+    """K10's backward at d_model 3072, bf16 x and dy, f32 gamma, M 4 and 4096
+    (phase 12's rows): dx and dgamma against autograd through the plain
+    version (``BWD_TOL``), a repeat's bits equal; timed beside the plain
+    version's backward and F.rms_norm's (gain 1 + gamma in f32, the same
+    function), each a backward alone.  Bound: x and dy read, dx written
+    (bf16), gamma read and dgamma written (f32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rms_norm_bwd as rnb
+
+    d = cfg.d_model
+    gamma = torch.randn(d, generator=gen, device=dev) * 0.1
+    out, worst = {}, 0.0
+    for m in ms:
+        x = (torch.randn((m, d), generator=gen, device=dev) * 3).to(torch.bfloat16)
+        dy = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        run = lambda: rnb.rms_norm_bwd_cuda(x, gamma, dy, cfg.norm_eps)  # noqa: E731
+        got = run()
+        again = run()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), "K10's backward bits do not repeat"
+        xp, gp = x.detach().requires_grad_(True), gamma.detach().requires_grad_(True)
+        plain_out = ref.rms_norm_ref(xp, gp, cfg.norm_eps)
+        want = torch.autograd.grad(plain_out, (xp, gp), dy, retain_graph=True)
+        errs = {n: _bwd_close(a, w, torch.bfloat16, f"K10 bwd {n} M {m}") for n, a, w in
+                zip(("dx", "dgamma"), got, want)}
+        worst = max(worst, *errs.values())
+        xl, gl = x.detach().requires_grad_(True), (1.0 + gamma).detach().requires_grad_(True)
+        lib_out = F.rms_norm(xl, (d,), weight=gl, eps=cfg.norm_eps)
+        bound, by = _bound_ms(3 * m * d * 2 + 2 * d * 4, 0.0)
+        row = {"relative_err": errs, "ms": _cuda_ms(run, reps=50),
+               "plain_ms": _backward_ms(plain_out, (xp, gp), dy, 20), "library_ms": _backward_ms(lib_out, (xl, gl), dy, 50), "bound_ms": bound, "bound_by": by,
+               "shape": [m, d]}
+        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in ("rms_norm_bwd_rows_kernel",
+                                                                          "rms_norm_bwd_gamma_kernel")}
+        row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
+        row["launches_per_call"] = 2
+        out[m] = row
+        detail[f"rms_norm_bwd_M{m}"] = row
+    return worst, out[ms[0]], out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: training
+# ---------------------------------------------------------------------------
+TRAIN_TOKENS = (1, 4096)  # (batch, sequence) of a full-width step
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+
+
+def _train_want(cfg, policy, steps: int = 1):
+    """Exact launches of ``steps`` train steps of a GQA stack under remat
+    "full": each layer's forward runs twice (the step's forward, then the
+    backward's recompute of the layer from its input), so K9 runs 2 a layer,
+    K10 2 per layer norm plus the final norm once (outside the checkpointed
+    layers); the backward runs K9's backward kernel once a layer and K10's
+    once a norm; under W4A4 K2 runs before each of a layer's 7 linears in
+    both forwards (a gradient never reaches it: the straight-through
+    estimator)."""
+    n = cfg.num_layers
+    norms = 2 * n + 1
+    want = dict.fromkeys(_read_counts(), 0)
+    want.update(prefill_attention=2 * n * steps, rms_norm=(2 * norms - 1) * steps,
+                razer_act_qdq=(2 * 7 * n * steps if policy.act is not None else 0))
+    return want, {"prefill_attention_bwd": n * steps, "rms_norm_bwd": norms * steps}
+
+
+def _train_batches(cfg, steps, b, s):
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b))
+    return [ds.batch(i) for i in range(steps)]
+
+
+def _train_full_width(dev, detail):
+    """Phase 12 (a): llama3_2_3b at full width and depth (f32 params and
+    AdamW moments, bf16 compute, remat "full"), random weights from seed 0,
+    B x S = 1 x 4096 of the synthetic Markov data: 3 steps under bf16, 3
+    under fakequant(ste=True) (RaZeR weight QAT) and 1 under W4A4 QAT
+    (K2 on the path); each step's loss and gradient norm finite, the
+    parameters moved, exact launches a step (``_train_want``); step seconds
+    (host clock to a synchronize), tokens/s, model FLOPs (6 N D) over step
+    time against 989 TFLOP/s, and the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.launch.costmodel import PEAK_FLOPS, model_flops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.trainstep import make_train_step
+
+    cfg = get_config("llama3_2_3b")
+    b, s = TRAIN_TOKENS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    probe = params["layers_0"][0]["mixer"]["wq"][:4, :4].clone()
+    flops = model_flops(cfg, s, b, "train")
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=2 * TRAIN_STEPS + 1)
+    policies = (("bf16", QuantPolicy.bf16(), TRAIN_STEPS), ("qat_w4", QuantPolicy.fakequant(ste=True), TRAIN_STEPS),
+                ("qat_w4a4", QuantPolicy.fakequant(act_format="razer", ste=True), 1))
+    batches = _train_batches(cfg, sum(n for _, _, n in policies), b, s)
+    out = {"arch": cfg.name, "tokens_per_step": b * s, "batch_seq": [b, s], "model_flops_per_step": flops,
+           "init_s": init_s, "lr": TRAIN_LR, "remat": "full"}
+    i = 0
+    for name, policy, n_steps in policies:
+        step = make_train_step(cfg, None, ocfg, policy)
+        rows = []
+        for _ in range(n_steps):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[i].items()}
+            i += 1
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts, train_counts = _main_path_counts(), _main_path_train_counts()
+            want, train_want = _train_want(cfg, policy)
+            assert counts == want and train_counts == train_want, (name, counts, want, train_counts, train_want)
+            assert np.isfinite(loss) and np.isfinite(gnorm), (name, loss, gnorm)
+            rows.append({"loss": loss, "grad_norm": gnorm, "lr": float(m["lr"]), "step_s": dt,
+                         "tokens_per_s": b * s / dt, "model_flop_share": flops / dt / PEAK_FLOPS})
+        steady = sorted(r["step_s"] for r in rows[1:] or rows)[len(rows[1:] or rows) // 2]
+        out[name] = {"steps": rows, "median_step_s_after_first": steady, "tokens_per_s": b * s / steady,
+                     "model_flop_share": flops / steady / PEAK_FLOPS,
+                     "launches_per_step": {**want, **train_want}}
+        print(f"train {cfg.name} full width, {name}: " + json.dumps(out[name]), flush=True)
+    moved = float((params["layers_0"][0]["mixer"]["wq"][:4, :4] - probe).abs().max())
+    assert moved > 0, "the parameters did not move"
+    out["param_moved_max_abs"] = moved
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    torch.cuda.empty_cache()
+    detail["train_full_width"] = out
+    return out
+
+
+def _train_steps(cfg, dev, params, steps, policy=None):
+    from repro_torch.core.policy import QuantPolicy
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.trainstep import make_train_step
+
+    step = make_train_step(cfg, None, AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps),
+                           policy or QuantPolicy.bf16())
+    opt, losses = init_opt_state(params), []
+    for batch in _train_batches(cfg, steps, 2, 64):
+        params, opt, m = step(params, opt, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+    return params, losses
+
+
+def _train_card_vs_cpu(dev):
+    """Phase 12 (b): reduced llama3_2_3b in f32, 3 steps of 2 x 64 tokens on
+    the card and on the CPU from the same init: losses within 1e-5
+    relative; parameters within 4 x the summed learning rate (an element
+    whose gradient is near 0 can flip its Adam update's sign, about 2 lr a
+    step), and all but 0.1 % within 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), compute_dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card, card_losses = _train_steps(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), cpu), TRAIN_STEPS)
+    cpu, cpu_losses = _train_steps(cfg, torch.device("cpu"), cpu, TRAIN_STEPS)
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(card_losses, cpu_losses))
+    diffs = torch.cat([(a.cpu() - c).abs().flatten() for a, c in zip(tree_leaves(card), tree_leaves(cpu))])
+    row = {"card_losses": card_losses, "cpu_losses": cpu_losses, "loss_max_rel_diff": loss_rel,
+           "param_max_abs_diff": float(diffs.max()), "param_share_beyond_1e-6": float((diffs > 1e-6).float().mean()),
+           "param_bound": 4 * TRAIN_STEPS * TRAIN_LR}
+    assert loss_rel <= 1e-5, row
+    assert row["param_max_abs_diff"] <= row["param_bound"] and row["param_share_beyond_1e-6"] <= 1e-3, row
+    return row
+
+
+def _train_launcher_and_restart(dev):
+    """Phase 12 (c), reduced llama3_2_3b on the card: ``launch.train --steps
+    4 --ckpt-every 2`` writes checkpoints at steps 2 and 4, ``launch.serve
+    --ckpt`` serves from the newest; a ``ResilientLoop`` of 4 steps
+    (checkpoint every 2) with a ``NodeFailure`` injected at step 3 restarts
+    from step 2 and ends with the parameters of an uninterrupted run, bit
+    for bit (no kernel of the step sums with atomics)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault import FailureInjector, ResilientLoop
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.trainstep import make_train_step
+    from repro_torch.train.tree import tree_leaves
+
+    row = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "launcher")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            train.main(["--arch", "llama3_2_3b", "--reduced", "--steps", "4", "--batch", "2", "--seq", "64",
+                        "--ckpt-every", "2", "--ckpt-dir", d, "--device", dev.type])
+            serve.main(["--arch", "llama3_2_3b", "--reduced", "--ckpt", d, "--requests", "2", "--max-new", "4",
+                        "--device", dev.type])
+        text = log.getvalue()
+        assert sorted(os.listdir(d)) == ["step_00000002", "step_00000004"], os.listdir(d)
+        assert "step     0 loss" in text and "restored params from step 4" in text and "prompt[" in text, text
+        row["launcher_output"] = text.splitlines()
+
+        cfg = get_config("llama3_2_3b").reduced()
+        step = make_train_step(cfg, None, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+        batches = _train_batches(cfg, 4, 2, 64)
+
+        def step_fn(state, i):
+            p, o, _ = step(state["params"], state["opt"],
+                           {k: torch.from_numpy(v).to(dev) for k, v in batches[i].items()})
+            return {"params": p, "opt": o}
+
+        def run(directory, injector):
+            params = init_params(cfg, seed=0, device=dev)
+            loop = ResilientLoop(CheckpointManager(directory, every=2), injector=injector)
+            state, end = loop.run({"params": params, "opt": init_opt_state(params)}, step_fn, start_step=0,
+                                  num_steps=4)
+            return state, end, loop.restarts
+
+        clean, end_clean, _ = run(os.path.join(tmp, "clean"), None)
+        failed, end_failed, restarts = run(os.path.join(tmp, "failed"), FailureInjector(fail_at_steps=(3,)))
+        assert end_clean == end_failed == 4 and restarts == 1
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(clean), tree_leaves(failed))), \
+            "the restarted run's state differs from the uninterrupted run's"
+        row["resilient_loop"] = {"restarts": restarts, "failed_at": 3, "end_step": end_failed, "state_equal": True}
+    return row
+
+
+def _training(dev, detail):
+    """Phase 12: (a) full-width training steps, (b) narrow card vs CPU, (c)
+    the launchers and a restart from a checkpoint."""
+    out = {"full_width": _train_full_width(dev, detail)}
+    out["card_vs_cpu"] = _train_card_vs_cpu(dev)
+    print("train card vs cpu (reduced llama3_2_3b, f32, 3 steps): " + json.dumps(out["card_vs_cpu"]), flush=True)
+    out["launcher"] = _train_launcher_and_restart(dev)
+    print("train launcher -> serve --ckpt, resilient loop (reduced llama3_2_3b): " + json.dumps(out["launcher"]),
+          flush=True)
+    detail["training"] = {k: v for k, v in out.items() if k != "full_width"}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", help="also write every measured number to this JSON file")
@@ -3881,6 +4254,15 @@ def main() -> int:
     print("kernels vs plain: " + json.dumps({k: {"max_abs_err": v[0], **v[1]} for k, v in checks.items()}))
     print("K1 split-K from (N, K) vs one split at M=128: " + json.dumps(_split_k_cost(cfg, dev, gen, detail)))
     mark("3 kernels")
+    bwd_err, bwd_row, bwd_rows = _check_attention_bwd(cfg, dev, gen, detail)
+    checks["prefill_attention_bwd"] = (bwd_err, bwd_row)
+    print("prefill attention backward (K9 bwd) at llama3_2_3b heads, bf16, causal: "
+          + json.dumps({f"B{b}_S{s_}": r for (b, s_), r in bwd_rows.items()}))
+    bwd_err, bwd_row, bwd_rows = _check_rms_norm_bwd(cfg, dev, gen, detail)
+    checks["rms_norm_bwd"] = (bwd_err, bwd_row)
+    print("RMSNorm backward (K10 bwd) at d 3072, bf16: " + json.dumps({f"M{m}": r for m, r in bwd_rows.items()}))
+    torch.cuda.empty_cache()
+    mark("3 backward kernels (K9 bwd, K10 bwd)")
     print("kernels at the paper models' shapes: " + json.dumps(_paper_shapes(dev, gen, detail)))
     torch.cuda.empty_cache()
     mark("3 kernels at the paper models' shapes")
@@ -3944,6 +4326,9 @@ def main() -> int:
     mark("10 zoo")
     _recurrent(dev, detail)
     mark("11 recurrent")
+    torch.cuda.empty_cache()
+    _training(dev, detail)
+    mark("12 training")
     detail["profiler_misses"] = PROFILER_MISSES
     detail["prefill_flips"] = PREFILL_FLIPS
     print("seconds by phase: " + json.dumps(phase_s))
@@ -3963,6 +4348,16 @@ def main() -> int:
                               "the largest over every shape held against the plain version, MLA's hd 192, "
                               "whisper's non-causal shapes and RecurrentGemma's hd 256 with window 2048 "
                               "included)"),
+        "prefill_attention_bwd": ("src/repro_torch/csrc/prefill_attention_bwd.cu",
+                                  "src/repro/models/attention.py:54 (chunked_attention, jnp, differentiated by "
+                                  "XLA: no Pallas kernel)",
+                                  "K9's backward, causal GQA, B=1 S=4096 H=24 KVH=8 hd=128, bf16 (two kernels a "
+                                  "call; max_abs_err: the largest error relative to max |want| of dq, dk, dv at B 1 "
+                                  "x 4096 and B 4 x 512)"),
+        "rms_norm_bwd": ("src/repro_torch/csrc/rms_norm_bwd.cu", "src/repro/models/layers.py:29 (rms_norm, jnp, "
+                         "differentiated by XLA: no Pallas kernel)",
+                         "K10's backward, M=4 d=3072, bf16 x and dy, f32 gamma (two kernels a call; max_abs_err: "
+                         "the largest error relative to max |want| of dx and dgamma at M 4 and 4096)"),
         "razer_act_qdq": ("src/repro_torch/csrc/razer_quantize.cu", "src/repro/kernels/razer_quantize.py:103",
                           "one layer's 7 activation fake-quants at decode M=4, bf16"),
         "razer_kv_attention": ("src/repro_torch/csrc/razer_kv_attention.cu",

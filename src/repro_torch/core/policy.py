@@ -29,6 +29,11 @@ class TensorSpec:
     block_size: int = 16
     scale_fmt: Optional[str] = "e3m3"
     special_values: Optional[Tuple[float, ...]] = WEIGHT_SPECIAL_VALUES
+    # straight-through estimator (QAT): an activation spec passes the
+    # gradient around its fake-quant (``qlinear.qdq_activation``); a weight
+    # spec carries the flag as the reference does, whose weight qdq has no
+    # STE (ROADMAP caveat 10)
+    ste: bool = False
     # the tensor is a stacked bank of independent (K, N) matrices (a leading
     # E dim: MoE expert weights); packed mode packs it into the format's
     # stacked container, one operand of the grouped matmul kernel
@@ -194,17 +199,18 @@ class QuantPolicy:
     def fakequant(cls, weight_format: str = "razer", act_format: Optional[str] = None, *,
                   weight_scale_fmt: str = "e3m3", act_scale_fmt: str = "e4m3",
                   weight_svs: Sequence[float] = WEIGHT_SPECIAL_VALUES,
-                  act_svs: Sequence[float] = ACT_SPECIAL_VALUES, block_size: int = 16,
+                  act_svs: Sequence[float] = ACT_SPECIAL_VALUES, block_size: int = 16, ste: bool = False,
                   rules: Tuple[LayerRule, ...] = DEFAULT_DENSE_RULES) -> "QuantPolicy":
         """Accuracy-experiment policy: dense weights quantize-dequantized at
-        every forward (and activations, with ``act_format``)."""
+        every forward (and activations, with ``act_format``); ``ste`` marks
+        both specs for QAT."""
         act = None
         if act_format is not None:
             act = TensorSpec.act(act_format, scale_fmt=act_scale_fmt, special_values=tuple(act_svs),
-                                 block_size=block_size)
+                                 block_size=block_size, ste=ste)
         return cls(
             weight=TensorSpec.weight(weight_format, mode="fakequant", scale_fmt=weight_scale_fmt,
-                                     special_values=tuple(weight_svs), block_size=block_size),
+                                     special_values=tuple(weight_svs), block_size=block_size, ste=ste),
             act=act,
             rules=rules,
         )
@@ -240,6 +246,10 @@ class QuantPolicy:
     def mode(self) -> str:
         w = self.weight
         return "bf16" if (w is None or w.format is None) else w.mode
+
+    @property
+    def ste(self) -> bool:
+        return bool(self.weight.ste or (self.act is not None and self.act.ste))
 
 
 BF16 = QuantPolicy.bf16()

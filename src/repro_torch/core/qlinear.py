@@ -39,15 +39,16 @@ class QuantConfig:
     weight_scale_fmt: str = "e3m3"  # §4.1: E3M3 for weights
     act_scale_fmt: str = "e4m3"  # §4.1: activations keep E4M3
     kv_format: Optional[str] = None  # e.g. 'razer' to quantize the KV cache
+    ste: bool = False  # straight-through estimator (QAT)
 
     def to_policy(self) -> QuantPolicy:
         """The equivalent QuantPolicy, with the default dense rules."""
         weight = TensorSpec(format=self.weight_format, mode=self.mode, block_size=self.block_size,
-                            scale_fmt=self.weight_scale_fmt, special_values=self.weight_svs)
+                            scale_fmt=self.weight_scale_fmt, special_values=self.weight_svs, ste=self.ste)
         act = None
         if self.act_format is not None:
             act = TensorSpec(format=self.act_format, mode="fakequant", block_size=self.block_size,
-                             scale_fmt=self.act_scale_fmt, special_values=self.act_svs)
+                             scale_fmt=self.act_scale_fmt, special_values=self.act_svs, ste=self.ste)
         kv = TensorSpec.kv(self.kv_format) if self.kv_format is not None else None
         return QuantPolicy(weight=weight, act=act, kv=kv)
 
@@ -91,10 +92,17 @@ def qdq_spec(x: torch.Tensor, spec) -> torch.Tensor:
 
 
 def qdq_activation(x: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
-    """``qdq_spec`` under the policy's activation spec."""
-    if policy.act is None:
+    """``qdq_spec`` under the policy's activation spec.  With ``ste`` the
+    gradient passes straight through: ``x + (qdq(x) - x).detach()``, the
+    reference's ``stop_gradient`` expression, so the values are its bits and
+    the fake-quant itself (K2 on the card, which has no backward) runs on a
+    detached x."""
+    spec = policy.act
+    if spec is None:
         raise ValueError("qdq_activation called but the policy has no activation spec")
-    return qdq_spec(x, policy.act)
+    if spec.ste:
+        return x + (qdq_spec(x.detach(), spec) - x).detach()
+    return qdq_spec(x, spec)
 
 
 def is_kshard(w) -> bool:

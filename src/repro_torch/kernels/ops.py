@@ -13,6 +13,14 @@ run on one rank's K/tp shard and end in ``reduce_scatter_epilogue``: each
 rank's full-N partial, tensor scale applied and cast to x's dtype as the
 reference does before its exchange, is summed over the tp group into this
 rank's N/tp tile.
+
+Gradients: on the CPU autograd runs through the plain versions.  On the
+card, where a kernel's output has no autograd history, ``prefill_attention``
+and ``rms_norm`` go through ``torch.autograd.Function``s whose backward is a
+kernel too (K9's and K10's backward) when a gradient is asked for;
+``razer_act_qdq`` (K2) has no backward and refuses an input that wants a
+gradient (QAT passes it a detached x, ``qlinear.qdq_activation``); the
+packed GEMMs serve inference only.
 """
 from __future__ import annotations
 
@@ -23,7 +31,10 @@ from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 from . import ref
 from .paged_kv_attention import paged_kv_attention_cuda, paged_kv_attention_verify_cuda
 from .prefill_attention import prefill_attention_cuda
+from .prefill_attention_bwd import check_args as _check_attention_bwd
+from .prefill_attention_bwd import prefill_attention_bwd_cuda
 from .rms_norm import rms_norm_cuda
+from .rms_norm_bwd import rms_norm_bwd_cuda
 from .razer_grouped_matmul import razer_grouped_matmul_cuda, razer_grouped_matmul_kshard_cuda
 from .razer_kv_attention import razer_kv_attention_cuda
 from .razer_matmul import razer_matmul_cuda, razer_matmul_kshard_cuda
@@ -145,9 +156,21 @@ def razer_grouped_matmul_kshard(x: torch.Tensor, pst: PackedStackedTensor, *, gr
     return reduce_scatter_epilogue(y, group)
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def razer_act_qdq(x: torch.Tensor, *, svs=(5.0, -5.0), block: int = 16) -> torch.Tensor:
-    """Fused dynamic activation fake-quant over the last dim (any batch shape)."""
+    """Fused dynamic activation fake-quant over the last dim (any batch
+    shape).  On the card the kernel (K2), which has no backward: an x that
+    wants a gradient raises, where the reference would differentiate the
+    quantizer's own jnp ops (QAT with a straight-through estimator,
+    ``ste=True``, passes a detached x)."""
     if x.is_cuda:
+        if _wants_grad(x):
+            raise ValueError("the activation fake-quant kernel (K2) has no backward: a gradient through it is not "
+                             "computed on the card; train with a straight-through estimator "
+                             "(QuantPolicy.fakequant(..., ste=True)), or run on the CPU")
         _card_block(block)
         return razer_act_qdq_cuda(x.contiguous(), svs)
     return ref.razer_act_qdq_ref(x, svs=svs, block=block)
@@ -225,6 +248,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     raises); ``kv_chunk`` is the plain version's chunk and does not reach
     the kernel."""
     if q.is_cuda:
+        if _wants_grad(q, k, v):
+            return _PrefillAttention.apply(q, k, v, causal, window, q_offset)
         return prefill_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window,
                                       q_offset=q_offset)
     return ref.chunked_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset, kv_chunk=kv_chunk)
@@ -235,5 +260,43 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     x's dtype.  On the card the kernel (K10), whose rows do not depend on
     how many rows the call holds."""
     if x.is_cuda:
+        if _wants_grad(x, gamma):
+            return _RmsNorm.apply(x, gamma, eps)
         return rms_norm_cuda(x, gamma, eps)
     return ref.rms_norm_ref(x, gamma, eps)
+
+
+class _PrefillAttention(torch.autograd.Function):
+    """K9 forward, K9's backward kernel backward; the kernel takes the
+    trained widths only, checked before the forward runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        _check_attention_bwd(q, k, v)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = prefill_attention_cuda(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = prefill_attention_bwd_cuda(q, k, v, out, dout.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+class _RmsNorm(torch.autograd.Function):
+    """K10 forward, K10's backward kernel backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return rms_norm_cuda(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        dx, dgamma = rms_norm_bwd_cuda(x, gamma, dy.to(x.dtype), ctx.eps)
+        return dx, dgamma, None

@@ -5,9 +5,11 @@ rank or on an (ep, tp) serving mesh over ``torch.distributed``.
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \\
         --arch llama3_2_3b --packed --kv-quant --tp 2 --backend gloo
 
-Random weights from seed 0 (``init_params``) and random prompts from a numpy
-generator seeded 0, the same on every rank; every rank serves all requests
-and rank 0 prints.  ``--ep``/``--tp`` build the mesh (``--ep 0``: no mesh
+Random weights from seed 0 (``init_params``), or with ``--ckpt DIR`` the
+params of a training checkpoint (the reference's layout: either package's
+train launcher writes it), and random prompts from a numpy generator
+seeded 0, the same on every rank; every rank serves all requests and rank 0
+prints.  ``--ep``/``--tp`` build the mesh (``--ep 0``: no mesh
 unless ``--tp`` > 1); the packed weights' divisibility is checked first, with
 the ``expert_shard_size`` / ``kshard_size`` errors.  ``--backend`` names the
 process group's backend: NCCL with one rank per card, gloo where ranks share
@@ -141,6 +143,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--torch-profile", default=None, metavar="DIR",
                     help="bracket the serve loop with torch.profiler and write its Chrome trace into DIR "
                          "(--continuous)")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore params from a training checkpoint dir (either package's train launcher writes one)")
     ap.add_argument("--backend", default="nccl", help="torch.distributed backend of the mesh (nccl, gloo)")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     ap.add_argument("--dry", action="store_true",
@@ -148,6 +152,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--init-method", default="env://",
                     help="process-group rendezvous (env:// under torchrun, or file:///path)")
     return ap
+
+
+def _restore_params(ckpt_dir: str, params, say):
+    """The params of the newest checkpoint in ``ckpt_dir``: ``{"params"}``
+    alone, or, as the reference falls back, the params of ``{"params",
+    "opt"}``."""
+    from repro_torch.train.checkpoint import restore_checkpoint
+
+    try:
+        state, step = restore_checkpoint(ckpt_dir, {"params": params})
+        say(f"restored params from step {step}")
+    except (KeyError, ValueError):
+        state, step = restore_checkpoint(ckpt_dir, {"params": params, "opt": None})
+    return state["params"]
 
 
 def main(argv=None):
@@ -208,6 +226,8 @@ def main(argv=None):
         device = resolve_device(args.device)
 
     params = init_params(cfg, seed=0, device=device)
+    if args.ckpt:
+        params = _restore_params(args.ckpt, params, say=print if rank == 0 else (lambda *a, **k: None))
     policy = QuantPolicy.packed(kv_quant=args.kv_quant) if args.packed else QuantPolicy.bf16()
     scfg = ServeConfig(max_len=args.max_len, max_new_tokens=args.max_new, kv_quant=args.kv_quant, quant=policy)
     eng = Engine(params, cfg, scfg, device=device, mesh=mesh)

@@ -110,12 +110,12 @@ def _qkv(x: torch.Tensor, p, cfg: ArchConfig, quant: QuantPolicy, positions: tor
 
 
 def gqa_forward(x: torch.Tensor, p, cfg: ArchConfig, *, quant: QuantPolicy = BF16, positions: torch.Tensor,
-                window: int = 0, causal: bool = True) -> torch.Tensor:
+                positions3: Optional[torch.Tensor] = None, window: int = 0, causal: bool = True) -> torch.Tensor:
     """Full-sequence attention block at ``positions`` (B, S) (causal by
     default; whisper's encoder passes ``causal=False``; ``window`` > 0:
-    sliding-window attention)."""
+    sliding-window attention; ``positions3``: M-RoPE's streams)."""
     b, s, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, quant, positions)
+    q, k, v = _qkv(x, p, cfg, quant, positions, positions3)
     out = chunked_attention(q, k, v, causal=causal, window=window)
     return qlinear(out.reshape(b, s, -1), p["wo"], quant)
 

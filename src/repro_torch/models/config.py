@@ -73,6 +73,8 @@ class ArchConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
 
+    # which input shapes an arch takes (``configs.cells``)
+    supports_decode: bool = True
     supports_long_context: bool = False  # sub-quadratic archs (ssm, hybrid)
 
     @property

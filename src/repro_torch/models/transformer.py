@@ -20,12 +20,18 @@ the JAX ``lax.scan`` over a group is a loop here.  Caches are one per
 layer, in layer order across the groups: ``{"k", "v"}`` for GQA, the
 latent ``{"c", "kr"}`` for MLA, the recurrent ``{"h", "conv"}`` state for
 ``"s"`` and ``"r"``.
+
+Training runs ``forward_hidden`` (each layer checkpointed by
+``REMAT_POLICY``) and ``lm_loss``; on the card the kernels on that path
+(K9, K10) have backward kernels (``kernels.ops``).
 """
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.policy import BF16, QuantPolicy
 from repro_torch.core.qlinear import qlinear
@@ -38,10 +44,20 @@ from .config import ArchConfig
 from .layers import (dense_init, embed, embedding_init, gelu_mlp, gelu_mlp_init, rms_norm, swiglu, swiglu_init,
                      unembed)
 
-__all__ = ["layer_groups", "init_params", "init_caches", "encode", "prefill", "prefill_paged_suffix", "decode_step",
-           "decode_verify"]
+__all__ = ["layer_groups", "init_params", "init_caches", "encode", "forward_hidden", "forward_train", "lm_loss",
+           "prefill", "prefill_paged_suffix", "decode_step", "decode_verify", "AUX_COEF", "REMAT_POLICY"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+AUX_COEF = 0.01  # weight of the MoE load-balance loss in lm_loss
+
+# What the training forward keeps of each layer for the backward:
+#   "full" -- nothing but the layer's input: the backward recomputes the
+#             layer (least memory)
+#   "dots" -- the outputs of the linears' matmuls (aten.mm / addmm: the
+#             reference's dots without batch dims), everything else
+#             recomputed
+#   "none" -- everything (no recompute, most memory)
+REMAT_POLICY = contextvars.ContextVar("REMAT_POLICY", default="full")
 
 
 def layer_groups(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -94,6 +110,30 @@ def _cross(x: torch.Tensor, lp, ltype: str, cfg: ArchConfig, quant: QuantPolicy,
     return x + attn.cross_forward(rms_norm(x, lp["ln_x"], cfg.norm_eps), enc, lp["xattn"], cfg, quant=quant)
 
 
+def _layer_fwd(x: torch.Tensor, lp, cfg: ArchConfig, ltype: str, quant: QuantPolicy, positions: torch.Tensor,
+               positions3: Optional[torch.Tensor], enc: Optional[torch.Tensor] = None):
+    """A full-sequence layer -> (x, aux): the mixer (GQA or MLA attention,
+    causal, a hybrid's "a" layers windowed; the SSD or RG-LRU block), the
+    cross-attention of a "c" layer, then the MLP or MoE, whose
+    load-balance loss is ``aux`` (0 elsewhere)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if ltype == "s":
+        mix = ssm_mod.mamba2_forward(h, lp["mixer"], cfg, quant=quant)
+    elif ltype == "r":
+        mix = ssm_mod.rglru_forward(h, lp["mixer"], cfg, quant=quant)
+    elif cfg.mla:
+        mix = attn.mla_forward(h, lp["mixer"], cfg, quant=quant, positions=positions)
+    else:
+        mix = attn.gqa_forward(h, lp["mixer"], cfg, quant=quant, positions=positions, positions3=positions3,
+                               window=_window(cfg, ltype))
+    x = _cross(x + mix, lp, ltype, cfg, quant, enc)
+    if ltype == "m":
+        y, aux = moe_mod.moe_forward(rms_norm(x, lp["ln2"], cfg.norm_eps), lp["moe"], cfg, quant=quant)
+        return x + y, aux
+    return _ffn(x, lp, ltype, cfg, quant), aux
+
+
 def _gqa_init(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
     d, hd, dt = cfg.d_model, cfg.hd, cfg.pdtype
     w = lambda i, o: dense_init(gen, i, o, device=device, dtype=dt)  # noqa: E731
@@ -137,11 +177,12 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, ltype: str, device) -> Di
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random full-precision parameters drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.  (The JAX package draws other
-    numbers from its keys; tests carry its weights over with ``bridge``.)"""
+    numbers from its keys; tests carry its weights over with ``bridge``.)
+    On the ``meta`` device it builds the shapes alone."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"the port runs the families {FAMILIES}, got {cfg.family!r}")
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     p: Dict[str, Any] = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, device=device, dtype=cfg.pdtype),
@@ -223,6 +264,89 @@ def encode(params, frames: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = B
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
+def _dots_saved():
+    """The "dots" remat policy: keep the linears' matmul outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _embed_inputs(params, tokens: torch.Tensor, cfg: ArchConfig, frontend_embeds: Optional[torch.Tensor]):
+    """The token embeddings in the compute dtype, the leading rows and
+    positions replaced by ``frontend_embeds`` (B', P, d) (the vision stub)."""
+    x = embed(tokens, params["embed"], cfg.cdtype)
+    if frontend_embeds is not None:
+        fe = frontend_embeds.to(device=tokens.device, dtype=x.dtype)
+        x[:fe.shape[0], :fe.shape[1]] = fe
+    return x
+
+
+def forward_hidden(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = BF16, *,
+                   positions3: Optional[torch.Tensor] = None, frontend_embeds: Optional[torch.Tensor] = None,
+                   enc_frames: Optional[torch.Tensor] = None):
+    """tokens (B, S) -> (final hidden states (B, S, d), the summed MoE aux
+    loss), each layer checkpointed as ``REMAT_POLICY`` says (torch's
+    non-reentrant ``checkpoint``: the backward recomputes the layer from
+    its input)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    x = _embed_inputs(params, tokens, cfg, frontend_embeds)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    enc = None
+    if cfg.encoder_decoder:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the forward needs enc_frames (B, S_enc, d_model)")
+        enc = encode(params, enc_frames.to(dev), cfg, quant)
+        x = x + _sinusoid(s, cfg.d_model, dev).to(x.dtype)
+    policy = REMAT_POLICY.get()
+    if policy not in ("full", "dots", "none"):
+        raise ValueError(f"REMAT_POLICY must be full, dots or none, got {policy!r}")
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for ltype, lp in _layers(params, cfg):
+        def layer(x, _lt=ltype, _lp=lp):
+            return _layer_fwd(x, _lp, cfg, _lt, quant, positions, positions3, enc)
+
+        if policy == "none":
+            x, aux = layer(x)
+        else:
+            kw = {"context_fn": _dots_saved} if policy == "dots" else {}
+            x, aux = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False, **kw)
+        aux_total = aux_total + aux
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = BF16, **kw):
+    """tokens (B, S) -> (logits (B, S, V), aux loss)."""
+    x, aux = forward_hidden(params, tokens, cfg, quant, **kw)
+    return unembed(x, _head(params)), aux
+
+
+def lm_loss(params, batch, cfg: ArchConfig, quant: QuantPolicy = BF16):
+    """batch: dict(tokens (B, S), labels (B, S), optional mask,
+    frontend_embeds, positions3, enc_frames) -> (loss, {"xent", "aux"}).
+
+    The reference's memory-lean cross-entropy: loss = logsumexp(logits) -
+    <x, head[label]>; the logits (B, S, V) in the compute dtype feed an f32
+    logsumexp, and the label logit comes from a gather of head rows, (B,
+    S, d), never a second vocab-wide buffer."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg, quant, positions3=batch.get("positions3"),
+                            frontend_embeds=batch.get("frontend_embeds"), enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"].long()
+    head = _head(params).to(x.dtype)
+    logits = x @ head.T
+    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)  # (B, S)
+    ll = torch.einsum("bsd,bsd->bs", x.to(torch.float32), head[labels].to(torch.float32))
+    mask = batch.get("mask")
+    mask = torch.ones_like(lse) if mask is None else mask.to(torch.float32)
+    loss = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + AUX_COEF * aux, {"xent": loss, "aux": aux}
+
+
 def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = BF16, *,
             max_len: int, positions3: Optional[torch.Tensor] = None, frontend_embeds: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None, last_positions: Optional[torch.Tensor] = None,
@@ -240,10 +364,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPolicy = 
     values the packed cache will hold (MLA layers attend their own)."""
     b, s = tokens.shape
     dev = tokens.device
-    x = embed(tokens, params["embed"], cfg.cdtype)
-    if frontend_embeds is not None:
-        fe = frontend_embeds.to(device=dev, dtype=x.dtype)
-        x[:fe.shape[0], :fe.shape[1]] = fe
+    x = _embed_inputs(params, tokens, cfg, frontend_embeds)
     positions = torch.arange(s, device=dev).expand(b, s)
     enc = None
     if cfg.encoder_decoder:

@@ -95,3 +95,40 @@ def test_moe_path_has_no_fallback_from_kernel_to_plain(module):
     and the kernel's wrapper launches it, with no try/except on the way."""
     src = (REPO / "src" / "repro_torch" / module).read_text()
     assert "try:" not in src and "except" not in src
+
+
+_IMPORT_TRAIN = """
+import importlib, sys
+for name in ("repro_torch.train.optimizer", "repro_torch.train.data", "repro_torch.train.trainstep",
+             "repro_torch.train.checkpoint", "repro_torch.train.fault", "repro_torch.launch.train",
+             "repro_torch.launch.costmodel", "repro_torch.models.inputs", "repro_torch.kernels.prefill_attention_bwd",
+             "repro_torch.kernels.rms_norm_bwd"):
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+
+
+def test_training_modules_import_no_jax():
+    """The training slice (``train/``, its launchers, the input specs and the
+    backward kernels' wrappers) on its own, in a fresh interpreter."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_TRAIN], capture_output=True, text=True,
+                          cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO / "src")), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_backward_wrappers_reject_cpu_tensors_and_train_refuses_the_cpu(no_cuda):
+    """The backward kernels' wrappers take CUDA tensors only (on the CPU
+    autograd runs through the plain versions), and the train launcher runs
+    on the card unless asked for the CPU."""
+    from repro_torch.kernels.prefill_attention_bwd import prefill_attention_bwd_cuda
+    from repro_torch.kernels.rms_norm_bwd import rms_norm_bwd_cuda
+    from repro_torch.launch import train
+
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        prefill_attention_bwd_cuda(q, q[:, :, :1], q[:, :, :1], q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rms_norm_bwd_cuda(torch.zeros(2, 8), torch.zeros(8), torch.zeros(2, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "llama3_2_3b", "--reduced", "--steps", "1"])

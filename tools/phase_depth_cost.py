@@ -3,7 +3,7 @@ the model's full depth (32 layers) and at the depth phase 7 runs it
 (``LLAMA8B_W4A4_LAYERS``), in one process on one card: what that cut saves
 the script.
 
-    python3 tools/phase_depth_cost.py [--out FILE]
+    python3 tools/phase_depth_cost.py [--depths 16 4] [--out FILE]
 
 Random full-width llama3_1_8b weights from seed 0 (``chip_smoke._engines``'s
 draw, qkv extras included) are made once at full depth; at each depth
@@ -30,6 +30,8 @@ sys.path.insert(0, str(ROOT / "src"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", help="also write the JSON to this file")
+    ap.add_argument("--depths", type=int, nargs="+", default=None,
+                    help="the depths to time (default: the full depth and LLAMA8B_W4A4_LAYERS)")
     args = ap.parse_args()
 
     import chip_smoke as cs
@@ -43,7 +45,7 @@ def main() -> int:
     engines, _ = cs._engines(cfg, dev, policies=("w4_kv",))
     raw = engines.pop("w4_kv")._raw_params
     out = {"card": smi, "arch": "llama3_1_8b", "policy": "w4a4_kv", "seconds_by_depth": {}}
-    for n in (cfg.num_layers, cs.LLAMA8B_W4A4_LAYERS):
+    for n in args.depths or (cfg.num_layers, cs.LLAMA8B_W4A4_LAYERS):
         out["seconds_by_depth"][n] = cs._llama8b_w4a4_part(raw, cfg, n, dev, {})[2]
     line = json.dumps(out)
     if args.out:
