@@ -3879,16 +3879,38 @@ def _backward_ms(out, inputs, grad, reps):
     return _cuda_ms(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True), reps=reps, warmup=1)
 
 
-def _check_attention_bwd(cfg, dev, gen, detail, shapes=((1, 4096), (4, 512))):
+ATTENTION_BWD_CASES = (  # (B, Sq, Skv, mask): phase 12's step, a batch of short rows, two masked cases
+    (1, 4096, 4096, {}), (4, 512, 512, {}), (1, 2048, 2560, dict(window=1024, q_offset=512)),
+    (1, 2048, 2048, dict(causal=False)))
+
+
+def _kept_mask(sq, skv, dev, causal=True, window=0, q_offset=0):
+    """(sq, skv) bool, True where K9's mask keeps the pair: query i at
+    q_offset + i keeps keys j with j <= q_offset + i (causal) and j >
+    q_offset + i - window."""
+    qp = q_offset + torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(skv, device=dev)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= j <= qp
+    if window:
+        keep &= j > qp - window
+    return keep
+
+
+def _check_attention_bwd(cfg, dev, gen, detail, cases=ATTENTION_BWD_CASES):
     """K9's backward at llama3_2_3b's heads (24 / 8, hd 128), bf16 q, K, V
-    and dO, causal, at B 1 x 4096 (phase 12's step) and B 4 x 512: dq, dk,
-    dv against autograd through the plain version (``BWD_TOL``), the bits
-    of a repeat equal; timed (event and profiler device ms, the two kernels
-    of a call) beside the plain version's backward and the backward of
-    F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) through
-    autograd, each a backward alone.  Bound: the bytes of q, k, v, o, dO in
-    and dq, dk, dv out, or 10 hd operations a kept (query, key) pair and
-    head (S, dP, dV, dQ, dK), bf16 peak."""
+    and dO (its tensor-core body): causal at B 1 x 4096 (phase 12's step)
+    and B 4 x 512, then a window of 1024 at q_offset 512 and no causal mask:
+    dq, dk, dv against autograd through the plain version (``BWD_TOL``),
+    the bits of a repeat equal; timed (event and profiler device ms of each
+    of the call's kernels, ``pab.kernel_names``) beside the plain version's
+    backward and the backward of F.scaled_dot_product_attention(enable_gqa=
+    True) through autograd, each a backward alone: is_causal=True for the
+    causal cases, no mask for the non-causal one, and the kept pairs
+    (``_kept_mask``) as a bool attn_mask for the window.  Bound: the bytes
+    of q, k, v, o, dO in and dq, dk, dv out, or 10 hd operations a kept
+    (query, key) pair and head (S, dP, dV, dQ, dK), bf16 peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention_bwd as pab
@@ -3896,40 +3918,46 @@ def _check_attention_bwd(cfg, dev, gen, detail, shapes=((1, 4096), (4, 512))):
     from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    names = pab.kernel_names(torch.bfloat16)
     out, worst = {}, 0.0
-    for b, s in shapes:
-        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-        dout = torch.randn((b, s, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-        o = prefill_attention_cuda(q, k, v)
-        run = lambda: pab.prefill_attention_bwd_cuda(q, k, v, o, dout)  # noqa: E731
+    for b, sq, skv, mask in cases:
+        tag = f"B{b}_S{sq}" + (f"_Skv{skv}" if skv != sq else "") + "".join(f"_{k}{int(v)}" for k, v in mask.items())
+        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, skv, kvh, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        dout = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(torch.bfloat16)
+        o = prefill_attention_cuda(q, k, v, **mask)
+        run = lambda: pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)  # noqa: E731
         got = run()
-        assert all(torch.equal(x, y) for x, y in zip(got, run())), "K9's backward bits do not repeat"
+        assert all(torch.equal(x, y) for x, y in zip(got, run())), f"K9's backward bits do not repeat ({tag})"
         qp, kp, vp = (t.detach().requires_grad_(True) for t in (q, k, v))
-        plain_out = ref.chunked_attention_ref(qp, kp, vp)
+        plain_out = ref.chunked_attention_ref(qp, kp, vp, **mask)
         want = torch.autograd.grad(plain_out, (qp, kp, vp), dout, retain_graph=True)
-        errs = {n: _bwd_close(x, y, torch.bfloat16, f"K9 bwd {n} B {b} x {s}") for n, x, y in
+        errs = {n: _bwd_close(x, y, torch.bfloat16, f"K9 bwd {n} {tag}") for n, x, y in
                 zip(("dq", "dk", "dv"), got, want)}
         worst = max(worst, *errs.values())
         del got, want
-        reps = 5 if s >= 4096 else 20
+        reps = 5 if sq >= 2048 else 20
         plain_ms = _backward_ms(plain_out, (qp, kp, vp), dout, reps=2)
         del plain_out
+        keep = _kept_mask(sq, skv, dev, **mask)
+        pairs = b * int(keep.sum())
+        sdpa_mask = dict(is_causal=True) if not mask else {} if bool(keep.all()) else dict(attn_mask=keep)
         ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True, **sdpa_mask)
         library_ms = _backward_ms(lib_out, (ql, kl, vl), dout.transpose(1, 2).contiguous(), reps=reps)
-        del lib_out
-        pairs = b * s * (s + 1) // 2
-        bound, by = _bound_ms((q.numel() * 3 + k.numel() * 2 + v.numel() * 2 + dout.numel()) * 2, 10 * hd * h * pairs)
+        del lib_out, keep
+        ops = 10 * hd * h * pairs
+        bound, by = _bound_ms((q.numel() * 3 + k.numel() * 2 + v.numel() * 2 + dout.numel()) * 2, ops)
         row = {"relative_err": errs, "ms": _cuda_ms(run, reps=reps), "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound, "bound_by": by, "shape": [b, s, h, kvh, hd], "dtype": "bfloat16",
-               "operations": 10 * hd * h * pairs}
-        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in pab.kernel_names()}
+               "bound_ms": bound, "bound_by": by, "shape": [b, sq, skv, h, kvh, hd], "mask": mask,
+               "dtype": "bfloat16", "kept_pairs": pairs, "operations": ops,
+               "library_mask": "is_causal" if not mask else "attn_mask" if sdpa_mask else "none"}
+        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in names}
         row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
-        row["launches_per_call"] = len(pab.kernel_names())
-        out[(b, s)] = row
-        detail[f"prefill_attention_bwd_B{b}_S{s}"] = row
-    return worst, out[shapes[0]], out
+        row["launches_per_call"] = len(names)
+        out[tag] = row
+        detail[f"prefill_attention_bwd_{tag}"] = row
+    return worst, out[next(iter(out))], out
 
 
 def _check_rms_norm_bwd(cfg, dev, gen, detail, ms=(4, 4096)):
@@ -3966,10 +3994,9 @@ def _check_rms_norm_bwd(cfg, dev, gen, detail, ms=(4, 4096)):
         row = {"relative_err": errs, "ms": _cuda_ms(run, reps=50),
                "plain_ms": _backward_ms(plain_out, (xp, gp), dy, 20), "library_ms": _backward_ms(lib_out, (xl, gl), dy, 50), "bound_ms": bound, "bound_by": by,
                "shape": [m, d]}
-        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in ("rms_norm_bwd_rows_kernel",
-                                                                          "rms_norm_bwd_gamma_kernel")}
+        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in rnb.kernel_names()}
         row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
-        row["launches_per_call"] = 2
+        row["launches_per_call"] = len(rnb.kernel_names())
         out[m] = row
         detail[f"rms_norm_bwd_M{m}"] = row
     return worst, out[ms[0]], out
@@ -4256,8 +4283,8 @@ def main() -> int:
     mark("3 kernels")
     bwd_err, bwd_row, bwd_rows = _check_attention_bwd(cfg, dev, gen, detail)
     checks["prefill_attention_bwd"] = (bwd_err, bwd_row)
-    print("prefill attention backward (K9 bwd) at llama3_2_3b heads, bf16, causal: "
-          + json.dumps({f"B{b}_S{s_}": r for (b, s_), r in bwd_rows.items()}))
+    print("prefill attention backward (K9 bwd) at llama3_2_3b heads, bf16 (tensor-core body), causal and masked: "
+          + json.dumps(bwd_rows))
     bwd_err, bwd_row, bwd_rows = _check_rms_norm_bwd(cfg, dev, gen, detail)
     checks["rms_norm_bwd"] = (bwd_err, bwd_row)
     print("RMSNorm backward (K10 bwd) at d 3072, bf16: " + json.dumps({f"M{m}": r for m, r in bwd_rows.items()}))
@@ -4351,9 +4378,10 @@ def main() -> int:
         "prefill_attention_bwd": ("src/repro_torch/csrc/prefill_attention_bwd.cu",
                                   "src/repro/models/attention.py:54 (chunked_attention, jnp, differentiated by "
                                   "XLA: no Pallas kernel)",
-                                  "K9's backward, causal GQA, B=1 S=4096 H=24 KVH=8 hd=128, bf16 (two kernels a "
-                                  "call; max_abs_err: the largest error relative to max |want| of dq, dk, dv at B 1 "
-                                  "x 4096 and B 4 x 512)"),
+                                  "K9's backward, causal GQA, B=1 S=4096 H=24 KVH=8 hd=128, bf16: the tensor-core "
+                                  "body (two kernels a call; max_abs_err: the largest error relative to max |want| "
+                                  "of dq, dk, dv at B 1 x 4096, B 4 x 512, window 1024 at q_offset 512, and no "
+                                  "causal mask)"),
         "rms_norm_bwd": ("src/repro_torch/csrc/rms_norm_bwd.cu", "src/repro/models/layers.py:29 (rms_norm, jnp, "
                          "differentiated by XLA: no Pallas kernel)",
                          "K10's backward, M=4 d=3072, bf16 x and dy, f32 gamma (two kernels a call; max_abs_err: "

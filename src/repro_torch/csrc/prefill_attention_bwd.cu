@@ -9,36 +9,81 @@
 //   dV = P^T dO,   dP = dO V^T,   D_i = sum_d dO[i, d] O[i, d],
 //   dS = P o (dP - D),   dQ = scale * dS K,   dK = scale * dS^T Q.
 // Two kernels a call, all sums in f32 and in a fixed order, no atomics:
-//   1. query-major (`prefill_attention_bwd_dq_kernel`): a block takes 64
-//      query rows of one head; it walks their keys once for each row's max
-//      m and sum l (the forward's softmax statistics, recomputed: K9's
-//      forward stays as it is), computes D from O and dO, walks the keys
-//      again for P = exp(S - m) / l, dP, dS and dQ, and writes m, l and D
-//      to a workspace;
-//   2. key-major (`prefill_attention_bwd_dkdv_kernel`): a block takes 64 keys
-//      of one KV head and walks the G query heads of that KV head in order,
-//      each over the query rows that see those keys, rebuilding P from the
-//      workspace's m and l, and sums dV and dK.
+//   1. query-major: a block takes 64 query rows of one head (the f32 body)
+//      or of GB heads of one KV head (the tensor-core body); it walks their
+//      keys once for each row's max m and sum l (the forward's softmax
+//      statistics, recomputed: K9's forward stays as it is), computes D
+//      from O and dO, walks the keys again for P, dP, dS and dQ, and writes
+//      the statistics and D to a (3, B, H, Sq) f32 workspace: m, l and D
+//      (the f32 body), m + log2 l in base 2, l and D (the tensor-core body);
+//   2. key-major: a block takes 64 keys (f32) or two tiles of 64 keys
+//      (tensor cores) of one KV head and walks the G query heads of that KV
+//      head in order, each over the query tiles that see those keys,
+//      rebuilding P from the workspace, and sums dV and dK in registers.
 // The masks are K9's: query i at position q_offset + i, key j at j;
 // causal keeps j <= q_offset + i; window > 0 keeps j > q_offset + i -
-// window.  q/k at hd 16, 32, 64 or 128 with V as wide (the wrapper refuses
-// the rest).  Inputs and outputs are bf16 or f32, each tensor its own.
+// window.  Only the tiles that hold a kept (query, key) pair are walked.
+// q/k at hd 16, 32, 64 or 128 with V as wide (the wrapper refuses the
+// rest).
 //
-// What bounds it on this card: the operations, 4 head-width products per
-// (query, key) pair kept by the mask in each pass (S twice, dP and dQ; S,
-// dV, dP and dK), against the bytes of q, k, v, o, dO in and dq, dk, dv
-// out.  Design, first version: CUDA cores in f32, 64 x 64 tiles staged
-// in shared memory with padded rows (no bank conflicts), each of 256
-// threads holding a 4 x 4 piece of a score tile and 4 rows of the output
-// columns it owns; the tensor cores are later work.
+// What bounds it on this card: the operations.  The minimum is 5 head-width
+// products a kept (query, key) pair and head (S, dP, dV, dQ, dK), against
+// the bytes of q, k, v, o, dO in and dq, dk, dv out; the recomputed
+// statistics and the key-major pass's S and dP make it 8.
+//
+// Two bodies, chosen by the dtypes alone, the same way for every call
+// (kernels/prefill_attention_bwd.py, `kernel_body`):
+//  * the tensor-core body, for bf16 q, k and v (o and dO in q's dtype):
+//    the training path, whose compute dtype is bf16.  Every product is a
+//    `wgmma` with bf16 operands and f32 accumulators, a warpgroup for each
+//    64 rows:
+//      - S = q K^T and dP = dO V^T (query-major), S^T = K q^T and dP^T =
+//        V dO^T (key-major): m64n64k16, both operands K-major tiles in
+//        shared memory (8-row x 16-byte core matrices, no swizzle, as K9's
+//        forward stages them);
+//      - dQ = dS K, dV = P^T dO, dK = dS^T q: m64n{hd}k16 with P and dS
+//        rounded to bf16 as the A operand from registers (the score
+//        accumulators' layout is the A fragment's), and B the same
+//        K-major tile of K, dO or q read MN-major through the bf16
+//        transpose bit: its rows run along k, no transposed copy is staged;
+//      - a tile staged once serves several warpgroups: a query-major block
+//        holds GB heads (the largest divisor of G up to 3, as K9's forward)
+//        over one key-chunk ring; a key-major block 2 key tiles over one
+//        query-tile ring (a warpgroup past Skv idles).  Neither moves a
+//        bit: each warpgroup walks its own rows' tiles in the same order;
+//      - tiles arrive by cp.async into a ring of 4 stages; the last product
+//        of a tile (dQ; dK) is left in flight into the next tile and waited
+//        for there, before that tile's end, so tile it's stage is refilled
+//        only after the block barrier at the top of tile it + 2, which every
+//        warpgroup reaches past that wait; 2 tiles' copies are in flight
+//        while one is computed; S^T's (S's) softmax runs while dP^T's (dP's)
+//        wgmma does, and dS while dV's does;
+//      - blocks run heads (KV heads) fastest and the causal mask's heaviest
+//        tiles first: the last query tiles (the most keys), the first key
+//        tiles (the most queries), so the card's last wave holds the
+//        lightest blocks;
+//      - softmax in base 2 on scores scaled by scale x log2 e, P = exp2(s -
+//        (m + log2 l)) in both passes; the mask is applied element by
+//        element only in a warp whose 16 rows a tile's boundary crosses;
+//      - registers at hd 128: key-major dK and dV 64 + 64 f32 a thread
+//        beside S^T and dP^T (32 + 32); `nvcc -Xptxas -v` reports each
+//        kernel's registers and spills (PERF.md's kernel table);
+//    a row with no kept key gets P = 0 (dq 0, nothing added to dk or dv);
+//  * the f32 body, for any f32 input: CUDA cores in f32, 64 x 64 tiles
+//    staged in shared memory with padded rows (no bank conflicts), each of
+//    256 threads holding a 4 x 4 piece of a score tile and 4 rows of the
+//    output columns it owns.  bf16 operands cannot hold the f32
+//    tolerance.  The choice is by dtype, not a fallback: a failed build
+//    or launch raises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "razer_matmul_tile.cuh"  // razer_tile::Wgmma, the wgmma fences, cp.async
+
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int BT = 64;        // query rows or keys of a tile
 constexpr float NEG = -1e30f;  // K9's masked score
 
@@ -56,7 +101,7 @@ __device__ __forceinline__ void st(void* p, size_t i, float v, int bf16) {
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float* ws;  // (B, H, Sq) x 3: m, l, D
+  float* ws;  // (B, H, Sq) x 3: m (f32 body) or m + log2 l (tensor-core body), l, D
   int q_bf16, k_bf16, v_bf16;
   int B, Sq, Skv, H, KVH, q_offset, causal, window;
   float scale;
@@ -66,6 +111,13 @@ __device__ __forceinline__ bool kept(const Args& a, int i, int j) {
   const int qp = a.q_offset + i;
   return i < a.Sq && j < a.Skv && (!a.causal || j <= qp) && (!a.window || j > qp - a.window);
 }
+
+// ===========================================================================
+// the f32 body
+// ===========================================================================
+namespace f32 {
+
+constexpr int THREADS = 256;
 
 // rows [r0, r0 + BT) of a (B, S, heads, HD) tensor at head h -> s[BT][HD + 1] f32, zeros past S
 template <int HD>
@@ -328,17 +380,535 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace f32
+
+// ===========================================================================
+// the tensor-core body
+// ===========================================================================
+namespace tc {
+
+using razer_tile::cp_async16;
+using razer_tile::cp_async_commit;
+using razer_tile::cp_async_wait;
+using razer_tile::fence_operands;
+using razer_tile::fence_proxy_async;
+using razer_tile::smem_u32;
+using razer_tile::wgmma_commit;
+using razer_tile::wgmma_fence;
+using razer_tile::wgmma_wait;
+
+constexpr int WG = 128;  // threads a block: one warpgroup, 16 rows a warp
+
+// The query-major pass with GB warpgroups a block (GB heads of one KV head,
+// the same 64 query rows): GB (q, dO) tile pairs, NST stages of a key
+// chunk's (K, V), GB x 64 f32 D.
+template <int HD, int GB>
+struct DqGeo {
+  static constexpr int T = BT * HD * 2;  // bytes of a 64-row bf16 tile
+  static constexpr int NST = 4;
+  static constexpr int STAGE = 2 * T;
+  static constexpr size_t bytes = static_cast<size_t>(GB) * 2 * T + static_cast<size_t>(NST) * STAGE + GB * BT * 4;
+};
+// The key-major pass with KB warpgroups a block (KB tiles of 64 keys of one
+// KV head): KB (K, V) tile pairs, NST stages of a query tile's (q, dO) and
+// its rows' log-sum-exp, l and D (3 x 64 f32, in 1 KB).
+constexpr int KB = 2;
+template <int HD>
+struct KvGeo {
+  static constexpr int T = BT * HD * 2;
+  static constexpr int NST = 4;
+  static constexpr int STAGE = 2 * T + 1024;
+  static constexpr size_t bytes = static_cast<size_t>(KB) * 2 * T + static_cast<size_t>(NST) * STAGE;
+};
+
+// Byte offset of element (row, k) in a K-major bf16 tile of `depth` k per
+// row, in wgmma's interleaved layout (K9's forward, prefill_attention.cu):
+// 8-row x 16-byte core matrices, the two 8-deep halves of a 16-deep k-step
+// 128 bytes apart, k-steps 256 bytes apart, groups of 8 rows depth x 16
+// bytes apart.
+__host__ __device__ constexpr int core_off(int row, int k, int depth) {
+  return (row >> 3) * (depth * 16) + (k >> 4) * 256 + ((k >> 3) & 1) * 128 + (row & 7) * 16 + (k & 7) * 2;
+}
+// descriptor of the k-step at `p` of such a tile read K-major (LBO 128
+// bytes between the k halves, SBO depth x 16 between groups of 8 rows)
+__device__ __forceinline__ uint64_t desc_k(const void* p, int depth) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(depth) << 32);
+}
+// the same tile as an MN-major B operand (the transpose bit), its rows along
+// k: the 16 rows of a k-step from `p` on, LBO depth x 16 bytes between its
+// two groups of 8 rows, SBO 128 bytes between groups of 8 columns (along N)
+__device__ __forceinline__ uint64_t desc_mn(const void* p, int depth) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (static_cast<uint64_t>(depth) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// D (64 x 64 f32) += A (64 x 16, shared) . B^T (16 x 64, shared), both K-major
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+// 4 bytes global -> shared, asynchronously; valid == false zero-fills
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// (a, b) -> bf16x2 bits, a in the low half, each rounded to nearest
+__device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of a (B, S, heads, HD) bf16 tensor at head h -> a
+// K-major tile (zeros past S), by cp.async from all the block's threads: 8
+// neighbouring threads take 8 rows of one 16-byte column piece, one core
+// matrix
+template <int HD>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const void* src, int b, int r0, int S, int heads, int h) {
+  constexpr int CH = HD / 8;  // 16-byte pieces a row
+  const __nv_bfloat16* t =
+      static_cast<const __nv_bfloat16*>(src) + ((static_cast<size_t>(b) * S + r0) * heads + h) * HD;
+  const size_t stride = static_cast<size_t>(heads) * HD;
+  for (int i = threadIdx.x; i < BT * CH; i += blockDim.x) {
+    const int row = 8 * (i / (8 * CH)) + (i & 7), d = 8 * ((i >> 3) % CH);
+    const bool in = r0 + row < S;
+    cp_async16(dst + core_off(row, d, HD), in ? t + row * stride + d : src, in);
+  }
+}
+
+// d (64 x 64) += A . B^T over HD: A's and B's 64 rows from K-major tiles
+template <int HD>
+__device__ __forceinline__ void ss_product(float (&d)[32], const uint8_t* at, const uint8_t* bt) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) wgmma_ss64(d, desc_k(at + 256 * ks, HD), desc_k(bt + 256 * ks, HD));
+}
+
+// d (64 x HD) += A (64 x 64, registers: 4 k-steps of 16) . B, B the K-major
+// tile `bt` (64 rows x HD) read MN-major: its rows are the product's k
+template <int HD>
+__device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&a)[4][4], const uint8_t* bt) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    razer_tile::Wgmma<HD>::template mma<1>(d, a[kk], desc_mn(bt + kk * 2 * HD * 16, HD));
+}
+
+// the A fragments of a 64 x 64 accumulator rounded to bf16: [k-step][register],
+// x[8 kk + 2 r] and x[8 kk + 2 r + 1] (K9's forward builds P's the same way)
+__device__ __forceinline__ void a_fragments(uint32_t (&f)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) f[kk][r] = bf16x2_bits(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.0f;
+}
+
+// the quad (4 lanes) that holds a row: max and sum by xor-shuffles 1 and 2
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, 1));
+  return __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, 2));
+}
+
+// Query-major, GB warpgroups a block: warpgroup w takes head h0 + w.
+// s[4 j + e] is row i0 + 8 (e >> 1) (16 w + lane / 4 of the tile), key c0 +
+// 8 j + 2 (lane % 4) + (e & 1).  All warpgroups walk the same key chunks,
+// staged once for all of them.
+template <int HD, int GB>
+__global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel(const Args a) {
+  using Gm = DqGeo<HD, GB>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  // blocks run heads fastest, then query tiles from the last (the most keys): the heaviest first
+  const int hblocks = a.H / a.KVH / GB, kh = blockIdx.x / hblocks;
+  const int h0 = kh * (a.H / a.KVH) + (blockIdx.x - kh * hblocks) * GB, h = h0 + wg;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BT;
+  const int b = blockIdx.z;
+  uint8_t* qt = smem + wg * 2 * Gm::T;  // this head's q rows, K-major
+  uint8_t* dot = qt + Gm::T;            // its dO rows
+  uint8_t* ring = smem + GB * 2 * Gm::T;  // NST stages of (K, V)
+  float* sD = reinterpret_cast<float*>(ring + Gm::NST * Gm::STAGE) + wg * BT;
+  for (int w = 0; w < GB; ++w) {
+    load_tile<HD>(smem + w * 2 * Gm::T, a.q, b, r0, a.Sq, a.H, h0 + w);
+    load_tile<HD>(smem + w * 2 * Gm::T + Gm::T, a.dout, b, r0, a.Sq, a.H, h0 + w);
+  }
+  cp_async_commit();
+  {  // D of row (tid % 128) / 2: each of two threads sums half its dims in order, then the pair adds
+    const int row = (tid & 127) >> 1, i = r0 + row, half = tid & 1;
+    float dsum = 0.0f;
+    if (i < a.Sq) {
+      const size_t base = ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * HD + half * (HD / 2);
+      const uint4* po = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.o) + base);
+      const uint4* pd = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.dout) + base);
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {
+        const uint4 ov = po[c], dv = pd[c];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+          dsum = __fmaf_rn(df.y, of.y, __fmaf_rn(df.x, of.x, dsum));
+        }
+      }
+    }
+    dsum = __fadd_rn(dsum, __shfl_xor_sync(0xFFFFFFFFu, dsum, 1));
+    if (!half) sD[row] = dsum;
+  }
+  __syncthreads();
+
+  // the key chunks any row of the tile keeps
+  const int last = min(r0 + BT, a.Sq) - 1;
+  const int j_end = a.causal ? min(a.Skv, a.q_offset + last + 1) : a.Skv;
+  const int j_begin = a.window ? max(0, a.q_offset + r0 - a.window + 1) : 0;
+  const int c_first = j_begin / BT, n = j_end > j_begin ? (j_end + BT - 1) / BT - c_first : 0;
+  const int wr = r0 + 16 * warp, i0 = wr + gq, i1 = i0 + 8;
+  const float sc = __fmul_rn(a.scale, 1.4426950408889634f);  // scores in base-2 units
+  auto stage = [&](int it) { return ring + (it % Gm::NST) * Gm::STAGE; };
+  auto issue = [&](int it, bool with_v) {  // chunk `it`'s K (and V) into its stage; a group, empty past the last
+    if (it < n) {
+      const int c0 = (c_first + it) * BT;
+      load_tile<HD>(stage(it), a.k, b, c0, a.Skv, a.KVH, kh);
+      if (with_v) load_tile<HD>(stage(it) + Gm::T, a.v, b, c0, a.Skv, a.KVH, kh);
+    }
+    cp_async_commit();
+  };
+  // scale the chunk's scores, -1e30 where the mask drops the pair
+  auto mask = [&](float (&s)[32], int c0) {
+    if (wr + 15 < a.Sq && c0 + BT <= a.Skv && (!a.causal || c0 + BT - 1 <= a.q_offset + wr) &&
+        (!a.window || c0 > a.q_offset + wr + 15 - a.window)) {  // every pair of this warp's rows is kept
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[x] = __fmul_rn(s[x], sc);
+    } else {
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        s[x] = kept(a, (x & 2) ? i1 : i0, c0 + 8 * (x >> 2) + 2 * tq + (x & 1)) ? __fmul_rn(s[x], sc) : NEG;
+    }
+  };
+
+  // pass 1: each row's max m and sum l of exp2(s - m)
+  float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+  for (int it = 0; it < Gm::NST - 1; ++it) issue(it, false);
+  for (int it = 0; it < n; ++it) {
+    issue(it + Gm::NST - 1, false);
+    cp_async_wait<Gm::NST - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    float s[32];
+    zero(s);
+    fence_operands(s);
+    wgmma_fence();
+    ss_product<HD>(s, qt, stage(it));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    mask(s, (c_first + it) * BT);
+    float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float me0 = mn0 == NEG ? 0.0f : mn0, me1 = mn1 == NEG ? 0.0f : mn1;  // no kept key yet: every p is 0
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sum0 = __fadd_rn(__fadd_rn(sum0, exp2f(__fsub_rn(s[4 * j], me0))), exp2f(__fsub_rn(s[4 * j + 1], me0)));
+      sum1 = __fadd_rn(__fadd_rn(sum1, exp2f(__fsub_rn(s[4 * j + 2], me1))), exp2f(__fsub_rn(s[4 * j + 3], me1)));
+    }
+    l0 = __fadd_rn(__fmul_rn(l0, exp2f(__fsub_rn(m0, mn0))), quad_sum(sum0));
+    l1 = __fadd_rn(__fmul_rn(l1, exp2f(__fsub_rn(m1, mn1))), quad_sum(sum1));
+    m0 = mn0, m1 = mn1;
+    __syncthreads();  // the stage is read: it may be refilled
+  }
+  // P = exp2(s - lse); a row without a kept key has every s at -1e30 and P 0
+  const float lse0 = l0 > 0.0f ? __fadd_rn(m0, log2f(l0)) : 0.0f;
+  const float lse1 = l1 > 0.0f ? __fadd_rn(m1, log2f(l1)) : 0.0f;
+  const float D0 = sD[16 * warp + gq], D1 = sD[16 * warp + gq + 8];
+
+  // pass 2: S, dP, dS = P (dP - D) and dQ += dS K
+  float dq[HD / 2];
+  zero(dq);
+  uint32_t ds[4][4] = {};  // dS's A fragments: read by a product in flight until the next chunk's wait
+  cp_async_wait<0>();
+  __syncthreads();  // pass 1's stages are free
+  // dQ's product of chunk it is left in flight into chunk it + 1 and waited
+  // for there, so stage (it + 2) % NST, last read by chunk it - 2's dQ, is
+  // refilled only after chunk it's barrier: chunks it + 1 and it + 2 in flight
+  for (int it = 0; it < Gm::NST - 2; ++it) issue(it, true);
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<Gm::NST - 3>();  // chunk it has landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's copies of chunk it have landed; every warpgroup has waited for chunk it - 2's dQ
+    issue(it + Gm::NST - 2, true);
+    const uint8_t* kt = stage(it);
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+    ss_product<HD>(s, qt, kt);
+    wgmma_commit();
+    ss_product<HD>(dp, dot, kt + Gm::T);  // in flight while P is computed
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last chunk's dQ
+    fence_operands(s);
+    fence_operands(ds);
+    mask(s, (c_first + it) * BT);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] = exp2f(__fsub_rn(s[x], (x & 2) ? lse1 : lse0));
+    wgmma_wait<0>();
+    fence_operands(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) s[x] = __fmul_rn(s[x], __fsub_rn(dp[x], (x & 2) ? D1 : D0));
+    a_fragments(ds, s);
+    fence_operands(dq);
+    wgmma_fence();
+    rs_product<HD>(dq, ds, kt);  // in flight into the next chunk
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands(dq);
+  fence_operands(ds);
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = half ? i1 : i0;
+    if (i >= a.Sq) continue;
+    __nv_bfloat16* row = out + ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * HD + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
+          __fmul_rn(dq[4 * j + 2 * half], a.scale), __fmul_rn(dq[4 * j + 2 * half + 1], a.scale));
+    if (tq == 0) {
+      const size_t w = (static_cast<size_t>(b) * a.H + h) * a.Sq + i, nw = static_cast<size_t>(a.B) * a.H * a.Sq;
+      a.ws[w] = half ? lse1 : lse0;
+      a.ws[nw + w] = half ? l1 : l0;
+      a.ws[2 * nw + w] = half ? D1 : D0;
+    }
+  }
+}
+
+// Key-major, KB warpgroups a block: warpgroup w takes keys jt = j0 + 64 w
+// .. jt + 63.  s[4 j + e] (S^T) is key jr0 + 8 (e >> 1) (16 w + lane / 4 of
+// the tile), query c0 + 8 j + 2 (lane % 4) + (e & 1).  All warpgroups walk
+// the query tiles of the block's keys, staged once for all of them; each
+// skips the tiles where none of its pairs is kept.
+template <int HD>
+__global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kernel(const Args a) {
+  using Gm = KvGeo<HD>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  // blocks run KV heads fastest, then key tiles from the first (the most queries): the heaviest first
+  const int j0 = blockIdx.y * BT * KB, kh = blockIdx.x, b = blockIdx.z, g = a.H / a.KVH;
+  const int jt = j0 + wg * BT, jl = min(jt + BT, a.Skv) - 1;  // this warpgroup's keys (none where jl < jt)
+  uint8_t* kt = smem + wg * 2 * Gm::T;  // its K rows, K-major
+  uint8_t* vt = kt + Gm::T;             // its V rows
+  uint8_t* ring = smem + KB * 2 * Gm::T;  // NST stages of (q, dO, lse, l, D)
+  for (int w = 0; w < KB; ++w) {
+    load_tile<HD>(smem + w * 2 * Gm::T, a.k, b, j0 + w * BT, a.Skv, a.KVH, kh);
+    load_tile<HD>(smem + w * 2 * Gm::T + Gm::T, a.v, b, j0 + w * BT, a.Skv, a.KVH, kh);
+  }
+  cp_async_commit();
+  // the query tiles whose rows keep any key of the block, for each of the g heads in order
+  const int last_j = min(j0 + KB * BT, a.Skv) - 1;
+  const int i_begin = a.causal ? max(0, j0 - a.q_offset) : 0;
+  const int i_end = a.window ? min(a.Sq, last_j + a.window - a.q_offset) : a.Sq;
+  const int t_first = i_begin / BT, nt = i_end > i_begin ? (i_end + BT - 1) / BT - t_first : 0, n = g * nt;
+  const size_t nw = static_cast<size_t>(a.B) * a.H * a.Sq;
+  const int wj = jt + 16 * warp, jr0 = wj + gq, jr1 = jr0 + 8;
+  const float sc = __fmul_rn(a.scale, 1.4426950408889634f);
+  auto stage = [&](int it) { return ring + (it % Gm::NST) * Gm::STAGE; };
+  auto issue = [&](int it) {
+    if (it < n) {
+      const int h = kh * g + it / nt, c0 = (t_first + it % nt) * BT;
+      uint8_t* st = stage(it);
+      load_tile<HD>(st, a.q, b, c0, a.Sq, a.H, h);
+      load_tile<HD>(st + Gm::T, a.dout, b, c0, a.Sq, a.H, h);
+      float* stats = reinterpret_cast<float*>(st + 2 * Gm::T);
+      for (int e = tid; e < 3 * BT; e += blockDim.x) {
+        const int which = e / BT, i = c0 + e % BT;
+        const bool in = i < a.Sq;
+        cp_async4(stats + e, a.ws + (in ? which * nw + (static_cast<size_t>(b) * a.H + h) * a.Sq + i : 0), in);
+      }
+    }
+    cp_async_commit();
+  };
+  // some (query of the tile at c0, key of this warpgroup) pair is kept
+  auto any_kept = [&](int c0) {
+    const int il = min(c0 + BT, a.Sq) - 1;
+    return jt <= jl && (!a.causal || jt <= a.q_offset + il) && (!a.window || jl > a.q_offset + c0 - a.window);
+  };
+
+  float dk[HD / 2], dv[HD / 2];
+  zero(dk);
+  zero(dv);
+  uint32_t pf[4][4] = {}, df[4][4] = {};  // P's and dS's A fragments, read by products in flight until the next wait
+  // dV's and dK's products of tile it are left in flight into tile it + 1
+  // and waited for there, so stage (it + 2) % NST, last read by tile it - 2's,
+  // is refilled only after tile it's barrier: tiles it + 1 and it + 2 in flight
+  for (int it = 0; it < Gm::NST - 2; ++it) issue(it);
+  for (int it = 0; it < n; ++it) {
+    cp_async_wait<Gm::NST - 3>();  // tile it has landed
+    fence_proxy_async();
+    __syncthreads();  // everyone's copies of tile it have landed; every warpgroup has waited for tile it - 2's products
+    issue(it + Gm::NST - 2);
+    const int c0 = (t_first + it % nt) * BT;
+    if (!any_kept(c0)) {
+      wgmma_wait<0>();  // the last tile's readers of its stage
+      fence_operands(pf);
+      fence_operands(df);
+      continue;
+    }
+    const uint8_t* qs = stage(it);
+    const uint8_t* dos = qs + Gm::T;
+    const float* stats = reinterpret_cast<const float*>(qs + 2 * Gm::T);  // lse, l, D of the tile's 64 rows
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    fence_operands(s);
+    fence_operands(dp);
+    wgmma_fence();
+    ss_product<HD>(s, kt, qs);  // S^T = K q^T
+    wgmma_commit();
+    ss_product<HD>(dp, vt, dos);  // dP^T = V dO^T, in flight while P is computed
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T, and the last tile's dV and dK
+    fence_operands(s);
+    fence_operands(pf);
+    fence_operands(df);
+    const bool whole = wj + 15 < a.Skv && c0 + BT <= a.Sq && (!a.causal || wj + 15 <= a.q_offset + c0) &&
+                       (!a.window || wj > a.q_offset + c0 + BT - 1 - a.window);  // this warp keeps every pair
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int col = 8 * (x >> 2) + 2 * tq + (x & 1);
+      s[x] = whole || kept(a, c0 + col, (x & 2) ? jr1 : jr0) ? exp2f(__fsub_rn(__fmul_rn(s[x], sc), stats[col]))
+                                                             : 0.0f;
+    }
+    a_fragments(pf, s);
+    fence_operands(dv);
+    wgmma_fence();
+    rs_product<HD>(dv, pf, dos);  // dV += P^T dO, in flight while dS is computed
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(dp);
+#pragma unroll
+    for (int x = 0; x < 32; ++x)
+      dp[x] = __fmul_rn(s[x], __fsub_rn(dp[x], stats[2 * BT + 8 * (x >> 2) + 2 * tq + (x & 1)]));
+    a_fragments(df, dp);
+    fence_operands(dk);
+    wgmma_fence();
+    rs_product<HD>(dk, df, qs);  // dK += dS^T q, in flight into the next tile
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands(dv);
+  fence_operands(dk);
+  fence_operands(pf);
+  fence_operands(df);
+
+  __nv_bfloat16* gk = static_cast<__nv_bfloat16*>(a.dk);
+  __nv_bfloat16* gv = static_cast<__nv_bfloat16*>(a.dv);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int j = half ? jr1 : jr0;
+    if (j >= a.Skv) continue;
+    const size_t base = ((static_cast<size_t>(b) * a.Skv + j) * a.KVH + kh) * HD + 2 * tq;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(gk + base + 8 * c) = __floats2bfloat162_rn(
+          __fmul_rn(dk[4 * c + 2 * half], a.scale), __fmul_rn(dk[4 * c + 2 * half + 1], a.scale));
+      *reinterpret_cast<__nv_bfloat162*>(gv + base + 8 * c) =
+          __floats2bfloat162_rn(dv[4 * c + 2 * half], dv[4 * c + 2 * half + 1]);
+    }
+  }
+}
+
+template <int HD, int GB>
+int launch(const Args& a, cudaStream_t stream) {
+  using Dq = DqGeo<HD, GB>;
+  using Kv = KvGeo<HD>;
+  static unsigned configured = 0;  // devices whose shared-memory limits are raised, as a bit set
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 32 && !(configured & (1u << dev))) {
+    e = cudaFuncSetAttribute(prefill_attention_bwd_tc_dq_kernel<HD, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Dq::bytes));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(prefill_attention_bwd_tc_dkdv_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Kv::bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured |= 1u << dev;
+  }
+  const dim3 gq(a.H / GB, (a.Sq + BT - 1) / BT, a.B), gk(a.KVH, (a.Skv + BT * KB - 1) / (BT * KB), a.B);
+  prefill_attention_bwd_tc_dq_kernel<HD, GB><<<gq, WG * GB, Dq::bytes, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  prefill_attention_bwd_tc_dkdv_kernel<HD><<<gk, WG * KB, Kv::bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Heads a query-major block, GB: the largest divisor of G up to 3 (K9's
+// forward takes the same).  It moves no bit: each warpgroup walks its own
+// rows' tiles in the same order whatever shares its block.
+template <int HD>
+int launch(const Args& a, cudaStream_t stream) {
+  const int G = a.H / a.KVH;
+  return G % 3 == 0 ? launch<HD, 3>(a, stream) : G % 2 == 0 ? launch<HD, 2>(a, stream) : launch<HD, 1>(a, stream);
+}
+
+}  // namespace tc
+
+// the tensor-core body for bf16 q, k and v; else the f32 body
+inline bool tensor_core_body(int q_bf16, int k_bf16, int v_bf16) { return q_bf16 && k_bf16 && v_bf16; }
+
+template <int HD>
+int launch(const Args& a, cudaStream_t stream) {
+  return tensor_core_body(a.q_bf16, a.k_bf16, a.v_bf16) ? tc::launch<HD>(a, stream) : f32::launch<HD>(a, stream);
+}
+
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, hd); k, v, dk, dv (B, Skv, KVH, hd); all
 // contiguous, bf16 or f32 (o, dout and dq in q's dtype; dk in k's, dv in
-// v's); ws (3, B, H, Sq) f32.  Returns cudaErrorInvalidValue on arguments it
-// does not take, else cudaGetLastError() after the two launches.
+// v's; bf16 q, k and v run the tensor-core body, which reads q, k, v, o
+// and dout in 16-byte pieces: 16-byte aligned); ws (3, B, H, Sq) f32.
+// Returns cudaErrorInvalidValue on arguments it does not take, else
+// cudaGetLastError() after the two launches.
 extern "C" int prefill_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                             const void* dout, void* dq, void* dk, void* dv, void* ws, int q_bf16,
                                             int k_bf16, int v_bf16, int B, int Sq, int Skv, int H, int KVH, int hd,
                                             int q_offset, int causal, int window, float scale, void* stream) {
-  if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH || q_offset < 0 || window < 0)
+  if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH || q_offset < 0 || window < 0 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t addresses = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                              reinterpret_cast<uintptr_t>(dout);
+  if (tensor_core_body(q_bf16, k_bf16, v_bf16) && (Sq > 65535 * BT || Skv > 65535 * BT || (addresses & 15)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(ws), q_bf16, k_bf16, v_bf16,
                B, Sq, Skv, H, KVH, q_offset, causal, window, scale};

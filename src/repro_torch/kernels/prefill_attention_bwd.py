@@ -8,6 +8,13 @@ It takes what the trained paths need: q and k at head width 16, 32, 64 or
 ``q_offset``; MLA's hd 192 with V at 128 and hd 256 (the forward's other
 widths) raise.  Each call is two kernels (a query-major pass for dq, a
 key-major pass for dk and dv) and counts one launch.
+
+It has two bodies, chosen by the dtypes alone (``kernel_body``): bf16 q, k
+and v -- the training path's, whose compute dtype is bf16 -- run on the
+tensor cores (``wgmma``, bf16 operands, f32 accumulators, P and dS rounded
+to bf16 before their products); any f32 input runs the f32 body on the
+CUDA cores, whose error holds the f32 tolerance that bf16 operands cannot.
+The choice is by dtype, not a fallback: a build or launch failure raises.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import torch
 from . import build
 from .ref import chunked_attention_ref
 
-__all__ = ["prefill_attention_bwd_cuda", "plain", "HEAD_DIMS", "check_args", "kernel_names"]
+__all__ = ["prefill_attention_bwd_cuda", "plain", "HEAD_DIMS", "check_args", "kernel_body", "kernel_names"]
 
 HEAD_DIMS = (16, 32, 64, 128)  # the q/k (and V) head widths the backward is built for
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -27,10 +34,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 9 + [_I] * 12 + [_F, _P]
 
 
-def kernel_names() -> tuple:
+def kernel_body(q_dtype: torch.dtype, kv_bf16: bool = True) -> str:
+    """The body a launch runs (the C entry chooses the same way):
+    ``"tensor_core"`` for bf16 q, k and v, else ``"f32"``."""
+    if q_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the prefill attention backward takes a bf16 or f32 q, got {q_dtype}")
+    return "tensor_core" if q_dtype == torch.bfloat16 and kv_bf16 else "f32"
+
+
+def kernel_names(q_dtype: torch.dtype, kv_bf16: bool = True) -> tuple:
     """The ``__global__`` names a call launches, in order, as a profiler
-    lists them (a template's name starts with them)."""
-    return ("prefill_attention_bwd_dq_kernel", "prefill_attention_bwd_dkdv_kernel")
+    lists them (a template's name holds them): the query-major pass, then
+    the key-major pass, of the body ``kernel_body`` picks."""
+    return {"tensor_core": ("prefill_attention_bwd_tc_dq_kernel", "prefill_attention_bwd_tc_dkdv_kernel"),
+            "f32": ("prefill_attention_bwd_dq_kernel", "prefill_attention_bwd_dkdv_kernel")}[
+        kernel_body(q_dtype, kv_bf16)]
 
 
 def plain(q, k, v, dout, *, causal: bool = True, window: int = 0, q_offset: int = 0):
@@ -57,7 +75,10 @@ def prefill_attention_bwd_cuda(q, k, v, o, dout, *, causal: bool = True, window:
     """(dq, dk, dv) of o = K9(q, k, v) for the gradient ``dout`` of o: q, o,
     dout (B, Sq, H, hd), k, v (B, Skv, KVH, hd), contiguous CUDA tensors;
     o and dout in q's dtype.  The softmax statistics are recomputed (K9's
-    forward writes none), every sum is f32 in a fixed order."""
+    forward writes none), every sum is f32 in a fixed order.  bf16 q, k
+    and v run the tensor-core body (``kernel_body``), which reads its
+    inputs in 16-byte pieces: one whose data is not 16-byte aligned is
+    copied first."""
     check_args(q, k, v)
     if not all(t.is_cuda for t in (q, k, v, o, dout)):
         raise ValueError("prefill_attention_bwd_cuda takes CUDA tensors; the CPU path is autograd through the plain "
@@ -72,6 +93,8 @@ def prefill_attention_bwd_cuda(q, k, v, o, dout, *, causal: bool = True, window:
     if q_offset < 0 or window < 0:
         raise ValueError(f"q_offset and window must be >= 0, got {q_offset} and {window}")
     q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
+    if kernel_body(q.dtype, k.dtype == v.dtype == torch.bfloat16) == "tensor_core":
+        q, k, v, o, dout = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v, o, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

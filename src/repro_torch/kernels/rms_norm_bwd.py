@@ -3,8 +3,10 @@
 jnp ``rms_norm``) and its plain version, autograd through
 ``ref.rms_norm_ref``.
 
-dgamma is summed over rows in two passes in a fixed order (per-block
-partials, then the blocks in order), so a step's bits repeat.
+Each row's x and dy are read from device memory once (staged in shared
+memory), and r is K10's r bit for bit.  dgamma is summed over rows in two
+passes in a fixed order (per-block partials, then the blocks in a fixed
+order), so a step's bits repeat.
 """
 from __future__ import annotations
 
@@ -15,11 +17,18 @@ import torch
 from . import build
 from .ref import rms_norm_ref
 
-__all__ = ["rms_norm_bwd_cuda", "plain"]
+__all__ = ["rms_norm_bwd_cuda", "plain", "kernel_names"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # x, gamma, dy, dx, dgamma, partial, rows, d, x bf16, gamma bf16, eps, stream
 _ARGTYPES = [_P] * 6 + [_L, _I, _I, _I, _F, _P]
+
+
+def kernel_names() -> tuple:
+    """The ``__global__`` names a call launches, in order, as a profiler
+    lists them: the rows pass (dx and per-block dgamma partials), then the
+    gamma pass."""
+    return ("rms_norm_bwd_rows_kernel", "rms_norm_bwd_gamma_kernel")
 
 
 def plain(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6):

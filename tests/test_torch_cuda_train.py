@@ -10,9 +10,11 @@ no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_train.py
 
 Tolerances, against max |want| of each gradient (``_close``): f32 inputs
-1e-4 (f32 sums in another order over up to a few thousand terms); bf16
-inputs 2^-6 (the outputs are bf16, and autograd through the plain version
-rounds P and dP to bf16 on their way, where the kernel keeps them f32).
+1e-4 (f32 sums in another order over up to a few thousand terms; K9's
+backward runs its f32 body on the CUDA cores); bf16 inputs 2^-6 (the
+outputs are bf16; K9's backward runs its tensor-core body, which rounds P
+and dS to bf16 as the operands of its products, where autograd through the
+plain version rounds P and dP on their way).
 """
 import dataclasses
 
@@ -68,16 +70,26 @@ def test_attention_bwd_matches_plain_autograd(cuda_device, dtype, shape):
     assert all(torch.equal(a, c) for a, c in zip(got, again)), "the backward's bits do not repeat"
 
 
+MASK_CASES = {  # id -> (mask, (B, Sq, Skv, H, KVH, hd))
+    "noncausal": (dict(causal=False), (2, 110, 110, 4, 2, 32)),
+    "window": (dict(window=24), (2, 110, 110, 4, 2, 32)),
+    "q_offset": (dict(q_offset=40), (2, 110, 150, 4, 2, 32)),
+    "window_q_offset_hd128": (dict(window=100, q_offset=60), (1, 150, 230, 6, 2, 128)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mask", [dict(causal=False), dict(window=24), dict(q_offset=40)],
-                         ids=["noncausal", "window", "q_offset"])
-def test_attention_bwd_masks(cuda_device, mask):
-    skv = 150 if "q_offset" in mask else 110
-    q, k, v, dout = _attention_inputs(cuda_device, 2, 110, skv, 4, 2, 32, torch.float32, seed=1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(MASK_CASES))
+def test_attention_bwd_masks(cuda_device, dtype, case):
+    mask, (b, sq, skv, h, kvh, hd) = MASK_CASES[case]
+    q, k, v, dout = _attention_inputs(cuda_device, b, sq, skv, h, kvh, hd, dtype, seed=1)
     o = prefill_attention_cuda(q, k, v, **mask)
-    for name, gt, wt in zip(("dq", "dk", "dv"), pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask),
-                            pab.plain(q, k, v, dout, **mask)):
-        _close(gt, wt, torch.float32, name)
+    got = pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, pab.plain(q, k, v, dout, **mask)):
+        _close(gt, wt, dtype, name)
+    again = pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), "the backward's bits do not repeat"
 
 
 @pytest.mark.cuda
@@ -89,7 +101,8 @@ def test_attention_bwd_refuses_other_widths(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("rows_d", [(4, 3072), (300, 512), (4096, 128)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("rows_d", [(4, 3072), (300, 512), (4096, 128), (4096, 3072), (1000, 1000), (523, 999),
+                                    (3, 58112)], ids=lambda s: "x".join(map(str, s)))
 def test_rms_norm_bwd_matches_plain_autograd(cuda_device, dtype, rows_d):
     rows, d = rows_d
     g = torch.Generator(device=cuda_device).manual_seed(2)
@@ -141,6 +154,45 @@ def test_k2_refuses_a_gradient_and_ste_passes_it(cuda_device):
     y.sum().backward()
     wq = QuantPolicy.fakequant().weight.qdq(w, axis=0)
     torch.testing.assert_close(x.grad, wq.sum(dim=1).expand(4, 64), rtol=1e-6, atol=1e-6)  # straight through
+
+
+@pytest.mark.cuda
+def test_bf16_step_gradients_kernel_backward_equal_plain_backward(cuda_device, monkeypatch):
+    """One reduced bf16 llama3_2_3b step's gradients (2 x 128 tokens), K9's
+    backward kernel (its tensor-core body) against the same step with the
+    attention's backward routed through autograd of the plain version: each
+    leaf within 2^-6 of its max |want|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = get_config("llama3_2_3b").reduced()
+    assert cfg.compute_dtype == "bfloat16"
+    params = init_params(cfg, seed=0, device=cuda_device)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2))
+    batch = {k: torch.from_numpy(a).to(cuda_device) for k, a in ds.batch(0).items()}
+
+    def grads():
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = tf.lm_loss(params, batch, cfg)
+        out = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        return out
+
+    n = pab.prefill_attention_bwd_cuda.launches
+    got = grads()
+    assert pab.prefill_attention_bwd_cuda.launches == n + cfg.num_layers
+    monkeypatch.setattr(ops, "prefill_attention_bwd_cuda",
+                        lambda q, k, v, o, dout, **mask: pab.plain(q, k, v, dout, **mask))
+    want = grads()
+    assert pab.prefill_attention_bwd_cuda.launches == n + cfg.num_layers
+    for i, (a, w) in enumerate(zip(got, want)):
+        _close(a, w, torch.bfloat16, f"leaf {i}")
 
 
 def _train(cfg, device, params, steps, lr):
