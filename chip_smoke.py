@@ -123,7 +123,8 @@ Phases, each printing one line (and failing the run with a traceback):
                 at the no-drop n_experts / topk (logits asserted);
   7. paper   -- the paper's dense models at full width, random weights
                 with the qkv biases and qk-norm gains drawn nonzero:
-                llama3_1_8b at full depth (32 layers) through generate and
+                llama3_1_8b cut to 16 of its 32 layers (LLAMA8B_W4_LAYERS:
+                the room went to phase 12 (d) and (e)) through generate and
                 serve under W4 + KV, vanilla, and speculate_k=2 with a bf16
                 draft, and under W4A4 + KV vanilla on its first 4 layers
                 (LLAMA8B_W4A4_LAYERS: the room went to phases 11 and 12; its W4A4
@@ -134,7 +135,7 @@ Phases, each printing one line (and failing the run with a traceback):
                 through generate and vanilla serve; exact launch counts,
                 serve == generate (and speculative == vanilla) asserted for
                 every request, times, idle share and peak memory;
-  8. obs     -- observability on llama3_1_8b at full width and depth (run
+  8. obs     -- observability on llama3_1_8b at full width, 16 layers (run
                 inside phase 7, on its engines): (a) Engine.quant_audit of
                 the W4 + KV engine on the card (schema valid, the layers and
                 quantized parameters the config gives, drift exactly 0), one
@@ -222,8 +223,14 @@ Phase 3 also holds the training path's backward kernels against autograd
 through their plain versions (BWD_TOL of max |want|; a repeat's bits
 equal), timed beside the plain backward and the library's (each a
 backward alone): K9's backward at llama3_2_3b's heads, bf16, causal, B 1 x
-4096 and B 4 x 512 (beside F.scaled_dot_product_attention's backward), K10's
-at d 3072, M 4 and 4096 (beside F.rms_norm's with the f32 gain).
+4096 and B 4 x 512, a window and no mask (beside
+F.scaled_dot_product_attention's backward), and at the wide heads phase 12
+(d) trains: MLA's 128 heads at hd 192 with V 128 (bf16 checked at B 1 x
+2048, timed at B 1 x 4096 beside SDPA's on V padded to 192) and
+RecurrentGemma's 10 / 1 at hd 256 with window 2048 (bf16 checked and timed
+at B 1 x 4096 beside SDPA's with the band as a bool mask), the f32 body
+checked once at each; K10's at d 3072, M 4 and 4096 (beside F.rms_norm's
+with the f32 gain).
  12. training -- (a) llama3_2_3b at full width and depth, random weights
                 (seed 0), f32 parameters and AdamW moments, bf16 compute,
                 remat "full", 1 x 4096 tokens of the synthetic Markov data:
@@ -240,7 +247,17 @@ at d 3072, M 4 and 4096 (beside F.rms_norm's with the f32 gain).
                 parameters within the sign-flip bound; (c) launch.train
                 --steps 4 --ckpt-every 2 then launch.serve --ckpt from its
                 checkpoint, and a ResilientLoop with a NodeFailure at step
-                3 ending with the uninterrupted run's state, bit for bit.
+                3 ending with the uninterrupted run's state, bit for bit;
+                (d) the archs whose attention runs K9's backward at its
+                wide heads, at published widths, as (a) under bf16 then
+                fakequant(ste=True), 2 steps each: deepseek_v2_236b cut to
+                its first layer, the dense one (MLA, hd 192 with V 128, q
+                and kv norms), and recurrentgemma_2b at full depth (26
+                layers: K9 and its backward on the 8 windowed attention
+                layers at hd 256, the RG-LRU scan and conv through
+                autograd), exact launches a step; (e) each narrow at its
+                real head widths in f32, 3 steps card against CPU, held as
+                (b).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -261,6 +278,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak, data sheet
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 
 
 def _ptxas_report(log: str):
@@ -375,8 +393,8 @@ def _with_device_time(row, run, tag, launches_per_unit: int, cold: bool = False)
     return row
 
 
-def _bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def _bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2466,12 +2484,41 @@ def _disagg_long(cfg, eng, detail, long_context, chunk_tokens=512, n_new=32):
 # phase 7: the paper's dense models at full width
 # ---------------------------------------------------------------------------
 PAPER_CUT = ("llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b", "deepseek_coder_33b")
-# llama3_1_8b's W4A4 + KV generate and serve run its first 4 of 32 layers
-# (the W4 + KV ones, and phases 8 and 9 on them, keep all 32): the room went
-# to phase 11 (32 -> 16) and to phase 12 and phase 3's backward checks (16
-# -> 4, tools/phase_depth_cost.py --depths 16 4); phase 7's clock keeps what
+# llama3_1_8b's W4 + KV generate and serve, and phases 8 and 9 on its
+# engines, run its first 16 of 32 layers: the room went to phase 12 (d)
+# and (e), phase 3's wide backward rows and their nvcc build
+# (tools/phase_depth_cost.py --part w4); its W4A4 + KV ones
+# run the first 4 (the room went to phase 11 (32 ->
+# 16) and to phase 12 and phase 3's backward checks (16 -> 4,
+# tools/phase_depth_cost.py --depths 16 4)); phase 7's clock keeps what
 # each part takes
+LLAMA8B_W4_LAYERS = 16
 LLAMA8B_W4A4_LAYERS = 4
+
+
+def _llama8b_w4_part(cfg, n, dev, detail):
+    """Phase 7's llama3_1_8b W4 + KV part on the first ``n`` layers: random
+    full-width weights (``_engines``) packed, ``_full_width`` (generate with
+    exact launch counts), ``_serve_full_width`` (vanilla and speculate_k=2
+    with a bf16 draft, serve == generate asserted), then phase 8
+    (``_observability``) and phase 9 (``_toolkit``) on those engines.  ->
+    (generate row, serve row, engines, host-clock seconds: generate and
+    serve part, phase 8, phase 9, total)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=n)
+    engines, pack_s = _engines(cfg, dev, policies=("w4_kv",))
+    e2e = _full_width(cfg, engines, detail, pack_s, key="paper_llama3_1_8b_generate")
+    serve = _serve_full_width(cfg, engines, detail, key="paper_llama3_1_8b_serve",
+                              runs={"w4_kv": ((0, None), (2, "bf16"))})
+    t1 = time.perf_counter()
+    obs = _observability(cfg, engines, detail)
+    print(f"observability, llama3_1_8b full width, {n} layers: " + json.dumps(obs))
+    t2 = time.perf_counter()
+    toolkit = _toolkit(cfg, engines, detail, dev)
+    print(f"quantization toolkit, llama3_1_8b full width ({n} layers), layer 0: " + json.dumps(toolkit))
+    t3 = time.perf_counter()
+    return e2e, serve, engines, {"generate_serve_s": t1 - t0, "observability_s": t2 - t1, "toolkit_s": t3 - t2,
+                                 "total_s": t3 - t0}
 
 
 def _llama8b_w4a4_part(raw, cfg, n, dev, detail):
@@ -2501,53 +2548,44 @@ def _llama8b_w4a4_part(raw, cfg, n, dev, detail):
 
 
 def _paper_models(dev, detail):
-    """Phase 7: llama3_1_8b at full width and depth (32 layers), then the
-    other five dense models of the paper's evaluation at full width cut to
-    2 layers, random weights (seed 0) with the qkv biases and qk-norm gains
-    drawn nonzero, each under W4 + KV and W4A4 + KV: generate of phase 4's
-    prompts and serve of phase 4c's 8 requests over 4 slots (llama3_1_8b
-    also with speculate_k=2 and a bf16 draft under W4 + KV), exact launch
-    counts, serve == generate asserted for every request, times, the device
-    idle share and peak memory.  Each model's engines are freed before the
-    next."""
+    """Phase 7: llama3_1_8b at full width cut to ``LLAMA8B_W4_LAYERS`` of
+    its 32 layers (``_llama8b_w4_part``, phases 8 and 9 inside it), then
+    the other five dense models of the paper's evaluation at full width cut
+    to 2 layers, random weights (seed 0) with the qkv biases and qk-norm
+    gains drawn nonzero, each under W4 + KV and W4A4 + KV: generate of
+    phase 4's prompts and serve of phase 4c's 8 requests over 4 slots
+    (llama3_1_8b also with speculate_k=2 and a bf16 draft under W4 + KV),
+    exact launch counts, serve == generate asserted for every request,
+    times, the device idle share and peak memory.  Each model's engines are
+    freed before the next."""
     from repro_torch.configs import get_config
 
     out = {}
     for arch in ("llama3_1_8b",) + PAPER_CUT:
         t_arch = time.perf_counter()
         cfg = get_config(arch)
-        cut = None
         if arch in PAPER_CUT:
             cut = {"num_layers": [cfg.num_layers, 2]}
             cfg = dataclasses.replace(cfg, num_layers=2)
-        if cut is None:
-            # llama3_1_8b: vanilla and speculative under W4 + KV at full depth;
-            # vanilla W4A4 + KV on its first LLAMA8B_W4A4_LAYERS layers, from
-            # the same weights (W4A4 speculation runs in phase 4c on llama3_2_3b)
-            engines, pack_s = _engines(cfg, dev, policies=("w4_kv",))
-            e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
-            serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve",
-                                      runs={"w4_kv": ((0, None), (2, "bf16"))})
-            e2e["w4a4_kv_cut"], serve["w4a4_kv_cut"], secs = _llama8b_w4a4_part(
-                engines["w4_kv"]._raw_params, cfg, LLAMA8B_W4A4_LAYERS, dev, detail)
-            detail["phase_s"][f"7 llama3_1_8b W4A4 + KV at {LLAMA8B_W4A4_LAYERS} layers (inside 7)"] = secs["total_s"]
-        else:
             engines, pack_s = _engines(cfg, dev)
             e2e = _full_width(cfg, engines, detail, pack_s, key=f"paper_{arch}_generate")
             serve = _serve_full_width(cfg, engines, detail, key=f"paper_{arch}_serve",
                                       runs={name: ((0, None),) for name in engines})
-        if arch == "llama3_1_8b":
-            t0 = time.perf_counter()
-            obs = _observability(cfg, engines, detail)
-            print("observability, llama3_1_8b full width and depth: " + json.dumps(obs))
-            detail["phase_s"]["8 observability (inside 7)"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            toolkit = _toolkit(cfg, engines, detail, dev)
-            print("quantization toolkit, llama3_1_8b full width, layer 0: " + json.dumps(toolkit))
-            detail["phase_s"]["9 quantization toolkit (inside 7)"] = time.perf_counter() - t0
+        else:
+            # llama3_1_8b: vanilla and speculative under W4 + KV on its first
+            # LLAMA8B_W4_LAYERS layers, phases 8 and 9 on those engines; vanilla
+            # W4A4 + KV on its first LLAMA8B_W4A4_LAYERS layers, from the same
+            # weights (W4A4 speculation runs in phase 4c on llama3_2_3b)
+            cut = {"num_layers": [cfg.num_layers, LLAMA8B_W4_LAYERS]}
+            e2e, serve, engines, secs = _llama8b_w4_part(cfg, LLAMA8B_W4_LAYERS, dev, detail)
+            detail["phase_s"]["8 observability (inside 7)"] = secs["observability_s"]
+            detail["phase_s"]["9 quantization toolkit (inside 7)"] = secs["toolkit_s"]
+            e2e["w4a4_kv_cut"], serve["w4a4_kv_cut"], secs = _llama8b_w4a4_part(
+                engines["w4_kv"]._raw_params, cfg, LLAMA8B_W4A4_LAYERS, dev, detail)
+            detail["phase_s"][f"7 llama3_1_8b W4A4 + KV at {LLAMA8B_W4A4_LAYERS} layers (inside 7)"] = secs["total_s"]
         row = {"generate": e2e, "serve": serve, "cut": cut}
-        print(f"paper model {arch} full width" + (f", cut num_layers {cut['num_layers'][0]} -> 2" if cut else
-                                                 ", full depth") + ": " + json.dumps(row))
+        print(f"paper model {arch} full width, cut num_layers {cut['num_layers'][0]} -> {cut['num_layers'][1]}: "
+              + json.dumps(row))
         detail["phase_s"][f"7 {arch} (inside 7)"] = time.perf_counter() - t_arch
         out[arch] = row
         del engines, e2e, serve
@@ -2742,7 +2780,8 @@ def _profiled_serve(cfg, eng):
 
 
 def _observability(cfg, engines, detail):
-    """Phase 8 on llama3_1_8b at full width and depth (phase 7's engines):
+    """Phase 8 on llama3_1_8b at full width (phase 7's engines, its first
+    ``LLAMA8B_W4_LAYERS`` layers):
     (a) the audit, (b) observed serves against the same engine's serve with
     observability off, vanilla and speculate_k=2, (c) a profiled serve."""
     eng = engines["w4_kv"]
@@ -3882,6 +3921,13 @@ def _backward_ms(out, inputs, grad, reps):
 ATTENTION_BWD_CASES = (  # (B, Sq, Skv, mask): phase 12's step, a batch of short rows, two masked cases
     (1, 4096, 4096, {}), (4, 512, 512, {}), (1, 2048, 2560, dict(window=1024, q_offset=512)),
     (1, 2048, 2048, dict(causal=False)))
+# the wide heads of phase 12 (d): (name, (H, KVH, hd, dv), mask, B x S checked against the plain backward, B x S
+# timed without it, B x S of the f32 body's check).  The plain backward keeps (H, S, kv_chunk) f32 scores a
+# chunk, so MLA's 128 heads are checked at 2048 and timed at phase 12's 4096
+ATTENTION_BWD_WIDE = (
+    ("mla", (128, 128, 192, 128), {}, (1, 2048), (1, 4096), (1, 512)),
+    ("recurrentgemma", (10, 1, 256, 256), dict(window=2048), (1, 4096), None, (1, 2600)),
+)
 
 
 def _kept_mask(sq, skv, dev, causal=True, window=0, q_offset=0):
@@ -3898,64 +3944,95 @@ def _kept_mask(sq, skv, dev, causal=True, window=0, q_offset=0):
     return keep
 
 
-def _check_attention_bwd(cfg, dev, gen, detail, cases=ATTENTION_BWD_CASES):
-    """K9's backward at llama3_2_3b's heads (24 / 8, hd 128), bf16 q, K, V
-    and dO (its tensor-core body): causal at B 1 x 4096 (phase 12's step)
-    and B 4 x 512, then a window of 1024 at q_offset 512 and no causal mask:
-    dq, dk, dv against autograd through the plain version (``BWD_TOL``),
-    the bits of a repeat equal; timed (event and profiler device ms of each
-    of the call's kernels, ``pab.kernel_names``) beside the plain version's
-    backward and the backward of F.scaled_dot_product_attention(enable_gqa=
-    True) through autograd, each a backward alone: is_causal=True for the
-    causal cases, no mask for the non-causal one, and the kept pairs
-    (``_kept_mask``) as a bool attn_mask for the window.  Bound: the bytes
-    of q, k, v, o, dO in and dq, dk, dv out, or 10 hd operations a kept
-    (query, key) pair and head (S, dP, dV, dQ, dK), bf16 peak."""
+def _attention_bwd_case(dev, gen, b, sq, skv, heads, mask, dtype=torch.bfloat16, check=True):
+    """K9's backward at B x Sq (queries) x Skv (keys), heads (H, KVH, hd,
+    dv), q, K, V and dO in ``dtype`` (bf16: the tensor-core body; f32: the
+    CUDA-core body): the bits of a repeat equal; with ``check`` dq, dk, dv
+    against autograd through the plain version (``BWD_TOL``) and the plain
+    backward timed; timed (event and profiler device ms of each of the
+    call's kernels, ``pab.kernel_names``) beside the backward of
+    F.scaled_dot_product_attention(enable_gqa=True) through autograd, each
+    a backward alone: is_causal=True for a causal mask from 0, no mask for
+    a non-causal one, else the kept pairs (``_kept_mask``) as a bool
+    attn_mask; V and dO padded to hd where dv is narrower (MLA, as the
+    forward's SDPA row).  Bound: the bytes of q, k, v, o, dO in and dq, dk,
+    dv out, or 2 (3 hd + 2 dv) operations a kept (query, key) pair and head
+    (S, dQ, dK at hd; dP, dV at dv) at the dtype's peak (bf16 tensor cores;
+    f32 CUDA cores).  -> (errors relative to max |want| or None, row)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import prefill_attention_bwd as pab
     from repro_torch.kernels import ref
     from repro_torch.kernels.prefill_attention import prefill_attention_cuda
 
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    names = pab.kernel_names(torch.bfloat16)
-    out, worst = {}, 0.0
-    for b, sq, skv, mask in cases:
-        tag = f"B{b}_S{sq}" + (f"_Skv{skv}" if skv != sq else "") + "".join(f"_{k}{int(v)}" for k, v in mask.items())
-        q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn((b, skv, kvh, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-        dout = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(torch.bfloat16)
-        o = prefill_attention_cuda(q, k, v, **mask)
-        run = lambda: pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)  # noqa: E731
-        got = run()
-        assert all(torch.equal(x, y) for x, y in zip(got, run())), f"K9's backward bits do not repeat ({tag})"
+    h, kvh, hd, dv = heads
+    tag = f"{dtype} B{b}_S{sq}"
+    q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, skv, kvh, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, skv, kvh, dv), generator=gen, device=dev).to(dtype)
+    dout = torch.randn((b, sq, h, dv), generator=gen, device=dev).to(dtype)
+    o = prefill_attention_cuda(q, k, v, **mask)
+    run = lambda: pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)  # noqa: E731
+    got = run()
+    assert all(torch.equal(x, y) for x, y in zip(got, run())), f"K9's backward bits do not repeat ({tag} {heads})"
+    reps = 5 if sq >= 2048 else 20
+    errs = plain_ms = None
+    if check:
         qp, kp, vp = (t.detach().requires_grad_(True) for t in (q, k, v))
         plain_out = ref.chunked_attention_ref(qp, kp, vp, **mask)
         want = torch.autograd.grad(plain_out, (qp, kp, vp), dout, retain_graph=True)
-        errs = {n: _bwd_close(x, y, torch.bfloat16, f"K9 bwd {n} {tag}") for n, x, y in
+        errs = {n: _bwd_close(x, y, dtype, f"K9 bwd {n} {tag} {heads}") for n, x, y in
                 zip(("dq", "dk", "dv"), got, want)}
-        worst = max(worst, *errs.values())
-        del got, want
-        reps = 5 if sq >= 2048 else 20
+        del want
         plain_ms = _backward_ms(plain_out, (qp, kp, vp), dout, reps=2)
-        del plain_out
-        keep = _kept_mask(sq, skv, dev, **mask)
-        pairs = b * int(keep.sum())
-        sdpa_mask = dict(is_causal=True) if not mask else {} if bool(keep.all()) else dict(attn_mask=keep)
-        ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True, **sdpa_mask)
-        library_ms = _backward_ms(lib_out, (ql, kl, vl), dout.transpose(1, 2).contiguous(), reps=reps)
-        del lib_out, keep
-        ops = 10 * hd * h * pairs
-        bound, by = _bound_ms((q.numel() * 3 + k.numel() * 2 + v.numel() * 2 + dout.numel()) * 2, ops)
-        row = {"relative_err": errs, "ms": _cuda_ms(run, reps=reps), "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound, "bound_by": by, "shape": [b, sq, skv, h, kvh, hd], "mask": mask,
-               "dtype": "bfloat16", "kept_pairs": pairs, "operations": ops,
-               "library_mask": "is_causal" if not mask else "attn_mask" if sdpa_mask else "none"}
-        row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in names}
-        row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
-        row["launches_per_call"] = len(names)
-        out[tag] = row
+        del plain_out, qp, kp, vp
+    del got
+    keep = _kept_mask(sq, skv, dev, **mask)
+    pairs = b * int(keep.sum())
+    causal_from_0 = mask.get("causal", True) and not mask.get("window") and not mask.get("q_offset")
+    sdpa_mask = dict(is_causal=True) if causal_from_0 else {} if bool(keep.all()) else dict(attn_mask=keep)
+    pad = lambda t: F.pad(t, (0, hd - dv))  # noqa: E731
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, pad(v)))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True, **sdpa_mask)
+    library_ms = _backward_ms(lib_out, (ql, kl, vl), pad(dout).transpose(1, 2).contiguous(), reps=reps)
+    del lib_out, keep, ql, kl, vl
+    ops = 2 * (3 * hd + 2 * dv) * h * pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + dout.numel()) * q.element_size()
+    bound, by = _bound_ms(nbytes, ops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    row = {"relative_err": errs, "ms": _cuda_ms(run, reps=reps), "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound, "bound_by": by, "shape": [b, sq, skv, h, kvh, hd, dv], "mask": mask,
+           "dtype": str(dtype).replace("torch.", ""), "kept_pairs": pairs, "operations": ops,
+           "library_mask": "is_causal" if "is_causal" in sdpa_mask else "attn_mask" if sdpa_mask else "none"}
+    names = pab.kernel_names(dtype)
+    row["device_ms_by_kernel"] = {n: _device_ms(run, n)[0] for n in names}
+    row["device_ms"] = row["device_ms_per_launch"] = _sum_or_none(row["device_ms_by_kernel"].values())
+    row["launches_per_call"] = len(names)
+    return errs, row
+
+
+def _check_attention_bwd(cfg, dev, gen, detail, cases=ATTENTION_BWD_CASES):
+    """K9's backward at llama3_2_3b's heads (24 / 8, hd 128), bf16 (its
+    tensor-core body): causal at B 1 x 4096 (phase 12's step) and B 4 x
+    512, then a window of 1024 at q_offset 512 and no causal mask; then at
+    the wide heads phase 12 (d) trains (``ATTENTION_BWD_WIDE``): MLA's 128
+    / 128 at hd 192 with V 128, causal, and RecurrentGemma's 10 / 1 at hd
+    256 with its window of 2048, bf16 checked and timed, and the f32 body
+    checked once at each width (``_attention_bwd_case``).  -> (the largest
+    relative error, the first row, every row by tag)."""
+    out, worst = {}, 0.0
+    for b, sq, skv, mask in cases:
+        tag = f"B{b}_S{sq}" + (f"_Skv{skv}" if skv != sq else "") + "".join(f"_{k}{int(v)}" for k, v in mask.items())
+        errs, out[tag] = _attention_bwd_case(dev, gen, b, sq, skv, (cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.hd),
+                                             mask)
+        worst = max([worst, *errs.values()])
+    for name, heads, mask, checked, timed, f32_checked in ATTENTION_BWD_WIDE:
+        runs = [(checked, torch.bfloat16, True), (timed, torch.bfloat16, False), (f32_checked, torch.float32, True)]
+        for (b, s), dtype, check in (r for r in runs if r[0] is not None):
+            tag = f"{name}_B{b}_S{s}" + ("_f32" if dtype == torch.float32 else "")
+            errs, out[tag] = _attention_bwd_case(dev, gen, b, s, s, heads, mask, dtype=dtype, check=check)
+            worst = max([worst, *(errs or {}).values()])
+            torch.cuda.empty_cache()
+    for tag, row in out.items():
         detail[f"prefill_attention_bwd_{tag}"] = row
     return worst, out[next(iter(out))], out
 
@@ -4011,20 +4088,29 @@ TRAIN_LR = 1e-4
 
 
 def _train_want(cfg, policy, steps: int = 1):
-    """Exact launches of ``steps`` train steps of a GQA stack under remat
-    "full": each layer's forward runs twice (the step's forward, then the
-    backward's recompute of the layer from its input), so K9 runs 2 a layer,
-    K10 2 per layer norm plus the final norm once (outside the checkpointed
-    layers); the backward runs K9's backward kernel once a layer and K10's
-    once a norm; under W4A4 K2 runs before each of a layer's 7 linears in
-    both forwards (a gradient never reaches it: the straight-through
-    estimator)."""
-    n = cfg.num_layers
-    norms = 2 * n + 1
+    """Exact launches of ``steps`` train steps under remat "full": each
+    layer's forward runs twice (the step's forward, then the backward's
+    recompute of the layer from its input), so K9 runs 2 an attention layer
+    (every layer of a GQA or MLA stack; a hybrid's "a" layers, none on its
+    RG-LRU "r" layers), K10 2 per layer norm (ln1 and ln2; MLA's kv_norm
+    and, with a low-rank query, q_norm too) plus the final norm once
+    (outside the checkpointed layers); the backward runs K9's backward
+    kernel once an attention layer and K10's once a norm; under W4A4 K2
+    runs before each of a GQA layer's 7 linears in both forwards (a
+    gradient never reaches it: the straight-through estimator), counted for
+    a plain GQA stack only."""
+    from repro_torch.models.transformer import layer_groups
+
+    types = [t for t, count in layer_groups(cfg) for _ in range(count)]
+    assert set(types) <= {"a", "r"}, f"launches a train step are counted for 'a' and 'r' layers, not {set(types)}"
+    assert policy.act is None or (set(types) == {"a"} and not cfg.mla), \
+        f"K2's launches a train step are counted for a GQA stack's 7 linears a layer, not {cfg.name}'s"
+    attention = sum(t != "r" for t in types)
+    norms = len(types) * (2 + (1 + int(bool(cfg.q_lora_rank)) if cfg.mla else 0)) + 1
     want = dict.fromkeys(_read_counts(), 0)
-    want.update(prefill_attention=2 * n * steps, rms_norm=(2 * norms - 1) * steps,
-                razer_act_qdq=(2 * 7 * n * steps if policy.act is not None else 0))
-    return want, {"prefill_attention_bwd": n * steps, "rms_norm_bwd": norms * steps}
+    want.update(prefill_attention=2 * attention * steps, rms_norm=(2 * norms - 1) * steps,
+                razer_act_qdq=(2 * 7 * len(types) * steps if policy.act is not None else 0))
+    return want, {"prefill_attention_bwd": attention * steps, "rms_norm_bwd": norms * steps}
 
 
 def _train_batches(cfg, steps, b, s):
@@ -4034,23 +4120,21 @@ def _train_batches(cfg, steps, b, s):
     return [ds.batch(i) for i in range(steps)]
 
 
-def _train_full_width(dev, detail):
-    """Phase 12 (a): llama3_2_3b at full width and depth (f32 params and
-    AdamW moments, bf16 compute, remat "full"), random weights from seed 0,
-    B x S = 1 x 4096 of the synthetic Markov data: 3 steps under bf16, 3
-    under fakequant(ste=True) (RaZeR weight QAT) and 1 under W4A4 QAT
-    (K2 on the path); each step's loss and gradient norm finite, the
-    parameters moved, exact launches a step (``_train_want``); step seconds
-    (host clock to a synchronize), tokens/s, model FLOPs (6 N D) over step
-    time against 989 TFLOP/s, and the peak memory."""
-    from repro_torch.configs import get_config
-    from repro_torch.core.policy import QuantPolicy
+def _train_at_width(cfg, policies, dev):
+    """``cfg`` (published widths) trained on the card from random weights
+    (seed 0): f32 params and AdamW moments, bf16 compute, remat "full", B x
+    S = ``TRAIN_TOKENS`` of the synthetic Markov data a step, ``policies``
+    ((name, QuantPolicy, steps), ...) in turn; each step's loss and
+    gradient norm finite, exact launches a step (``_train_want``), step
+    seconds (host clock to a synchronize), tokens/s, model FLOPs (6 N D)
+    over step time against 989 TFLOP/s; a parameter of the first layer
+    moved; the peak memory."""
     from repro_torch.launch.costmodel import PEAK_FLOPS, model_flops
     from repro_torch.models.transformer import init_params
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.trainstep import make_train_step
+    from repro_torch.train.tree import tree_leaves
 
-    cfg = get_config("llama3_2_3b")
     b, s = TRAIN_TOKENS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4059,14 +4143,13 @@ def _train_full_width(dev, detail):
     opt = init_opt_state(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    probe = params["layers_0"][0]["mixer"]["wq"][:4, :4].clone()
+    probe_leaf = next(t for t in tree_leaves(params["layers_0"][0]) if t.dim() == 2)
+    probe = probe_leaf[:4, :4].clone()
     flops = model_flops(cfg, s, b, "train")
-    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=2 * TRAIN_STEPS + 1)
-    policies = (("bf16", QuantPolicy.bf16(), TRAIN_STEPS), ("qat_w4", QuantPolicy.fakequant(ste=True), TRAIN_STEPS),
-                ("qat_w4a4", QuantPolicy.fakequant(act_format="razer", ste=True), 1))
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=sum(n for _, _, n in policies))
     batches = _train_batches(cfg, sum(n for _, _, n in policies), b, s)
-    out = {"arch": cfg.name, "tokens_per_step": b * s, "batch_seq": [b, s], "model_flops_per_step": flops,
-           "init_s": init_s, "lr": TRAIN_LR, "remat": "full"}
+    out = {"arch": cfg.name, "num_layers": cfg.num_layers, "tokens_per_step": b * s, "batch_seq": [b, s],
+           "model_flops_per_step": flops, "init_s": init_s, "lr": TRAIN_LR, "remat": "full"}
     i = 0
     for name, policy, n_steps in policies:
         step = make_train_step(cfg, None, ocfg, policy)
@@ -4083,22 +4166,67 @@ def _train_full_width(dev, detail):
             dt = time.perf_counter() - t0
             counts, train_counts = _main_path_counts(), _main_path_train_counts()
             want, train_want = _train_want(cfg, policy)
-            assert counts == want and train_counts == train_want, (name, counts, want, train_counts, train_want)
-            assert np.isfinite(loss) and np.isfinite(gnorm), (name, loss, gnorm)
+            assert counts == want and train_counts == train_want, (cfg.name, name, counts, want, train_counts,
+                                                                   train_want)
+            assert np.isfinite(loss) and np.isfinite(gnorm), (cfg.name, name, loss, gnorm)
             rows.append({"loss": loss, "grad_norm": gnorm, "lr": float(m["lr"]), "step_s": dt,
                          "tokens_per_s": b * s / dt, "model_flop_share": flops / dt / PEAK_FLOPS})
         steady = sorted(r["step_s"] for r in rows[1:] or rows)[len(rows[1:] or rows) // 2]
         out[name] = {"steps": rows, "median_step_s_after_first": steady, "tokens_per_s": b * s / steady,
                      "model_flop_share": flops / steady / PEAK_FLOPS,
                      "launches_per_step": {**want, **train_want}}
-        print(f"train {cfg.name} full width, {name}: " + json.dumps(out[name]), flush=True)
-    moved = float((params["layers_0"][0]["mixer"]["wq"][:4, :4] - probe).abs().max())
-    assert moved > 0, "the parameters did not move"
+        print(f"train {cfg.name} full width ({cfg.num_layers} layers), {name}: " + json.dumps(out[name]), flush=True)
+    moved = float((probe_leaf[:4, :4] - probe).abs().max())
+    assert moved > 0, f"the parameters of {cfg.name} did not move"
     out["param_moved_max_abs"] = moved
     out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    del params, opt
+    del params, opt, probe_leaf
     torch.cuda.empty_cache()
+    return out
+
+
+def _train_full_width(dev, detail):
+    """Phase 12 (a): llama3_2_3b at full width and depth (``_train_at_width``):
+    3 steps under bf16, 3 under fakequant(ste=True) (RaZeR weight QAT) and
+    1 under W4A4 QAT (K2 on the path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+
+    policies = (("bf16", QuantPolicy.bf16(), TRAIN_STEPS), ("qat_w4", QuantPolicy.fakequant(ste=True), TRAIN_STEPS),
+                ("qat_w4a4", QuantPolicy.fakequant(act_format="razer", ste=True), 1))
+    out = _train_at_width(get_config("llama3_2_3b"), policies, dev)
     detail["train_full_width"] = out
+    return out
+
+
+# phase 12 (d): (arch, layers trained): DeepSeek-V2 keeps its first layer,
+# the dense one (an MoE layer's 3.78 B expert parameters alone need 60 GB of
+# f32 parameters, gradients and moments); RecurrentGemma all 26
+TRAIN_WIDE = (("deepseek_v2_236b", 1), ("recurrentgemma_2b", None))
+TRAIN_WIDE_STEPS = 2
+
+
+def _train_wide(dev, detail):
+    """Phase 12 (d): the archs whose attention K9's backward runs at its wide
+    heads, at their published widths (``_train_at_width``): MLA's hd 192
+    with V 128 (``deepseek_v2_236b``, cut as ``TRAIN_WIDE`` says) and hd 256
+    with a window of 2048 on RecurrentGemma's attention layers, with its
+    RG-LRU scan and conv through autograd; ``TRAIN_WIDE_STEPS`` steps under
+    bf16, then as many under fakequant(ste=True)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import QuantPolicy
+
+    policies = (("bf16", QuantPolicy.bf16(), TRAIN_WIDE_STEPS),
+                ("qat_w4", QuantPolicy.fakequant(ste=True), TRAIN_WIDE_STEPS))
+    out = {}
+    for arch, layers in TRAIN_WIDE:
+        cfg = get_config(arch)
+        cut = None
+        if layers is not None:
+            cut = {"num_layers": [cfg.num_layers, layers]}
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        out[arch] = {**_train_at_width(cfg, policies, dev), "cut": cut}
+    detail["train_wide"] = out
     return out
 
 
@@ -4116,28 +4244,46 @@ def _train_steps(cfg, dev, params, steps, policy=None):
     return params, losses
 
 
-def _train_card_vs_cpu(dev):
-    """Phase 12 (b): reduced llama3_2_3b in f32, 3 steps of 2 x 64 tokens on
-    the card and on the CPU from the same init: losses within 1e-5
-    relative; parameters within 4 x the summed learning rate (an element
-    whose gradient is near 0 can flip its Adam update's sign, about 2 lr a
-    step), and all but 0.1 % within 1e-6."""
+def _train_card_vs_cpu(dev, cfg=None):
+    """Phase 12 (b) and (e): ``cfg`` (reduced llama3_2_3b) in f32, 3 steps of
+    2 x 64 tokens on the card and on the CPU from the same init: losses
+    within 1e-5 relative; parameters within 4 x the summed learning rate
+    (an element whose gradient is near 0 can flip its Adam update's sign,
+    about 2 lr a step), and all but 0.1 % within 1e-6; the card's launches
+    (K9's backward among them where the model has attention)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_params
     from repro_torch.train.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), compute_dtype="float32")
+    cfg = dataclasses.replace(cfg or get_config("llama3_2_3b").reduced(), compute_dtype="float32")
     cpu = init_params(cfg, seed=0, device="cpu")
+    _reset_counts()
     card, card_losses = _train_steps(cfg, dev, tree_map(lambda t: t.to(dev, copy=True), cpu), TRAIN_STEPS)
+    launches = {**_read_counts(), **{n: getattr(f, a) for n, (f, a) in _train_counters().items()}}
+    assert launches["prefill_attention_bwd"] > 0, (cfg.name, launches)
     cpu, cpu_losses = _train_steps(cfg, torch.device("cpu"), cpu, TRAIN_STEPS)
     loss_rel = max(abs(a - c) / abs(c) for a, c in zip(card_losses, cpu_losses))
     diffs = torch.cat([(a.cpu() - c).abs().flatten() for a, c in zip(tree_leaves(card), tree_leaves(cpu))])
-    row = {"card_losses": card_losses, "cpu_losses": cpu_losses, "loss_max_rel_diff": loss_rel,
+    row = {"arch": cfg.name, "card_losses": card_losses, "cpu_losses": cpu_losses, "loss_max_rel_diff": loss_rel,
            "param_max_abs_diff": float(diffs.max()), "param_share_beyond_1e-6": float((diffs > 1e-6).float().mean()),
-           "param_bound": 4 * TRAIN_STEPS * TRAIN_LR}
+           "param_bound": 4 * TRAIN_STEPS * TRAIN_LR, "card_launches": {k: n for k, n in launches.items() if n}}
     assert loss_rel <= 1e-5, row
     assert row["param_max_abs_diff"] <= row["param_bound"] and row["param_share_beyond_1e-6"] <= 1e-3, row
     return row
+
+
+def _train_wide_card_vs_cpu(dev):
+    """Phase 12 (e): each arch of phase 12 (d) narrow at its real head
+    widths, card against CPU as (b): deepseek_v2_236b reduced at MLA's hd
+    192 with V 128 and a low-rank query (``_zoo_narrow_cfg``), and
+    recurrentgemma_2b reduced at head_dim 256 with a window of 24 (the
+    64-token rows outrun it)."""
+    from repro_torch.configs import get_config
+
+    cfgs = {"deepseek_v2_236b": _zoo_narrow_cfg("deepseek_v2_236b"),
+            "recurrentgemma_2b": dataclasses.replace(get_config("recurrentgemma_2b").reduced(), head_dim=256,
+                                                     window=24)}
+    return {arch: _train_card_vs_cpu(dev, cfg) for arch, cfg in cfgs.items()}
 
 
 def _train_launcher_and_restart(dev):
@@ -4201,14 +4347,24 @@ def _train_launcher_and_restart(dev):
 
 def _training(dev, detail):
     """Phase 12: (a) full-width training steps, (b) narrow card vs CPU, (c)
-    the launchers and a restart from a checkpoint."""
+    the launchers and a restart from a checkpoint, (d) MLA and
+    RecurrentGemma at their published widths, (e) both narrow card vs
+    CPU."""
     out = {"full_width": _train_full_width(dev, detail)}
     out["card_vs_cpu"] = _train_card_vs_cpu(dev)
     print("train card vs cpu (reduced llama3_2_3b, f32, 3 steps): " + json.dumps(out["card_vs_cpu"]), flush=True)
     out["launcher"] = _train_launcher_and_restart(dev)
     print("train launcher -> serve --ckpt, resilient loop (reduced llama3_2_3b): " + json.dumps(out["launcher"]),
           flush=True)
-    detail["training"] = {k: v for k, v in out.items() if k != "full_width"}
+    t0 = time.perf_counter()
+    out["wide"] = _train_wide(dev, detail)
+    detail["phase_s"]["12 (d) MLA and RecurrentGemma at published widths (inside 12)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["wide_card_vs_cpu"] = _train_wide_card_vs_cpu(dev)
+    detail["phase_s"]["12 (e) narrow card vs cpu (inside 12)"] = time.perf_counter() - t0
+    print("train card vs cpu (narrow deepseek_v2_236b at hd 192 / V 128, recurrentgemma_2b at hd 256, f32, 3 "
+          "steps): " + json.dumps(out["wide_card_vs_cpu"]), flush=True)
+    detail["training"] = {k: v for k, v in out.items() if k not in ("full_width", "wide")}
     return out
 
 
@@ -4283,7 +4439,8 @@ def main() -> int:
     mark("3 kernels")
     bwd_err, bwd_row, bwd_rows = _check_attention_bwd(cfg, dev, gen, detail)
     checks["prefill_attention_bwd"] = (bwd_err, bwd_row)
-    print("prefill attention backward (K9 bwd) at llama3_2_3b heads, bf16 (tensor-core body), causal and masked: "
+    print("prefill attention backward (K9 bwd) at llama3_2_3b heads, bf16 (tensor-core body), causal and masked; "
+          "at MLA's hd 192 / V 128 and RecurrentGemma's hd 256 with window 2048, bf16 and f32: "
           + json.dumps(bwd_rows))
     bwd_err, bwd_row, bwd_rows = _check_rms_norm_bwd(cfg, dev, gen, detail)
     checks["rms_norm_bwd"] = (bwd_err, bwd_row)
@@ -4380,8 +4537,10 @@ def main() -> int:
                                   "XLA: no Pallas kernel)",
                                   "K9's backward, causal GQA, B=1 S=4096 H=24 KVH=8 hd=128, bf16: the tensor-core "
                                   "body (two kernels a call; max_abs_err: the largest error relative to max |want| "
-                                  "of dq, dk, dv at B 1 x 4096, B 4 x 512, window 1024 at q_offset 512, and no "
-                                  "causal mask)"),
+                                  "of dq, dk, dv at B 1 x 4096, B 4 x 512, window 1024 at q_offset 512, no causal "
+                                  "mask, MLA's 128 heads at hd 192 / V 128 (bf16 B 1 x 2048, f32 B 1 x 512) and "
+                                  "RecurrentGemma's 10 / 1 at hd 256, window 2048 (bf16 B 1 x 4096, f32 B 1 x "
+                                  "2600))"),
         "rms_norm_bwd": ("src/repro_torch/csrc/rms_norm_bwd.cu", "src/repro/models/layers.py:29 (rms_norm, jnp, "
                          "differentiated by XLA: no Pallas kernel)",
                          "K10's backward, M=4 d=3072, bf16 x and dy, f32 gamma (two kernels a call; max_abs_err: "

@@ -8,7 +8,9 @@
 // With S = scale * Q K^T (masked), P = softmax(S) row by row, O = P V:
 //   dV = P^T dO,   dP = dO V^T,   D_i = sum_d dO[i, d] O[i, d],
 //   dS = P o (dP - D),   dQ = scale * dS K,   dK = scale * dS^T Q.
-// Two kernels a call, all sums in f32 and in a fixed order, no atomics:
+// S, dQ and dK run at q/k's width HD; dP, dV and D at V's width DV (o and
+// dO have V's width).  Two kernels a call, all sums in f32 and in a fixed
+// order, no atomics:
 //   1. query-major: a block takes 64 query rows of one head (the f32 body)
 //      or of GB heads of one KV head (the tensor-core body); it walks their
 //      keys once for each row's max m and sum l (the forward's softmax
@@ -16,20 +18,21 @@
 //      from O and dO, walks the keys again for P, dP, dS and dQ, and writes
 //      the statistics and D to a (3, B, H, Sq) f32 workspace: m, l and D
 //      (the f32 body), m + log2 l in base 2, l and D (the tensor-core body);
-//   2. key-major: a block takes 64 keys (f32) or two tiles of 64 keys
+//   2. key-major: a block takes 64 keys (f32) or one or two tiles of 64 keys
 //      (tensor cores) of one KV head and walks the G query heads of that KV
 //      head in order, each over the query tiles that see those keys,
 //      rebuilding P from the workspace, and sums dV and dK in registers.
 // The masks are K9's: query i at position q_offset + i, key j at j;
 // causal keeps j <= q_offset + i; window > 0 keeps j > q_offset + i -
 // window.  Only the tiles that hold a kept (query, key) pair are walked.
-// q/k at hd 16, 32, 64 or 128 with V as wide (the wrapper refuses the
+// Built for (HD, DV) = (16, 16), (32, 32), (64, 64), (128, 128), MLA's
+// (192, 128) and (256, 256): the forward's widths (the wrapper refuses the
 // rest).
 //
-// What bounds it on this card: the operations.  The minimum is 5 head-width
-// products a kept (query, key) pair and head (S, dP, dV, dQ, dK), against
-// the bytes of q, k, v, o, dO in and dq, dk, dv out; the recomputed
-// statistics and the key-major pass's S and dP make it 8.
+// What bounds it on this card: the operations.  The minimum is 3 products at
+// HD and 2 at DV a kept (query, key) pair and head (S, dQ, dK; dP, dV),
+// against the bytes of q, k, v, o, dO in and dq, dk, dv out; the recomputed
+// statistics and the key-major pass's S and dP add more.
 //
 // Two bodies, chosen by the dtypes alone, the same way for every call
 // (kernels/prefill_attention_bwd.py, `kernel_body`):
@@ -41,23 +44,36 @@
 //        V dO^T (key-major): m64n64k16, both operands K-major tiles in
 //        shared memory (8-row x 16-byte core matrices, no swizzle, as K9's
 //        forward stages them);
-//      - dQ = dS K, dV = P^T dO, dK = dS^T q: m64n{hd}k16 with P and dS
-//        rounded to bf16 as the A operand from registers (the score
-//        accumulators' layout is the A fragment's), and B the same
-//        K-major tile of K, dO or q read MN-major through the bf16
-//        transpose bit: its rows run along k, no transposed copy is staged;
+//      - dQ = dS K, dV = P^T dO, dK = dS^T q: m64n{HD or DV}k16 with P and
+//        dS rounded to bf16 as the A operand from registers (the score
+//        accumulators' layout is the A fragment's), and B the same K-major
+//        tile of K, dO or q read MN-major through the bf16 transpose bit:
+//        its rows run along k, no transposed copy is staged; past 128
+//        columns as two products of half the columns (each column is its
+//        own sum: the same bits);
 //      - a tile staged once serves several warpgroups: a query-major block
-//        holds GB heads (the largest divisor of G up to 3, as K9's forward)
-//        over one key-chunk ring; a key-major block 2 key tiles over one
-//        query-tile ring (a warpgroup past Skv idles).  Neither moves a
-//        bit: each warpgroup walks its own rows' tiles in the same order;
-//      - tiles arrive by cp.async into a ring of 4 stages; the last product
-//        of a tile (dQ; dK) is left in flight into the next tile and waited
-//        for there, before that tile's end, so tile it's stage is refilled
-//        only after the block barrier at the top of tile it + 2, which every
+//        holds GB heads (the largest divisor of G up to 3, as K9's forward;
+//        1 at HD 192 and 256, where two heads' tiles do not fit shared
+//        memory) over one key-chunk ring; a key-major block 2 key tiles
+//        over one query-tile ring (a warpgroup past Skv idles).  Neither
+//        moves a bit: each warpgroup walks its own rows' tiles in the same
+//        order;
+//      - at HD 192 and 256 a thread cannot hold dK and dV (MLA: 96 + 64 f32
+//        beside S^T, dP^T and both fragment sets; HD 256: 128 + 128), so the
+//        key-major block takes one key tile and splits the sums: warpgroup 0
+//        forms P and sums dV, warpgroup 1 forms P, dP and dS and sums dK.
+//        Each sum keeps its order over heads and query tiles: no bit moves;
+//      - tiles arrive by cp.async into a ring of NST stages, as many as
+//        shared memory holds up to 4 (`Ring`): with 4, the last product of a
+//        tile (dQ; dK) is left in flight into the next tile and waited for
+//        there, before that tile's end, so tile it's stage is refilled only
+//        after the block barrier at the top of tile it + 2, which every
 //        warpgroup reaches past that wait; 2 tiles' copies are in flight
-//        while one is computed; S^T's (S's) softmax runs while dP^T's (dP's)
-//        wgmma does, and dS while dV's does;
+//        while one is computed.  With fewer stages (HD 256: 2) the last
+//        product is waited for at its own tile's end, and tile it + NST - 1
+//        is issued after the barrier at the top of tile it, into the stage
+//        every warpgroup finished with in tile it - 1; S^T's (S's) softmax
+//        runs while dP^T's (dP's) wgmma does, and dS while dV's does;
 //      - blocks run heads (KV heads) fastest and the causal mask's heaviest
 //        tiles first: the last query tiles (the most keys), the first key
 //        tiles (the most queries), so the card's last wave holds the
@@ -65,16 +81,17 @@
 //      - softmax in base 2 on scores scaled by scale x log2 e, P = exp2(s -
 //        (m + log2 l)) in both passes; the mask is applied element by
 //        element only in a warp whose 16 rows a tile's boundary crosses;
-//      - registers at hd 128: key-major dK and dV 64 + 64 f32 a thread
-//        beside S^T and dP^T (32 + 32); `nvcc -Xptxas -v` reports each
-//        kernel's registers and spills (PERF.md's kernel table);
+//      - `nvcc -Xptxas -v` reports each kernel's registers and spills
+//        (PERF.md's kernel table);
 //    a row with no kept key gets P = 0 (dq 0, nothing added to dk or dv);
 //  * the f32 body, for any f32 input: CUDA cores in f32, 64 x 64 tiles
 //    staged in shared memory with padded rows (no bank conflicts), each of
 //    256 threads holding a 4 x 4 piece of a score tile and 4 rows of the
-//    output columns it owns.  bf16 operands cannot hold the f32
-//    tolerance.  The choice is by dtype, not a fallback: a failed build
-//    or launch raises.
+//    output columns it owns; the tiles a pass streams are staged in pieces
+//    of 128 columns at HD 256 (four whole 64 x 256 f32 tiles exceed shared
+//    memory), summed in the same order.  bf16 operands cannot hold the f32
+//    tolerance.  The choice is by dtype, not a fallback: a failed build or
+//    launch raises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,8 +101,9 @@
 
 namespace {
 
-constexpr int BT = 64;        // query rows or keys of a tile
-constexpr float NEG = -1e30f;  // K9's masked score
+constexpr int BT = 64;                 // query rows or keys of a tile
+constexpr float NEG = -1e30f;          // K9's masked score
+constexpr size_t SMEM_MAX = 232448;    // dynamic shared memory a block can have on an H100
 
 __device__ __forceinline__ float ld(const void* p, size_t i, int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]) : static_cast<const float*>(p)[i];
@@ -119,31 +137,35 @@ namespace f32 {
 
 constexpr int THREADS = 256;
 
-// rows [r0, r0 + BT) of a (B, S, heads, HD) tensor at head h -> s[BT][HD + 1] f32, zeros past S
-template <int HD>
-__device__ __forceinline__ void load_tile(float* s, const void* src, int bf16, int b, int r0, int S, int heads,
-                                          int h) {
-  for (int e = threadIdx.x; e < BT * HD; e += THREADS) {
-    const int r = e / HD, c = e % HD, row = r0 + r;
-    s[r * (HD + 1) + c] =
-        row < S ? ld(src, ((static_cast<size_t>(b) * S + row) * heads + h) * HD + c, bf16) : 0.0f;
+// the columns of a streamed tile: whole up to 192, else pieces of 128
+template <int D>
+__host__ __device__ constexpr int piece() {
+  return D > 192 ? 128 : D;
+}
+
+// rows [r0, r0 + BT), columns [c0, c0 + W) of a (B, S, heads, D) tensor at
+// head h -> s[BT][W + 1] f32, zeros past S
+template <int D, int W>
+__device__ __forceinline__ void load_tile(float* s, const void* src, int bf16, int b, int r0, int S, int heads, int h,
+                                          int c0 = 0) {
+  for (int e = threadIdx.x; e < BT * W; e += THREADS) {
+    const int r = e / W, c = e % W, row = r0 + r;
+    s[r * (W + 1) + c] =
+        row < S ? ld(src, ((static_cast<size_t>(b) * S + row) * heads + h) * D + c0 + c, bf16) : 0.0f;
   }
 }
 
-// acc[r][c] = sum_d A[ty + 16 r][d] * Bm[tx + 16 c][d] over HD
-template <int HD>
+// acc[r][c] += sum_d A[ty + 16 r][d] * Bm[tx + 16 c][d] over W columns, A's
+// rows SA floats apart, Bm's SB
+template <int W, int SA, int SB>
 __device__ __forceinline__ void tile_dot(float acc[4][4], const float* A, const float* Bm, int ty, int tx) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
 #pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
+  for (int d = 0; d < W; ++d) {
     float av[4], bv[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = A[(ty + 16 * r) * (HD + 1) + d];
+    for (int r = 0; r < 4; ++r) av[r] = A[(ty + 16 * r) * SA + d];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = Bm[(tx + 16 * c) * (HD + 1) + d];
+    for (int c = 0; c < 4; ++c) bv[c] = Bm[(tx + 16 * c) * SB + d];
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -151,19 +173,28 @@ __device__ __forceinline__ void tile_dot(float acc[4][4], const float* A, const 
   }
 }
 
-// out[r][cc] += sum_t T[ty + 16 r][t] * M[t][tx + 16 cc] over the BT columns of T
-template <int HD>
-__device__ __forceinline__ void tile_accum(float out[4][HD / 16], const float* T, const float* M, int ty, int tx) {
+__device__ __forceinline__ void zero(float x[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[r][c] = 0.0f;
+}
+
+// out[r][cc0 + cc] += sum_t T[ty + 16 r][t] * M[t][tx + 16 cc] over the BT
+// columns of T, for the W columns of M (rows W + 1 floats apart)
+template <int W, int NC>
+__device__ __forceinline__ void tile_accum(float (&out)[4][NC], int cc0, const float* T, const float* M, int ty,
+                                           int tx) {
 #pragma unroll 4
   for (int t = 0; t < BT; ++t) {
     float tv[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) tv[r] = T[(ty + 16 * r) * (BT + 1) + t];
 #pragma unroll
-    for (int cc = 0; cc < HD / 16; ++cc) {
-      const float mv = M[t * (HD + 1) + tx + 16 * cc];
+    for (int cc = 0; cc < W / 16; ++cc) {
+      const float mv = M[t * (W + 1) + tx + 16 * cc];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) out[r][cc] = __fmaf_rn(tv[r], mv, out[r][cc]);
+      for (int r = 0; r < 4; ++r) out[r][cc0 + cc] = __fmaf_rn(tv[r], mv, out[r][cc0 + cc]);
     }
   }
 }
@@ -181,31 +212,36 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <int HD>
+// a block's tiles: the two it keeps whole (q and dO; K and V), the two it
+// streams in pieces (K and V; q and dO), the 64 x 64 P / dS tile, 3 x 64
+// statistics
+template <int HD, int DV>
 constexpr size_t smem_bytes() {
-  return (4 * BT * (HD + 1) + BT * (BT + 1) + 3 * BT) * sizeof(float);
+  return (BT * (HD + 1) + BT * (DV + 1) + BT * (piece<HD>() + 1) + BT * (piece<DV>() + 1) + BT * (BT + 1) + 3 * BT) *
+         sizeof(float);
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dq_kernel(Args a) {
+  constexpr int KP = piece<HD>(), VP = piece<DV>(), NK = HD / KP, NV = DV / VP;
   extern __shared__ float sm[];
   float* sQ = sm;
   float* sdO = sQ + BT * (HD + 1);
-  float* sK = sdO + BT * (HD + 1);
-  float* sV = sK + BT * (HD + 1);
-  float* sT = sV + BT * (HD + 1);  // the dS tile
+  float* sK = sdO + BT * (DV + 1);  // a piece of KP columns
+  float* sV = sK + BT * (KP + 1);   // a piece of VP columns
+  float* sT = sV + BT * (VP + 1);   // the dS tile
   float* sD = sT + BT * (BT + 1);
   const int i0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, kh = h / (a.H / a.KVH);
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  load_tile<HD>(sQ, a.q, a.q_bf16, b, i0, a.Sq, a.H, h);
-  load_tile<HD>(sdO, a.dout, a.q_bf16, b, i0, a.Sq, a.H, h);
+  load_tile<HD, HD>(sQ, a.q, a.q_bf16, b, i0, a.Sq, a.H, h);
+  load_tile<DV, DV>(sdO, a.dout, a.q_bf16, b, i0, a.Sq, a.H, h);
   __syncthreads();
   if (tid < BT) {  // D of row tid, summed over d in order
     const int i = i0 + tid;
     float dsum = 0.0f;
     if (i < a.Sq) {
-      const size_t base = ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * HD;
-      for (int d = 0; d < HD; ++d) dsum = __fmaf_rn(sdO[tid * (HD + 1) + d], ld(a.o, base + d, a.q_bf16), dsum);
+      const size_t base = ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * DV;
+      for (int d = 0; d < DV; ++d) dsum = __fmaf_rn(sdO[tid * (DV + 1) + d], ld(a.o, base + d, a.q_bf16), dsum);
     }
     sD[tid] = dsum;
   }
@@ -215,15 +251,23 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dq_kernel(Args 
   const int j_end = a.causal ? min(a.Skv, a.q_offset + last_i + 1) : a.Skv;
   const int j_begin = a.window ? max(0, a.q_offset + i0 - a.window + 1) : 0;
   const int c_begin = (j_begin / BT) * BT;
+  // s = q K^T over the chunk at c0, K staged a piece at a time (sK holds the last piece after)
+  auto scores = [&](float s[4][4], int c0) {
+    zero(s);
+#pragma unroll
+    for (int kc = 0; kc < NK; ++kc) {
+      __syncthreads();
+      load_tile<HD, KP>(sK, a.k, a.k_bf16, b, c0, a.Skv, a.KVH, kh, kc * KP);
+      __syncthreads();
+      tile_dot<KP, HD + 1, KP + 1>(s, sQ + kc * KP, sK, ty, tx);
+    }
+  };
   float m[4], l[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) m[r] = NEG, l[r] = 0.0f;
   float s[4][4];
   for (int c0 = c_begin; c0 < j_end; c0 += BT) {  // pass 1: each row's max and sum
-    __syncthreads();
-    load_tile<HD>(sK, a.k, a.k_bf16, b, c0, a.Skv, a.KVH, kh);
-    __syncthreads();
-    tile_dot<HD>(s, sQ, sK, ty, tx);
+    scores(s, c0);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + ty + 16 * r;
@@ -248,12 +292,15 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dq_kernel(Args 
     for (int cc = 0; cc < HD / 16; ++cc) dq[r][cc] = 0.0f;
   float dp[4][4];
   for (int c0 = c_begin; c0 < j_end; c0 += BT) {  // pass 2: P, dP, dS and dQ
-    __syncthreads();
-    load_tile<HD>(sK, a.k, a.k_bf16, b, c0, a.Skv, a.KVH, kh);
-    load_tile<HD>(sV, a.v, a.v_bf16, b, c0, a.Skv, a.KVH, kh);
-    __syncthreads();
-    tile_dot<HD>(s, sQ, sK, ty, tx);
-    tile_dot<HD>(dp, sdO, sV, ty, tx);
+    scores(s, c0);
+    zero(dp);
+#pragma unroll
+    for (int vc = 0; vc < NV; ++vc) {
+      __syncthreads();
+      load_tile<DV, VP>(sV, a.v, a.v_bf16, b, c0, a.Skv, a.KVH, kh, vc * VP);
+      __syncthreads();
+      tile_dot<VP, DV + 1, VP + 1>(dp, sdO + vc * VP, sV, ty, tx);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + ty + 16 * r;
@@ -266,7 +313,15 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dq_kernel(Args 
       }
     }
     __syncthreads();
-    tile_accum<HD>(dq, sT, sK, ty, tx);
+#pragma unroll
+    for (int kc = NK - 1; kc >= 0; --kc) {  // the last piece is staged already
+      if (kc != NK - 1) {
+        __syncthreads();
+        load_tile<HD, KP>(sK, a.k, a.k_bf16, b, c0, a.Skv, a.KVH, kh, kc * KP);
+        __syncthreads();
+      }
+      tile_accum<KP, HD / 16>(dq, kc * KP / 16, sT, sK, ty, tx);
+    }
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -284,26 +339,30 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dq_kernel(Args 
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dkdv_kernel(Args a) {
+  constexpr int KP = piece<HD>(), VP = piece<DV>(), NK = HD / KP, NV = DV / VP;
   extern __shared__ float sm[];
   float* sK = sm;
   float* sV = sK + BT * (HD + 1);
-  float* sQ = sV + BT * (HD + 1);
-  float* sdO = sQ + BT * (HD + 1);
-  float* sT = sdO + BT * (HD + 1);  // P, then dS, keys x queries
+  float* sQ = sV + BT * (DV + 1);   // a piece of KP columns
+  float* sdO = sQ + BT * (KP + 1);  // a piece of VP columns
+  float* sT = sdO + BT * (VP + 1);  // P, then dS, keys x queries
   float* sM = sT + BT * (BT + 1);
   float* sL = sM + BT;
   float* sD = sL + BT;
   const int j0 = blockIdx.x * BT, kh = blockIdx.y, b = blockIdx.z, g = a.H / a.KVH;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  load_tile<HD>(sK, a.k, a.k_bf16, b, j0, a.Skv, a.KVH, kh);
-  load_tile<HD>(sV, a.v, a.v_bf16, b, j0, a.Skv, a.KVH, kh);
-  float dk[4][HD / 16], dv[4][HD / 16];
+  load_tile<HD, HD>(sK, a.k, a.k_bf16, b, j0, a.Skv, a.KVH, kh);
+  load_tile<DV, DV>(sV, a.v, a.v_bf16, b, j0, a.Skv, a.KVH, kh);
+  float dk[4][HD / 16], dv[4][DV / 16];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int cc = 0; cc < HD / 16; ++cc) dk[r][cc] = dv[r][cc] = 0.0f;
+    for (int cc = 0; cc < HD / 16; ++cc) dk[r][cc] = 0.0f;
+#pragma unroll
+    for (int cc = 0; cc < DV / 16; ++cc) dv[r][cc] = 0.0f;
+  }
   // the query rows that keep any key of the tile
   const int last_j = min(j0 + BT, a.Skv) - 1;
   const int i_begin = a.causal ? max(0, j0 - a.q_offset) : 0;
@@ -313,8 +372,8 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dkdv_kernel(Arg
   for (int h = kh * g; h < (kh + 1) * g; ++h) {
     for (int c0 = (i_begin / BT) * BT; c0 < i_end; c0 += BT) {
       __syncthreads();
-      load_tile<HD>(sQ, a.q, a.q_bf16, b, c0, a.Sq, a.H, h);
-      load_tile<HD>(sdO, a.dout, a.q_bf16, b, c0, a.Sq, a.H, h);
+      load_tile<HD, KP>(sQ, a.q, a.q_bf16, b, c0, a.Sq, a.H, h);
+      load_tile<DV, VP>(sdO, a.dout, a.q_bf16, b, c0, a.Sq, a.H, h);
       if (tid < BT) {
         const int i = c0 + tid;
         const size_t w = (static_cast<size_t>(b) * a.H + h) * a.Sq + i;
@@ -323,8 +382,26 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dkdv_kernel(Arg
         sD[tid] = i < a.Sq ? a.ws[2 * n + w] : 0.0f;
       }
       __syncthreads();
-      tile_dot<HD>(s, sK, sQ, ty, tx);   // keys ty + 16 r, queries tx + 16 c
-      tile_dot<HD>(dp, sV, sdO, ty, tx);
+      zero(s);  // keys ty + 16 r, queries tx + 16 c; q and dO staged a piece at a time
+#pragma unroll
+      for (int kc = 0; kc < NK; ++kc) {
+        if (kc) {
+          __syncthreads();
+          load_tile<HD, KP>(sQ, a.q, a.q_bf16, b, c0, a.Sq, a.H, h, kc * KP);
+          __syncthreads();
+        }
+        tile_dot<KP, HD + 1, KP + 1>(s, sK + kc * KP, sQ, ty, tx);
+      }
+      zero(dp);
+#pragma unroll
+      for (int vc = 0; vc < NV; ++vc) {
+        if (vc) {
+          __syncthreads();
+          load_tile<DV, VP>(sdO, a.dout, a.q_bf16, b, c0, a.Sq, a.H, h, vc * VP);
+          __syncthreads();
+        }
+        tile_dot<VP, DV + 1, VP + 1>(dp, sV + vc * VP, sdO, ty, tx);
+      }
       float p[4][4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -337,7 +414,15 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dkdv_kernel(Arg
           sT[(ty + 16 * r) * (BT + 1) + qi] = p[r][c];
         }
       __syncthreads();
-      tile_accum<HD>(dv, sT, sdO, ty, tx);
+#pragma unroll
+      for (int vc = NV - 1; vc >= 0; --vc) {  // the last piece of dO is staged already
+        if (vc != NV - 1) {
+          __syncthreads();
+          load_tile<DV, VP>(sdO, a.dout, a.q_bf16, b, c0, a.Sq, a.H, h, vc * VP);
+          __syncthreads();
+        }
+        tile_accum<VP, DV / 16>(dv, vc * VP / 16, sT, sdO, ty, tx);
+      }
       __syncthreads();
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -347,36 +432,44 @@ __global__ void __launch_bounds__(THREADS) prefill_attention_bwd_dkdv_kernel(Arg
           sT[(ty + 16 * r) * (BT + 1) + qi] = __fmul_rn(p[r][c], __fsub_rn(dp[r][c], sD[qi]));
         }
       __syncthreads();
-      tile_accum<HD>(dk, sT, sQ, ty, tx);
+#pragma unroll
+      for (int kc = NK - 1; kc >= 0; --kc) {  // the last piece of q is staged already
+        if (kc != NK - 1) {
+          __syncthreads();
+          load_tile<HD, KP>(sQ, a.q, a.q_bf16, b, c0, a.Sq, a.H, h, kc * KP);
+          __syncthreads();
+        }
+        tile_accum<KP, HD / 16>(dk, kc * KP / 16, sT, sQ, ty, tx);
+      }
     }
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int j = j0 + ty + 16 * r;
     if (j >= a.Skv) continue;
-    const size_t base = ((static_cast<size_t>(b) * a.Skv + j) * a.KVH + kh) * HD;
+    const size_t row = (static_cast<size_t>(b) * a.Skv + j) * a.KVH + kh;
 #pragma unroll
-    for (int cc = 0; cc < HD / 16; ++cc) {
-      st(a.dk, base + tx + 16 * cc, __fmul_rn(dk[r][cc], a.scale), a.k_bf16);
-      st(a.dv, base + tx + 16 * cc, dv[r][cc], a.v_bf16);
-    }
+    for (int cc = 0; cc < HD / 16; ++cc) st(a.dk, row * HD + tx + 16 * cc, __fmul_rn(dk[r][cc], a.scale), a.k_bf16);
+#pragma unroll
+    for (int cc = 0; cc < DV / 16; ++cc) st(a.dv, row * DV + tx + 16 * cc, dv[r][cc], a.v_bf16);
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr int smem = static_cast<int>(smem_bytes<HD>());
-  cudaError_t e = cudaFuncSetAttribute(prefill_attention_bwd_dq_kernel<HD>,
+  constexpr int smem = static_cast<int>(smem_bytes<HD, DV>());
+  static_assert(smem_bytes<HD, DV>() <= SMEM_MAX, "the f32 body's tiles must fit shared memory");
+  cudaError_t e = cudaFuncSetAttribute(prefill_attention_bwd_dq_kernel<HD, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(prefill_attention_bwd_dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(prefill_attention_bwd_dkdv_kernel<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 gq((a.Sq + BT - 1) / BT, a.H, a.B), gk((a.Skv + BT - 1) / BT, a.KVH, a.B);
-  prefill_attention_bwd_dq_kernel<HD><<<gq, THREADS, smem, stream>>>(a);
+  prefill_attention_bwd_dq_kernel<HD, DV><<<gq, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  prefill_attention_bwd_dkdv_kernel<HD><<<gk, THREADS, smem, stream>>>(a);
+  prefill_attention_bwd_dkdv_kernel<HD, DV><<<gk, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,28 +490,57 @@ using razer_tile::wgmma_commit;
 using razer_tile::wgmma_fence;
 using razer_tile::wgmma_wait;
 
-constexpr int WG = 128;  // threads a block: one warpgroup, 16 rows a warp
+constexpr int WG = 128;  // threads a warpgroup, 16 rows a warp
+
+// the most stages up to 4 of `stage` bytes that fit beside `fixed` bytes
+__host__ __device__ constexpr int stages(size_t fixed, size_t stage) {
+  return fixed + 4 * stage <= SMEM_MAX ? 4 : fixed + 3 * stage <= SMEM_MAX ? 3 : 2;
+}
+
+// How a ring of NST stages is walked.  FLIGHT: the last product of a tile
+// is left in flight into the next tile and waited for there (4 or more
+// stages); else it is waited for at its own tile's end.  AHEAD: the tiles
+// issued before the first is computed; tile it + AHEAD is issued after the
+// block barrier at the top of tile it.  The stage it refills was last read
+// by tile it + AHEAD - NST, whose products every warpgroup has waited for
+// before that barrier: in tile it + AHEAD - NST + 1 <= it - 1 (FLIGHT) or
+// in tile it + AHEAD - NST <= it - 1 itself.
+template <int NST>
+struct Ring {
+  static constexpr bool FLIGHT = NST >= 4;
+  static constexpr int AHEAD = FLIGHT ? NST - 2 : NST - 1;
+  static_assert(AHEAD >= 1, "a ring needs a tile in flight");
+};
 
 // The query-major pass with GB warpgroups a block (GB heads of one KV head,
 // the same 64 query rows): GB (q, dO) tile pairs, NST stages of a key
 // chunk's (K, V), GB x 64 f32 D.
-template <int HD, int GB>
+template <int HD, int DV, int GB>
 struct DqGeo {
-  static constexpr int T = BT * HD * 2;  // bytes of a 64-row bf16 tile
-  static constexpr int NST = 4;
-  static constexpr int STAGE = 2 * T;
-  static constexpr size_t bytes = static_cast<size_t>(GB) * 2 * T + static_cast<size_t>(NST) * STAGE + GB * BT * 4;
+  static constexpr int TQ = BT * HD * 2;  // bytes of a 64-row bf16 tile at q/k's width
+  static constexpr int TV = BT * DV * 2;  // at V's width
+  static constexpr int STAGE = TQ + TV;
+  static constexpr size_t FIXED = static_cast<size_t>(GB) * (TQ + TV) + GB * BT * 4;
+  static constexpr int NST = stages(FIXED, STAGE);
+  static constexpr size_t bytes = FIXED + static_cast<size_t>(NST) * STAGE;
+  static_assert(bytes <= SMEM_MAX, "the query-major tiles must fit shared memory");
 };
-// The key-major pass with KB warpgroups a block (KB tiles of 64 keys of one
-// KV head): KB (K, V) tile pairs, NST stages of a query tile's (q, dO) and
-// its rows' log-sum-exp, l and D (3 x 64 f32, in 1 KB).
-constexpr int KB = 2;
-template <int HD>
+// The key-major pass: KBT tiles of 64 keys of one KV head (their K and V),
+// NST stages of a query tile's (q, dO) and its rows' log-sum-exp, l and D
+// (3 x 64 f32, in 1 KB).  SPLIT (HD above 128): one key tile, its dV summed
+// by warpgroup 0 and its dK by warpgroup 1; else two key tiles, a
+// warpgroup each, each summing both.
+template <int HD, int DV>
 struct KvGeo {
-  static constexpr int T = BT * HD * 2;
-  static constexpr int NST = 4;
-  static constexpr int STAGE = 2 * T + 1024;
-  static constexpr size_t bytes = static_cast<size_t>(KB) * 2 * T + static_cast<size_t>(NST) * STAGE;
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int KBT = SPLIT ? 1 : 2;
+  static constexpr int TQ = BT * HD * 2;
+  static constexpr int TV = BT * DV * 2;
+  static constexpr int STAGE = TQ + TV + 1024;
+  static constexpr size_t FIXED = static_cast<size_t>(KBT) * (TQ + TV);
+  static constexpr int NST = stages(FIXED, STAGE);
+  static constexpr size_t bytes = FIXED + static_cast<size_t>(NST) * STAGE;
+  static_assert(bytes <= SMEM_MAX, "the key-major tiles must fit shared memory");
 };
 
 // Byte offset of element (row, k) in a K-major bf16 tile of `depth` k per
@@ -472,37 +594,50 @@ __device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [r0, r0 + 64) of a (B, S, heads, HD) bf16 tensor at head h -> a
+// the N registers of x from `off` on, as an array of its own
+template <int N, int M>
+__device__ __forceinline__ auto& part(float (&x)[M], int off) {
+  return *reinterpret_cast<float(*)[N]>(&x[off]);
+}
+
+// rows [r0, r0 + 64) of a (B, S, heads, W) bf16 tensor at head h -> a
 // K-major tile (zeros past S), by cp.async from all the block's threads: 8
 // neighbouring threads take 8 rows of one 16-byte column piece, one core
 // matrix
-template <int HD>
+template <int W>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const void* src, int b, int r0, int S, int heads, int h) {
-  constexpr int CH = HD / 8;  // 16-byte pieces a row
+  constexpr int CH = W / 8;  // 16-byte pieces a row
   const __nv_bfloat16* t =
-      static_cast<const __nv_bfloat16*>(src) + ((static_cast<size_t>(b) * S + r0) * heads + h) * HD;
-  const size_t stride = static_cast<size_t>(heads) * HD;
+      static_cast<const __nv_bfloat16*>(src) + ((static_cast<size_t>(b) * S + r0) * heads + h) * W;
+  const size_t stride = static_cast<size_t>(heads) * W;
   for (int i = threadIdx.x; i < BT * CH; i += blockDim.x) {
     const int row = 8 * (i / (8 * CH)) + (i & 7), d = 8 * ((i >> 3) % CH);
     const bool in = r0 + row < S;
-    cp_async16(dst + core_off(row, d, HD), in ? t + row * stride + d : src, in);
+    cp_async16(dst + core_off(row, d, W), in ? t + row * stride + d : src, in);
   }
 }
 
-// d (64 x 64) += A . B^T over HD: A's and B's 64 rows from K-major tiles
-template <int HD>
+// d (64 x 64) += A . B^T over D: A's and B's 64 rows from K-major tiles
+template <int D>
 __device__ __forceinline__ void ss_product(float (&d)[32], const uint8_t* at, const uint8_t* bt) {
 #pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) wgmma_ss64(d, desc_k(at + 256 * ks, HD), desc_k(bt + 256 * ks, HD));
+  for (int ks = 0; ks < D / 16; ++ks) wgmma_ss64(d, desc_k(at + 256 * ks, D), desc_k(bt + 256 * ks, D));
 }
 
-// d (64 x HD) += A (64 x 64, registers: 4 k-steps of 16) . B, B the K-major
-// tile `bt` (64 rows x HD) read MN-major: its rows are the product's k
-template <int HD>
-__device__ __forceinline__ void rs_product(float (&d)[HD / 2], const uint32_t (&a)[4][4], const uint8_t* bt) {
+// d (64 x N, its first N / 2 registers) += A (64 x 64, registers: 4 k-steps
+// of 16) . B, B the K-major tile `bt` (64 rows x N) read MN-major: its rows
+// are the product's k.  Past 128 columns, two products of N / 2 columns
+// each k-step (each column is its own sum: the same bits)
+template <int N, int M>
+__device__ __forceinline__ void rs_product(float (&d)[M], const uint32_t (&a)[4][4], const uint8_t* bt) {
+  static_assert(M >= N / 2, "the accumulator holds N columns");
+  constexpr int NC = N > 128 ? N / 2 : N;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    razer_tile::Wgmma<HD>::template mma<1>(d, a[kk], desc_mn(bt + kk * 2 * HD * 16, HD));
+#pragma unroll
+    for (int c = 0; c < N / NC; ++c)
+      razer_tile::Wgmma<NC>::template mma<1>(part<NC / 2>(d, c * NC / 2), a[kk],
+                                             desc_mn(bt + kk * 2 * N * 16 + c * NC * 16, N));
 }
 
 // the A fragments of a 64 x 64 accumulator rounded to bf16: [k-step][register],
@@ -534,9 +669,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // s[4 j + e] is row i0 + 8 (e >> 1) (16 w + lane / 4 of the tile), key c0 +
 // 8 j + 2 (lane % 4) + (e & 1).  All warpgroups walk the same key chunks,
 // staged once for all of them.
-template <int HD, int GB>
+template <int HD, int DV, int GB>
 __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel(const Args a) {
-  using Gm = DqGeo<HD, GB>;
+  using Gm = DqGeo<HD, DV, GB>;
+  using R = Ring<Gm::NST>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   // blocks run heads fastest, then query tiles from the last (the most keys): the heaviest first
@@ -544,24 +680,24 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
   const int h0 = kh * (a.H / a.KVH) + (blockIdx.x - kh * hblocks) * GB, h = h0 + wg;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * BT;
   const int b = blockIdx.z;
-  uint8_t* qt = smem + wg * 2 * Gm::T;  // this head's q rows, K-major
-  uint8_t* dot = qt + Gm::T;            // its dO rows
-  uint8_t* ring = smem + GB * 2 * Gm::T;  // NST stages of (K, V)
+  uint8_t* qt = smem + wg * (Gm::TQ + Gm::TV);  // this head's q rows, K-major
+  uint8_t* dot = qt + Gm::TQ;                    // its dO rows
+  uint8_t* ring = smem + GB * (Gm::TQ + Gm::TV);  // NST stages of (K, V)
   float* sD = reinterpret_cast<float*>(ring + Gm::NST * Gm::STAGE) + wg * BT;
   for (int w = 0; w < GB; ++w) {
-    load_tile<HD>(smem + w * 2 * Gm::T, a.q, b, r0, a.Sq, a.H, h0 + w);
-    load_tile<HD>(smem + w * 2 * Gm::T + Gm::T, a.dout, b, r0, a.Sq, a.H, h0 + w);
+    load_tile<HD>(smem + w * (Gm::TQ + Gm::TV), a.q, b, r0, a.Sq, a.H, h0 + w);
+    load_tile<DV>(smem + w * (Gm::TQ + Gm::TV) + Gm::TQ, a.dout, b, r0, a.Sq, a.H, h0 + w);
   }
   cp_async_commit();
   {  // D of row (tid % 128) / 2: each of two threads sums half its dims in order, then the pair adds
     const int row = (tid & 127) >> 1, i = r0 + row, half = tid & 1;
     float dsum = 0.0f;
     if (i < a.Sq) {
-      const size_t base = ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * HD + half * (HD / 2);
+      const size_t base = ((static_cast<size_t>(b) * a.Sq + i) * a.H + h) * DV + half * (DV / 2);
       const uint4* po = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.o) + base);
       const uint4* pd = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.dout) + base);
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c) {
+      for (int c = 0; c < DV / 16; ++c) {
         const uint4 ov = po[c], dv = pd[c];
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
         const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
@@ -589,7 +725,7 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
     if (it < n) {
       const int c0 = (c_first + it) * BT;
       load_tile<HD>(stage(it), a.k, b, c0, a.Skv, a.KVH, kh);
-      if (with_v) load_tile<HD>(stage(it) + Gm::T, a.v, b, c0, a.Skv, a.KVH, kh);
+      if (with_v) load_tile<DV>(stage(it) + Gm::TQ, a.v, b, c0, a.Skv, a.KVH, kh);
     }
     cp_async_commit();
   };
@@ -606,7 +742,9 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
     }
   };
 
-  // pass 1: each row's max m and sum l of exp2(s - m)
+  // pass 1: each row's max m and sum l of exp2(s - m); stage (it + NST - 1)
+  // % NST is refilled at the top of chunk it, after the barrier that ended
+  // chunk it - 1, its last reader
   float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
   for (int it = 0; it < Gm::NST - 1; ++it) issue(it, false);
   for (int it = 0; it < n; ++it) {
@@ -647,21 +785,19 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
   const float lse1 = l1 > 0.0f ? __fadd_rn(m1, log2f(l1)) : 0.0f;
   const float D0 = sD[16 * warp + gq], D1 = sD[16 * warp + gq + 8];
 
-  // pass 2: S, dP, dS = P (dP - D) and dQ += dS K
+  // pass 2: S, dP, dS = P (dP - D) and dQ += dS K, the ring walked as
+  // `Ring` says (dQ's product is the last of a chunk)
   float dq[HD / 2];
   zero(dq);
-  uint32_t ds[4][4] = {};  // dS's A fragments: read by a product in flight until the next chunk's wait
+  uint32_t ds[4][4] = {};  // dS's A fragments: read by dQ's product until it is waited for
   cp_async_wait<0>();
   __syncthreads();  // pass 1's stages are free
-  // dQ's product of chunk it is left in flight into chunk it + 1 and waited
-  // for there, so stage (it + 2) % NST, last read by chunk it - 2's dQ, is
-  // refilled only after chunk it's barrier: chunks it + 1 and it + 2 in flight
-  for (int it = 0; it < Gm::NST - 2; ++it) issue(it, true);
+  for (int it = 0; it < R::AHEAD; ++it) issue(it, true);
   for (int it = 0; it < n; ++it) {
-    cp_async_wait<Gm::NST - 3>();  // chunk it has landed
+    cp_async_wait<R::AHEAD - 1>();  // chunk it has landed
     fence_proxy_async();
-    __syncthreads();  // everyone's copies of chunk it have landed; every warpgroup has waited for chunk it - 2's dQ
-    issue(it + Gm::NST - 2, true);
+    __syncthreads();  // everyone's copies of chunk it have landed; every warpgroup is done with the stage refilled next
+    issue(it + R::AHEAD, true);
     const uint8_t* kt = stage(it);
     float s[32], dp[32];
     zero(s);
@@ -671,7 +807,7 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
     wgmma_fence();
     ss_product<HD>(s, qt, kt);
     wgmma_commit();
-    ss_product<HD>(dp, dot, kt + Gm::T);  // in flight while P is computed
+    ss_product<DV>(dp, dot, kt + Gm::TQ);  // in flight while P is computed
     wgmma_commit();
     wgmma_wait<1>();  // S, and the last chunk's dQ
     fence_operands(s);
@@ -686,8 +822,13 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
     a_fragments(ds, s);
     fence_operands(dq);
     wgmma_fence();
-    rs_product<HD>(dq, ds, kt);  // in flight into the next chunk
+    rs_product<HD>(dq, ds, kt);
     wgmma_commit();
+    if constexpr (!R::FLIGHT) {  // waited for here: its stage is refilled after the next barrier
+      wgmma_wait<0>();
+      fence_operands(dq);
+      fence_operands(ds);
+    }
   }
   wgmma_wait<0>();
   fence_operands(dq);
@@ -712,29 +853,35 @@ __global__ void __launch_bounds__(WG * GB, 1) prefill_attention_bwd_tc_dq_kernel
   }
 }
 
-// Key-major, KB warpgroups a block: warpgroup w takes keys jt = j0 + 64 w
-// .. jt + 63.  s[4 j + e] (S^T) is key jr0 + 8 (e >> 1) (16 w + lane / 4 of
-// the tile), query c0 + 8 j + 2 (lane % 4) + (e & 1).  All warpgroups walk
-// the query tiles of the block's keys, staged once for all of them; each
-// skips the tiles where none of its pairs is kept.
-template <int HD>
-__global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kernel(const Args a) {
-  using Gm = KvGeo<HD>;
+// Key-major, two warpgroups a block.  Without SPLIT warpgroup w takes keys
+// jt = j0 + 64 w .. jt + 63 and sums their dV and dK; with SPLIT both take
+// the block's 64 keys, warpgroup 0 summing dV (S^T, P, dV) and 1 dK (S^T,
+// dP^T, P, dS, dK).  s[4 j + e] (S^T) is key jr0 + 8 (e >> 1) (16 w + lane
+// / 4 of the tile), query c0 + 8 j + 2 (lane % 4) + (e & 1).  All
+// warpgroups walk the query tiles of the block's keys, staged once for all
+// of them; each skips the tiles where none of its pairs is kept.
+template <int HD, int DV>
+__global__ void __launch_bounds__(WG * 2, 1) prefill_attention_bwd_tc_dkdv_kernel(const Args a) {
+  using Gm = KvGeo<HD, DV>;
+  using R = Ring<Gm::NST>;
+  constexpr bool SPLIT = Gm::SPLIT;
   extern __shared__ __align__(1024) uint8_t smem[];
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const bool sums_dv = !SPLIT || wg == 0, sums_dk = !SPLIT || wg == 1;
   // blocks run KV heads fastest, then key tiles from the first (the most queries): the heaviest first
-  const int j0 = blockIdx.y * BT * KB, kh = blockIdx.x, b = blockIdx.z, g = a.H / a.KVH;
-  const int jt = j0 + wg * BT, jl = min(jt + BT, a.Skv) - 1;  // this warpgroup's keys (none where jl < jt)
-  uint8_t* kt = smem + wg * 2 * Gm::T;  // its K rows, K-major
-  uint8_t* vt = kt + Gm::T;             // its V rows
-  uint8_t* ring = smem + KB * 2 * Gm::T;  // NST stages of (q, dO, lse, l, D)
-  for (int w = 0; w < KB; ++w) {
-    load_tile<HD>(smem + w * 2 * Gm::T, a.k, b, j0 + w * BT, a.Skv, a.KVH, kh);
-    load_tile<HD>(smem + w * 2 * Gm::T + Gm::T, a.v, b, j0 + w * BT, a.Skv, a.KVH, kh);
+  const int j0 = blockIdx.y * BT * Gm::KBT, kh = blockIdx.x, b = blockIdx.z, g = a.H / a.KVH;
+  const int kw = SPLIT ? 0 : wg;                          // this warpgroup's key tile
+  const int jt = j0 + kw * BT, jl = min(jt + BT, a.Skv) - 1;  // its keys (none where jl < jt)
+  uint8_t* kt = smem + kw * (Gm::TQ + Gm::TV);  // its K rows, K-major
+  uint8_t* vt = kt + Gm::TQ;                    // its V rows
+  uint8_t* ring = smem + Gm::KBT * (Gm::TQ + Gm::TV);  // NST stages of (q, dO, lse, l, D)
+  for (int w = 0; w < Gm::KBT; ++w) {
+    load_tile<HD>(smem + w * (Gm::TQ + Gm::TV), a.k, b, j0 + w * BT, a.Skv, a.KVH, kh);
+    load_tile<DV>(smem + w * (Gm::TQ + Gm::TV) + Gm::TQ, a.v, b, j0 + w * BT, a.Skv, a.KVH, kh);
   }
   cp_async_commit();
   // the query tiles whose rows keep any key of the block, for each of the g heads in order
-  const int last_j = min(j0 + KB * BT, a.Skv) - 1;
+  const int last_j = min(j0 + Gm::KBT * BT, a.Skv) - 1;
   const int i_begin = a.causal ? max(0, j0 - a.q_offset) : 0;
   const int i_end = a.window ? min(a.Sq, last_j + a.window - a.q_offset) : a.Sq;
   const int t_first = i_begin / BT, nt = i_end > i_begin ? (i_end + BT - 1) / BT - t_first : 0, n = g * nt;
@@ -747,8 +894,8 @@ __global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kern
       const int h = kh * g + it / nt, c0 = (t_first + it % nt) * BT;
       uint8_t* st = stage(it);
       load_tile<HD>(st, a.q, b, c0, a.Sq, a.H, h);
-      load_tile<HD>(st + Gm::T, a.dout, b, c0, a.Sq, a.H, h);
-      float* stats = reinterpret_cast<float*>(st + 2 * Gm::T);
+      load_tile<DV>(st + Gm::TQ, a.dout, b, c0, a.Sq, a.H, h);
+      float* stats = reinterpret_cast<float*>(st + Gm::TQ + Gm::TV);
       for (int e = tid; e < 3 * BT; e += blockDim.x) {
         const int which = e / BT, i = c0 + e % BT;
         const bool in = i < a.Sq;
@@ -763,19 +910,19 @@ __global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kern
     return jt <= jl && (!a.causal || jt <= a.q_offset + il) && (!a.window || jl > a.q_offset + c0 - a.window);
   };
 
-  float dk[HD / 2], dv[HD / 2];
-  zero(dk);
-  zero(dv);
-  uint32_t pf[4][4] = {}, df[4][4] = {};  // P's and dS's A fragments, read by products in flight until the next wait
-  // dV's and dK's products of tile it are left in flight into tile it + 1
-  // and waited for there, so stage (it + 2) % NST, last read by tile it - 2's,
-  // is refilled only after tile it's barrier: tiles it + 1 and it + 2 in flight
-  for (int it = 0; it < Gm::NST - 2; ++it) issue(it);
+  float acc[SPLIT ? HD / 2 : HD / 2 + DV / 2];  // dK, then dV; with SPLIT this warpgroup's one sum
+  auto& dk = part<HD / 2>(acc, 0);
+  auto& dv = part<DV / 2>(acc, SPLIT ? 0 : HD / 2);
+  zero(acc);
+  uint32_t frags[SPLIT ? 1 : 2][4][4] = {};  // P's and dS's A fragments, read by products in flight until the next wait
+  auto& pf = frags[0];
+  auto& df = frags[SPLIT ? 0 : 1];
+  for (int it = 0; it < R::AHEAD; ++it) issue(it);
   for (int it = 0; it < n; ++it) {
-    cp_async_wait<Gm::NST - 3>();  // tile it has landed
+    cp_async_wait<R::AHEAD - 1>();  // tile it has landed
     fence_proxy_async();
-    __syncthreads();  // everyone's copies of tile it have landed; every warpgroup has waited for tile it - 2's products
-    issue(it + Gm::NST - 2);
+    __syncthreads();  // everyone's copies of tile it have landed; every warpgroup is done with the stage refilled next
+    issue(it + R::AHEAD);
     const int c0 = (t_first + it % nt) * BT;
     if (!any_kept(c0)) {
       wgmma_wait<0>();  // the last tile's readers of its stage
@@ -784,19 +931,25 @@ __global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kern
       continue;
     }
     const uint8_t* qs = stage(it);
-    const uint8_t* dos = qs + Gm::T;
-    const float* stats = reinterpret_cast<const float*>(qs + 2 * Gm::T);  // lse, l, D of the tile's 64 rows
+    const uint8_t* dos = qs + Gm::TQ;
+    const float* stats = reinterpret_cast<const float*>(dos + Gm::TV);  // lse, l, D of the tile's 64 rows
     float s[32], dp[32];
     zero(s);
-    zero(dp);
     fence_operands(s);
-    fence_operands(dp);
+    if (sums_dk) {
+      zero(dp);
+      fence_operands(dp);
+    }
     wgmma_fence();
     ss_product<HD>(s, kt, qs);  // S^T = K q^T
     wgmma_commit();
-    ss_product<HD>(dp, vt, dos);  // dP^T = V dO^T, in flight while P is computed
-    wgmma_commit();
-    wgmma_wait<1>();  // S^T, and the last tile's dV and dK
+    if (sums_dk) {
+      ss_product<DV>(dp, vt, dos);  // dP^T = V dO^T, in flight while P is computed
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T, and the last tile's dV and dK
+    } else {
+      wgmma_wait<0>();  // S^T, and the last tile's dV
+    }
     fence_operands(s);
     fence_operands(pf);
     fence_operands(df);
@@ -808,25 +961,37 @@ __global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kern
       s[x] = whole || kept(a, c0 + col, (x & 2) ? jr1 : jr0) ? exp2f(__fsub_rn(__fmul_rn(s[x], sc), stats[col]))
                                                              : 0.0f;
     }
-    a_fragments(pf, s);
-    fence_operands(dv);
-    wgmma_fence();
-    rs_product<HD>(dv, pf, dos);  // dV += P^T dO, in flight while dS is computed
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_operands(dp);
+    if (sums_dv) {
+      a_fragments(pf, s);
+      fence_operands(dv);
+      wgmma_fence();
+      rs_product<DV>(dv, pf, dos);  // dV += P^T dO, in flight while dS is computed
+      wgmma_commit();
+    }
+    if (sums_dk) {
+      if (sums_dv)
+        wgmma_wait<1>();  // dP^T
+      else
+        wgmma_wait<0>();
+      fence_operands(dp);
 #pragma unroll
-    for (int x = 0; x < 32; ++x)
-      dp[x] = __fmul_rn(s[x], __fsub_rn(dp[x], stats[2 * BT + 8 * (x >> 2) + 2 * tq + (x & 1)]));
-    a_fragments(df, dp);
-    fence_operands(dk);
-    wgmma_fence();
-    rs_product<HD>(dk, df, qs);  // dK += dS^T q, in flight into the next tile
-    wgmma_commit();
+      for (int x = 0; x < 32; ++x)
+        dp[x] = __fmul_rn(s[x], __fsub_rn(dp[x], stats[2 * BT + 8 * (x >> 2) + 2 * tq + (x & 1)]));
+      a_fragments(df, dp);
+      fence_operands(dk);
+      wgmma_fence();
+      rs_product<HD>(dk, df, qs);  // dK += dS^T q
+      wgmma_commit();
+    }
+    if constexpr (!R::FLIGHT) {  // waited for here: its stage is refilled after the next barrier
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(pf);
+      fence_operands(df);
+    }
   }
   wgmma_wait<0>();
-  fence_operands(dv);
-  fence_operands(dk);
+  fence_operands(acc);
   fence_operands(pf);
   fence_operands(df);
 
@@ -836,49 +1001,60 @@ __global__ void __launch_bounds__(WG * KB, 1) prefill_attention_bwd_tc_dkdv_kern
   for (int half = 0; half < 2; ++half) {
     const int j = half ? jr1 : jr0;
     if (j >= a.Skv) continue;
-    const size_t base = ((static_cast<size_t>(b) * a.Skv + j) * a.KVH + kh) * HD + 2 * tq;
+    const size_t row = (static_cast<size_t>(b) * a.Skv + j) * a.KVH + kh;
+    if (sums_dk) {
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(gk + base + 8 * c) = __floats2bfloat162_rn(
-          __fmul_rn(dk[4 * c + 2 * half], a.scale), __fmul_rn(dk[4 * c + 2 * half + 1], a.scale));
-      *reinterpret_cast<__nv_bfloat162*>(gv + base + 8 * c) =
-          __floats2bfloat162_rn(dv[4 * c + 2 * half], dv[4 * c + 2 * half + 1]);
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(gk + row * HD + 2 * tq + 8 * c) = __floats2bfloat162_rn(
+            __fmul_rn(dk[4 * c + 2 * half], a.scale), __fmul_rn(dk[4 * c + 2 * half + 1], a.scale));
+    }
+    if (sums_dv) {
+#pragma unroll
+      for (int c = 0; c < DV / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(gv + row * DV + 2 * tq + 8 * c) =
+            __floats2bfloat162_rn(dv[4 * c + 2 * half], dv[4 * c + 2 * half + 1]);
     }
   }
 }
 
-template <int HD, int GB>
+template <int HD, int DV, int GB>
 int launch(const Args& a, cudaStream_t stream) {
-  using Dq = DqGeo<HD, GB>;
-  using Kv = KvGeo<HD>;
+  using Dq = DqGeo<HD, DV, GB>;
+  using Kv = KvGeo<HD, DV>;
   static unsigned configured = 0;  // devices whose shared-memory limits are raised, as a bit set
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 32 && !(configured & (1u << dev))) {
-    e = cudaFuncSetAttribute(prefill_attention_bwd_tc_dq_kernel<HD, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(Dq::bytes));
+    e = cudaFuncSetAttribute(prefill_attention_bwd_tc_dq_kernel<HD, DV, GB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Dq::bytes));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(prefill_attention_bwd_tc_dkdv_kernel<HD>,
+      e = cudaFuncSetAttribute(prefill_attention_bwd_tc_dkdv_kernel<HD, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(Kv::bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured |= 1u << dev;
   }
-  const dim3 gq(a.H / GB, (a.Sq + BT - 1) / BT, a.B), gk(a.KVH, (a.Skv + BT * KB - 1) / (BT * KB), a.B);
-  prefill_attention_bwd_tc_dq_kernel<HD, GB><<<gq, WG * GB, Dq::bytes, stream>>>(a);
+  const dim3 gq(a.H / GB, (a.Sq + BT - 1) / BT, a.B), gk(a.KVH, (a.Skv + BT * Kv::KBT - 1) / (BT * Kv::KBT), a.B);
+  prefill_attention_bwd_tc_dq_kernel<HD, DV, GB><<<gq, WG * GB, Dq::bytes, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  prefill_attention_bwd_tc_dkdv_kernel<HD><<<gk, WG * KB, Kv::bytes, stream>>>(a);
+  prefill_attention_bwd_tc_dkdv_kernel<HD, DV><<<gk, WG * 2, Kv::bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Heads a query-major block, GB: the largest divisor of G up to 3 (K9's
-// forward takes the same).  It moves no bit: each warpgroup walks its own
-// rows' tiles in the same order whatever shares its block.
-template <int HD>
+// forward takes the same), 1 above HD 128, where two heads' tiles and a
+// ring do not fit shared memory.  It moves no bit: each warpgroup walks its
+// own rows' tiles in the same order whatever shares its block.
+template <int HD, int DV>
 int launch(const Args& a, cudaStream_t stream) {
   const int G = a.H / a.KVH;
-  return G % 3 == 0 ? launch<HD, 3>(a, stream) : G % 2 == 0 ? launch<HD, 2>(a, stream) : launch<HD, 1>(a, stream);
+  if constexpr (HD > 128) {
+    return launch<HD, DV, 1>(a, stream);
+  } else {
+    return G % 3 == 0 ? launch<HD, DV, 3>(a, stream)
+                      : G % 2 == 0 ? launch<HD, DV, 2>(a, stream) : launch<HD, DV, 1>(a, stream);
+  }
 }
 
 }  // namespace tc
@@ -886,23 +1062,27 @@ int launch(const Args& a, cudaStream_t stream) {
 // the tensor-core body for bf16 q, k and v; else the f32 body
 inline bool tensor_core_body(int q_bf16, int k_bf16, int v_bf16) { return q_bf16 && k_bf16 && v_bf16; }
 
-template <int HD>
+template <int HD, int DV>
 int launch(const Args& a, cudaStream_t stream) {
-  return tensor_core_body(a.q_bf16, a.k_bf16, a.v_bf16) ? tc::launch<HD>(a, stream) : f32::launch<HD>(a, stream);
+  return tensor_core_body(a.q_bf16, a.k_bf16, a.v_bf16) ? tc::launch<HD, DV>(a, stream)
+                                                        : f32::launch<HD, DV>(a, stream);
 }
 
 }  // namespace
 
-// q, o, dout, dq (B, Sq, H, hd); k, v, dk, dv (B, Skv, KVH, hd); all
-// contiguous, bf16 or f32 (o, dout and dq in q's dtype; dk in k's, dv in
-// v's; bf16 q, k and v run the tensor-core body, which reads q, k, v, o
-// and dout in 16-byte pieces: 16-byte aligned); ws (3, B, H, Sq) f32.
-// Returns cudaErrorInvalidValue on arguments it does not take, else
-// cudaGetLastError() after the two launches.
+// q, dq (B, Sq, H, hd); o, dout (B, Sq, H, dv); k, dk (B, Skv, KVH, hd); v,
+// dv (B, Skv, KVH, dv); (hd, dv) one of (16, 16), (32, 32), (64, 64), (128,
+// 128), (192, 128), (256, 256); all contiguous, bf16 or f32 (o, dout and dq
+// in q's dtype; dk in k's, dv in v's; bf16 q, k and v run the tensor-core
+// body, which reads q, k, v, o and dout in 16-byte pieces: 16-byte
+// aligned); ws (3, B, H, Sq) f32.  Returns cudaErrorInvalidValue on
+// arguments it does not take, else cudaGetLastError() after the two
+// launches.
 extern "C" int prefill_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                             const void* dout, void* dq, void* dk, void* dv, void* ws, int q_bf16,
                                             int k_bf16, int v_bf16, int B, int Sq, int Skv, int H, int KVH, int hd,
-                                            int q_offset, int causal, int window, float scale, void* stream) {
+                                            int dv_width, int q_offset, int causal, int window, float scale,
+                                            void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH || q_offset < 0 || window < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addresses = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -913,11 +1093,14 @@ extern "C" int prefill_attention_bwd_launch(const void* q, const void* k, const 
   const Args a{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(ws), q_bf16, k_bf16, v_bf16,
                B, Sq, Skv, H, KVH, q_offset, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 192 && dv_width == 128) return launch<192, 128>(a, s);
+  if (dv_width != hd) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch<16>(a, s);
-    case 32: return launch<32>(a, s);
-    case 64: return launch<64>(a, s);
-    case 128: return launch<128>(a, s);
+    case 16: return launch<16, 16>(a, s);
+    case 32: return launch<32, 32>(a, s);
+    case 64: return launch<64, 64>(a, s);
+    case 128: return launch<128, 128>(a, s);
+    case 256: return launch<256, 256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -267,8 +267,9 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 class _PrefillAttention(torch.autograd.Function):
-    """K9 forward, K9's backward kernel backward; the kernel takes the
-    trained widths only, checked before the forward runs."""
+    """K9 forward, K9's backward kernel backward, at every width the forward
+    takes (MLA's hd 192 with V at 128 and hd 256 among them); the widths
+    are checked before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):

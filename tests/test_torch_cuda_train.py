@@ -1,8 +1,10 @@
 """Training on a card: the backward kernels of K9 (prefill attention) and K10
-(RMSNorm) against autograd through their plain versions, the routing of
+(RMSNorm) against autograd through their plain versions, K9's at MLA's
+(192, 128) and RecurrentGemma's (256, 256) widths too, the routing of
 ``kernels.ops`` (a forward that wants a gradient runs the kernel and its
-backward kernel; K2 refuses a gradient), and a reduced train step on the
-card against the same step on the CPU.
+backward kernel; K2 refuses a gradient), and reduced train steps (llama,
+MLA at its real head widths, RecurrentGemma at head width 256) on the card
+against the same steps on the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file imports
 no JAX:
@@ -45,11 +47,14 @@ def _close(got, want, dtype, what=""):
     return err / max(scale, 1e-30)
 
 
-def _attention_inputs(dev, b, sq, skv, h, kvh, hd, dtype, seed=0):
+def _attention_inputs(dev, b, sq, skv, h, kvh, hd, dtype, seed=0, dv=None):
+    """q, k (B, S, heads, hd); v and dout at V's width ``dv`` (hd)."""
+    dv = dv or hd
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dtype)
-    k, v = (torch.randn((b, skv, kvh, hd), generator=g, device=dev).to(dtype) for _ in range(2))
-    dout = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, skv, kvh, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, skv, kvh, dv), generator=g, device=dev).to(dtype)
+    dout = torch.randn((b, sq, h, dv), generator=g, device=dev).to(dtype)
     return q, k, v, dout
 
 
@@ -92,11 +97,54 @@ def test_attention_bwd_masks(cuda_device, dtype, case):
     assert all(torch.equal(a, c) for a, c in zip(got, again)), "the backward's bits do not repeat"
 
 
+# MLA's widths (q/k 192, V 128) and RecurrentGemma's (256, its window, G
+# up to 10): id -> (mask, (B, Sq, Skv, H, KVH, hd, dv))
+WIDE_CASES = {
+    "mla_causal": (dict(), (1, 150, 150, 4, 4, 192, 128)),
+    "mla_noncausal_g2": (dict(causal=False), (2, 100, 100, 4, 2, 192, 128)),
+    "mla_window": (dict(window=40), (1, 130, 130, 3, 3, 192, 128)),
+    "mla_window_q_offset": (dict(window=50, q_offset=60), (1, 100, 164, 2, 2, 192, 128)),
+    "hd256_causal": (dict(), (1, 150, 150, 5, 1, 256, 256)),
+    "hd256_window": (dict(window=24), (2, 110, 110, 10, 1, 256, 256)),
+    "hd256_window_q_offset": (dict(window=100, q_offset=60), (1, 150, 230, 4, 2, 256, 256)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_attention_bwd_wide_heads(cuda_device, dtype, case):
+    mask, (b, sq, skv, h, kvh, hd, dv) = WIDE_CASES[case]
+    q, k, v, dout = _attention_inputs(cuda_device, b, sq, skv, h, kvh, hd, dtype, seed=3, dv=dv)
+    o = prefill_attention_cuda(q, k, v, **mask)
+    got = pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, pab.plain(q, k, v, dout, **mask)):
+        assert gt.dtype == wt.dtype == dtype and gt.shape == wt.shape, name
+        _close(gt, wt, dtype, name)
+    again = pab.prefill_attention_bwd_cuda(q, k, v, o, dout, **mask)
+    assert all(torch.equal(a, c) for a, c in zip(got, again)), "the backward's bits do not repeat"
+
+
 @pytest.mark.cuda
 def test_attention_bwd_refuses_other_widths(cuda_device):
-    q, k, v, _ = _attention_inputs(cuda_device, 1, 8, 8, 2, 1, 256, torch.bfloat16)
+    q, k, v, _ = _attention_inputs(cuda_device, 1, 8, 8, 2, 1, 48, torch.bfloat16)
     with pytest.raises(ValueError, match="head widths"):
         ops.prefill_attention(q.requires_grad_(True), k, v)
+
+
+@pytest.mark.cuda
+def test_ops_train_the_wide_heads_through_the_kernels(cuda_device):
+    """With a gradient wanted, ops.prefill_attention runs K9 and its
+    backward kernel at MLA's (192, 128) and at (256, 256) with a window."""
+    for hd, dv, h, kvh, mask in ((192, 128, 4, 4, {}), (256, 256, 10, 1, dict(window=24))):
+        q, k, v, dout = _attention_inputs(cuda_device, 1, 70, 70, h, kvh, hd, torch.bfloat16, seed=4, dv=dv)
+        n = (prefill_attention_cuda.launches, pab.prefill_attention_bwd_cuda.launches)
+        q.requires_grad_(True)
+        out = ops.prefill_attention(q, k, v, **mask)
+        assert out.shape == (1, 70, h, dv)
+        (out.float() * dout.float()).sum().backward()
+        assert (prefill_attention_cuda.launches - n[0], pab.prefill_attention_bwd_cuda.launches - n[1]) == (1, 1)
+        _close(q.grad, pab.plain(q.detach(), k, v, dout, **mask)[0], torch.bfloat16, f"dq at hd {hd}")
 
 
 @pytest.mark.cuda
@@ -196,6 +244,7 @@ def test_bf16_step_gradients_kernel_backward_equal_plain_backward(cuda_device, m
 
 
 def _train(cfg, device, params, steps, lr):
+    """``steps`` train steps of 2 x 64 tokens of the synthetic data."""
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.trainstep import make_train_step
@@ -212,22 +261,55 @@ def _train(cfg, device, params, steps, lr):
 
 @pytest.mark.cuda
 def test_reduced_train_steps_card_equal_cpu(cuda_device):
-    """Reduced llama3_2_3b in f32, 3 steps from the same init: losses within
-    1e-5 relative; parameters within 4 x the summed learning rate (an element
-    whose gradient is near 0 can flip its Adam update's sign, about 2 lr a
-    step), and all but 0.1 % of them within 1e-6."""
+    """Reduced llama3_2_3b in f32, 3 steps from the same init (``_card_equal_cpu``)."""
     from repro_torch.configs import get_config
+
+    _card_equal_cpu(get_config("llama3_2_3b").reduced(), cuda_device)
+
+
+def _card_equal_cpu(cfg, cuda_device):
+    """``cfg`` in f32, 3 steps from the same init on the card and the CPU:
+    losses within 1e-5 relative; parameters within 4 x the summed learning
+    rate (an element whose gradient is near 0 can flip its Adam update's
+    sign, about 2 lr a step), and all but 0.1 % of them within 1e-6; the
+    card's steps ran K9's backward."""
     from repro_torch.models.transformer import init_params
     from repro_torch.train.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config("llama3_2_3b").reduced(), compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
     cpu = init_params(cfg, seed=0, device="cpu")
     card = tree_map(lambda t: t.to(cuda_device), cpu)
     lr, steps = 1e-4, 3
-    cpu, cpu_losses = _train(cfg, torch.device("cpu"), cpu, steps, lr)
+    n = pab.prefill_attention_bwd_cuda.launches
     card, card_losses = _train(cfg, cuda_device, card, steps, lr)
+    assert pab.prefill_attention_bwd_cuda.launches > n, "the card's steps ran no K9 backward"
+    cpu, cpu_losses = _train(cfg, torch.device("cpu"), cpu, steps, lr)
     for a, c in zip(card_losses, cpu_losses):
         assert abs(a - c) <= 1e-5 * abs(c), (card_losses, cpu_losses)
     diffs = torch.cat([(a.cpu() - c).abs().flatten() for a, c in zip(tree_leaves(card), tree_leaves(cpu))])
     assert float(diffs.max()) <= 4 * steps * lr
     assert float((diffs > 1e-6).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_narrow_mla_train_steps_card_equal_cpu(cuda_device):
+    """Reduced deepseek_v2_236b at MLA's real head widths (nope 128, rope
+    64, V 128: K9 and its backward at (192, 128)) and its query's low-rank
+    path, in f32, 3 steps card against CPU (``_card_equal_cpu``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("deepseek_v2_236b").reduced(), qk_nope_dim=128, qk_rope_dim=64,
+                              v_head_dim=128, q_lora_rank=32)
+    _card_equal_cpu(cfg, cuda_device)
+
+
+@pytest.mark.cuda
+def test_narrow_recurrentgemma_train_steps_card_equal_cpu(cuda_device):
+    """Reduced recurrentgemma_2b (r, r, a) at head width 256 with a window
+    of 24 (K9 and its backward at (256, 256), the window cutting 64-token
+    rows), the RG-LRU scan and conv through autograd, in f32, 3 steps card
+    against CPU (``_card_equal_cpu``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b").reduced(), head_dim=256, window=24)
+    _card_equal_cpu(cfg, cuda_device)

@@ -5,10 +5,11 @@ one checkout on one card.
 
 Runs ``chip_smoke.py``'s phase-3 backward checks (``_check_attention_bwd``
 at llama3_2_3b's heads, bf16: causal B 1 x 4096 and B 4 x 512, a window of
-1024 at q_offset 512, no causal mask; ``_check_rms_norm_bwd`` at d 3072, M 4
-and 4096) against the ``repro_torch`` package under ``--src`` (default:
-this checkout's ``src``), so that two checkouts can be timed in turns in one
-call on one card (parent, change, change, parent).  Every check of those
+1024 at q_offset 512, no causal mask; then at MLA's and RecurrentGemma's
+wide heads; ``_check_rms_norm_bwd`` at d 3072, M 4 and 4096) against the
+``repro_torch`` package under ``--src`` (default: this checkout's ``src``),
+so that two checkouts can be timed in turns in one call on one card
+(parent, change, change, parent).  Every check of those
 functions runs too: the gradients against autograd through the plain
 versions within 2^-6 of max |want| and a repeat's bits equal.  Prints one
 JSON line per run: each case's errors, CUDA-event time, device time by
