@@ -56,16 +56,18 @@ Phases, each printing one line (and failing the run with a traceback):
                 N), Mamba's in_proj N 4384 (a ragged last column block)
                 among them, at M 4, 128 and 4096; K10 at d 2560, 2048
                 (Mamba's gated norm) and 1024;
-  4. e2e     -- full-width llama3_2_3b (random weights, packed on the card)
+  4. e2e     -- full-width llama3_2_3b (random weights, packed on the card;
+                cut to 4 of its 28 layers, LLAMA_CUT_LAYERS, as 4b, 4c,
+                4e, 4f and 6: the room went to phase 12 (f))
                 through Engine.generate under the packed W4 + RaZeR-KV policy
                 and the W4A4 + KV policy, with each kernel's launch count
                 checked against the path's expected count, and a
                 torch.profiler breakdown of one generate; one W4A4 decode
-                forward launches no K2 and 196 K1 that quantize x in
+                forward launches no K2 and 7 K1 a layer that quantize x in
                 their load;
   4b. paged  -- teacher-forced decode over the paged pool against the
                 contiguous cache on the same bytes: logits bit-identical;
-  4c. serve  -- full-width Engine.serve (continuous batching, prefix cache
+  4c. serve  -- full-width Engine.serve at 4 layers (continuous batching, prefix cache
                 on, 8 requests over 4 slots) under both policies, vanilla and
                 with speculate_k=2 and a bf16 draft, with exact launch counts,
                 tokens/s, TTFT, decode ms per step, the pool and cache stats,
@@ -76,13 +78,13 @@ Phases, each printing one line (and failing the run with a traceback):
                 serve_disagg on 2 prefill + 2 decode replicas on the one
                 card, at chunk_tokens 64 and 16, and phase 4e's 8 long
                 requests (W4 + KV) at chunk_tokens 512, llama3_2_3b at full
-                width cut to 7 of its 28 layers (LLAMA_CUT_LAYERS, the
+                width cut to 4 of its 28 layers (LLAMA_CUT_LAYERS, the
                 script's time limit): outputs == the same engine's
                 single-engine serve's, the transfer ratio 0.28125 and each
                 shipment's bytes == its pages', asserted; per-stage
                 tokens/s, TTFT, the makespan and one shipment's device ->
                 host -> device ms (run right after 4c and 4e);
-  4e. long   -- the llama W4 + KV engine cut to 7 layers (as 4f) at
+  4e. long   -- the llama W4 + KV engine cut to 4 layers (as 4f) at
                 max_len 4096: generate of 4
                 prompts of 1024-3968 random tokens and serve of 8 such
                 requests over 4 slots, 32 new tokens each, exact launch
@@ -108,8 +110,8 @@ Phases, each printing one line (and failing the run with a traceback):
   5. parity  -- the reduced llama3_2_3b and dbrx_132b on the card (kernels)
                 against the CPU (plain versions) from the same weights;
   6. mesh    -- serving on a torch.distributed mesh: (a) a world of one rank
-                over NCCL, Engine(mesh=(1, 1)), equal to the meshless engine
-                bit for bit; (b) full-width llama3_2_3b cut to 7 of its 28
+                over NCCL, Engine(mesh=(1, 1)) on phase 4's 4-layer weights,
+                equal to the meshless engine bit for bit; (b) full-width llama3_2_3b cut to 4 of its 28
                 layers (as 4f) on the (1, 2) mesh,
                 two ranks sharing the card over gloo (NCCL takes one rank
                 per card), through generate, vanilla serve under both
@@ -123,8 +125,8 @@ Phases, each printing one line (and failing the run with a traceback):
                 at the no-drop n_experts / topk (logits asserted);
   7. paper   -- the paper's dense models at full width, random weights
                 with the qkv biases and qk-norm gains drawn nonzero:
-                llama3_1_8b cut to 16 of its 32 layers (LLAMA8B_W4_LAYERS:
-                the room went to phase 12 (d) and (e)) through generate and
+                llama3_1_8b cut to 8 of its 32 layers (LLAMA8B_W4_LAYERS:
+                the room went to phase 12 (d), (e) and (f)) through generate and
                 serve under W4 + KV, vanilla, and speculate_k=2 with a bf16
                 draft, and under W4A4 + KV vanilla on its first 4 layers
                 (LLAMA8B_W4A4_LAYERS: the room went to phases 11 and 12; its W4A4
@@ -135,7 +137,7 @@ Phases, each printing one line (and failing the run with a traceback):
                 through generate and vanilla serve; exact launch counts,
                 serve == generate (and speculative == vanilla) asserted for
                 every request, times, idle share and peak memory;
-  8. obs     -- observability on llama3_1_8b at full width, 16 layers (run
+  8. obs     -- observability on llama3_1_8b at full width, 8 layers (run
                 inside phase 7, on its engines): (a) Engine.quant_audit of
                 the W4 + KV engine on the card (schema valid, the layers and
                 quantized parameters the config gives, drift exactly 0), one
@@ -257,7 +259,21 @@ with the f32 gain).
                 layers at hd 256, the RG-LRU scan and conv through
                 autograd), exact launches a step; (e) each narrow at its
                 real head widths in f32, 3 steps card against CPU, held as
-                (b).
+                (b); (f) training on a mesh: (a') llama3_2_3b at full width
+                cut to 7 of 28 layers (MESH_TRAIN_LAYERS), 2 bf16 steps and
+                1 weight-QAT step through bind_train_step on a (1, 1) mesh,
+                a world of one rank over NCCL, bit for bit the meshless
+                steps, exact launches; (b') cut to 2 layers in f32, on the
+                (1, 2) and then the (2, 1) mesh, two ranks sharing the card
+                over gloo: 2 bf16, 1 weight-QAT and 1 W4A4-QAT steps, every
+                rank's loss and gradient norm the same bits, each within
+                the step bounds of (b) against rank 0's meshless run, the
+                gathered parameters too (the W4A4 step within
+                MESH_TRAIN_W4A4_RTOL and MESH_TRAIN_W4A4_SHARE, set from
+                tools/mesh_w4a4_flips.py), each rank's parameter and moment
+                bytes those of the reference's shards, exact launches,
+                per-rank peak memory, step seconds and collectives (gloo
+                on one card: no measure of NCCL).
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2322,6 +2338,21 @@ def _dbrx_full_width(dev, detail):
           f"{no_drop.capacity_factor}), cut num_layers 40 -> 2: " + json.dumps(control))
 
 
+def _llama_phase4(cfg, engines, detail, pack_s):
+    """Phases 4, 4b and 4c on llama3_2_3b's engines (``cfg``: the full
+    width at the depth the script runs, ``LLAMA_CUT_LAYERS``):
+    generate with exact launch counts and a profile, paged vs contiguous
+    decode, the W4A4 decode forward's launches, then serve."""
+    e2e = _full_width(cfg, engines, detail, pack_s)
+    print(f"e2e llama3_2_3b full width, {cfg.num_layers} layers: " + json.dumps(e2e))
+    paged = _paged_vs_contiguous(cfg, engines["w4_kv"], detail)
+    print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
+    print("W4A4 decode forward, llama3_2_3b full width, launches: "
+          + json.dumps(_decode_forward_counts(cfg, engines["w4a4_kv"], detail)))
+    serve = _serve_full_width(cfg, engines, detail)
+    print(f"serve llama3_2_3b full width, {cfg.num_layers} layers: " + json.dumps(serve))
+
+
 # ---------------------------------------------------------------------------
 # phase 4f: disaggregated serving
 # ---------------------------------------------------------------------------
@@ -2330,8 +2361,12 @@ DISAGG_FLEET = dict(n_prefill=2, n_decode=2, max_slots=4, page_size=16)
 # phases 4e, 4f and 6b run llama3_2_3b at full width cut to this many of its
 # 28 layers, from the same seed-0 weights: at full depth the script took
 # 1212 s of its 1200 s limit on a slow host once phase 8 was added (PR 20);
-# the three are host-bound and scale with depth
-LLAMA_CUT_LAYERS = 7
+# the three are host-bound and scale with depth.  Phases 4, 4b, 4c and 6a
+# run at this depth too, their room given to phase 12 (f), and 7 -> 4 paid
+# for phase 9's weight SV sweeps and GPTQ: on an NVIDIA H100 80GB HBM3 at
+# 700 W phases 4, 4b and 4c took 205.0 s at 28 layers, 50.0 s at 7 and
+# 21.2 s at 4 (tools/phase_depth_cost.py --part llama4)
+LLAMA_CUT_LAYERS = 4
 
 
 def _llama_cut_cfg():
@@ -2485,14 +2520,14 @@ def _disagg_long(cfg, eng, detail, long_context, chunk_tokens=512, n_new=32):
 # ---------------------------------------------------------------------------
 PAPER_CUT = ("llama2_7b", "qwen3_8b", "qwen3_32b", "codeqwen1_5_7b", "deepseek_coder_33b")
 # llama3_1_8b's W4 + KV generate and serve, and phases 8 and 9 on its
-# engines, run its first 16 of 32 layers: the room went to phase 12 (d)
-# and (e), phase 3's wide backward rows and their nvcc build
-# (tools/phase_depth_cost.py --part w4); its W4A4 + KV ones
+# engines, run its first 8 of 32 layers: the room went to phase 12 (d)
+# and (e), phase 3's wide backward rows and their nvcc build (32 -> 16),
+# and to phase 12 (f) (16 -> 8; tools/phase_depth_cost.py --part w4); its W4A4 + KV ones
 # run the first 4 (the room went to phase 11 (32 ->
 # 16) and to phase 12 and phase 3's backward checks (16 -> 4,
 # tools/phase_depth_cost.py --depths 16 4)); phase 7's clock keeps what
 # each part takes
-LLAMA8B_W4_LAYERS = 16
+LLAMA8B_W4_LAYERS = 8
 LLAMA8B_W4A4_LAYERS = 4
 
 
@@ -3667,8 +3702,9 @@ def _rank_dbrx(mesh_of):
 
 
 def _rank_entry(rank, world, init, out_dir, kind):
-    """One spawned rank of phase 6: joins the gloo group, runs its part on
-    cuda:0 (shared with the other rank) and pickles what it measured."""
+    """One spawned rank of phase 6 (or of phase 12 (f), ``kind`` "train"):
+    joins the gloo group, runs its part on cuda:0 (shared with the other
+    rank) and pickles what it measured."""
     import pickle
     import traceback
 
@@ -3684,8 +3720,11 @@ def _rank_entry(rank, world, init, out_dir, kind):
             return make_serving_mesh(ep=ep, tp=tp, backend="gloo", device="cuda", init_method=f"file://{init}",
                                      rank=rank, world_size=world)
 
-        with torch.no_grad():
-            result = _rank_llama(mesh_of(1, 2)) if kind == "llama" else _rank_dbrx(mesh_of)
+        if kind == "train":
+            result = _rank_train(rank, world, init)
+        else:
+            with torch.no_grad():
+                result = _rank_llama(mesh_of(1, 2)) if kind == "llama" else _rank_dbrx(mesh_of)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(result, f)
         dist.barrier()
@@ -3721,7 +3760,7 @@ def _spawn_ranks(kind, world: int = 2):
     errs = [open(os.path.join(out_dir, f"rank{r}.err")).read() for r in range(world)
             if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
     if alive or errs or any(p.exitcode != 0 for p in procs):
-        raise RuntimeError(f"phase 6 {kind}: ranks {'timed out' if alive else 'failed'} "
+        raise RuntimeError(f"phase 6 / 12 (f) {kind}: ranks {'timed out' if alive else 'failed'} "
                            f"(exit codes {[p.exitcode for p in procs]})\n" + "\n".join(errs))
     results = []
     for r in range(world):
@@ -4345,11 +4384,272 @@ def _train_launcher_and_restart(dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 12 (f): training on a mesh
+# ---------------------------------------------------------------------------
+MESH_TRAIN_LAYERS = 7  # (a): llama3_2_3b's first 7 of 28 layers, on one NCCL rank
+MESH_TRAIN_RANK_LAYERS = 2  # (b): its first 2, on two ranks sharing the card
+MESH_TRAIN_RANK_TOKENS = (2, 1024)  # (b)'s global batch: 2 rows, so the (2, 1) mesh splits it
+# (b)'s W4A4 step against the meshless one.  The mesh sums in another
+# order, and a K2 block whose absmax sits on a boundary of the E4M3 scale
+# grid, or one of whose elements sits on a boundary of the FP4 grid, moves
+# a whole quantization step (ROADMAP C.1), which the next layers carry into
+# more blocks.  tools/mesh_w4a4_flips.py on an NVIDIA H100 80GB HBM3 at
+# 700 W: pinning the 3.4-6.9 k blocks of the step's 6.8-10.7 M a rank whose
+# output differs (0.3-0.7 k of them by their scale) brings the loss within
+# 4.6e-7 and the gradient norm within 8.7e-6 of the meshless step;
+# unpinned, on this batch and three more on both meshes, the loss reads
+# 1.8-5.9e-4 and the gradient norm 5.5e-4-3.5e-3 apart (relative), and
+# 0.196-0.233 % of the parameters lie beyond 1e-6 of the meshless run's
+# after the step.  The bounds are 2.5x, 2x and 2.1x the largest reading;
+# the largest parameter difference keeps the other steps' bound.
+MESH_TRAIN_W4A4_RTOL = (1.5e-3, 7e-3)  # (loss, gradient norm), relative
+MESH_TRAIN_W4A4_SHARE = 5e-3  # of the parameters beyond 1e-6 after the W4A4 step
+
+
+def _mesh_train_policies(w4a4: bool):
+    from repro_torch.core.policy import QuantPolicy
+
+    pols = [("bf16", QuantPolicy.bf16(), 2), ("qat_w4", QuantPolicy.fakequant(ste=True), 1)]
+    if w4a4:
+        pols.append(("qat_w4a4", QuantPolicy.fakequant(act_format="razer", ste=True), 1))
+    return pols
+
+
+def _mesh_train_run(cfg, mesh, params, opt, batches, w4a4, dev, counted=True, first=0):
+    """The steps ``first`` ... ``len(batches) - 1`` of the policies of
+    ``_mesh_train_policies`` in turn (one batch a step), one AdamW state
+    (``opt``, a new one if None) whose schedule runs over all of
+    ``batches``: meshless (``mesh`` None) or through ``bind_train_step``;
+    each step's loss, gradient norm, seconds (host clock to a synchronize)
+    and launches (``counted``: exact, as ``_train_want`` says)."""
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.trainstep import bind_train_step, make_train_step
+
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=sum(n for *_, n in _mesh_train_policies(True)))
+    opt = init_opt_state(params) if opt is None else opt
+    rows, i = [], 0
+    for name, policy, n in _mesh_train_policies(w4a4):
+        step = (make_train_step(cfg, None, ocfg, policy) if mesh is None else
+                bind_train_step(cfg, mesh, None, ocfg, policy)[0])
+        for _ in range(n):
+            i += 1
+            if i <= first:
+                continue
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in batches[i - 1].items()}
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            row = {"policy": name, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "loss_bits": np.float32(m["loss"].cpu()).tobytes().hex(),
+                   "grad_norm_bits": np.float32(m["grad_norm"].cpu()).tobytes().hex(),
+                   "step_s": time.perf_counter() - t0}
+            if counted:
+                counts, train_counts = _read_counts(), {n_: getattr(f, a) for n_, (f, a) in _train_counters().items()}
+                want, train_want = _train_want(cfg, policy)
+                assert counts == want and train_counts == train_want, (name, counts, want, train_counts, train_want)
+                row["launches"] = {**counts, **train_counts}
+            rows.append(row)
+    return params, opt, rows
+
+
+def _train_world1_nccl(dev, detail):
+    """12 (f) (a): llama3_2_3b at full width cut to ``MESH_TRAIN_LAYERS``,
+    1 x 4096 tokens a step, bf16 compute: 2 bf16 steps and 1 weight-QAT
+    step meshless, then the same through ``bind_train_step`` on a (1, 1)
+    mesh, a world of one rank over NCCL: every loss and gradient norm, and
+    every parameter and moment at the end, bit for bit; exact launches a
+    step on both."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.sharding import local_tree
+    from repro_torch.train.trainstep import bind_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    full = get_config("llama3_2_3b")
+    cfg = dataclasses.replace(full, num_layers=MESH_TRAIN_LAYERS)
+    init = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_train_nccl_"), "pg_init")
+    mesh = make_test_mesh((1, 1), backend="nccl", device="cuda", init_method=f"file://{init}", rank=0, world_size=1)
+    b, s = TRAIN_TOKENS
+    batches = _train_batches(cfg, 3, b, s)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)
+    ref, ref_opt, ref_rows = _mesh_train_run(cfg, None, tree_map(torch.clone, params), None, batches, False, dev)
+    for r in ref_rows:
+        _main_path_counts(r["launches"])
+    p_shard = bind_train_step(cfg, mesh, None)[1]
+    local = local_tree(params, p_shard, mesh)
+    del params
+    got, got_opt, rows = _mesh_train_run(cfg, mesh, local, None, batches, False, dev)
+    for r in rows:
+        _main_path_counts(r["launches"])
+    identical = all(torch.equal(x, y) for x, y in zip(tree_leaves((got, got_opt)), tree_leaves((ref, ref_opt))))
+    dist.destroy_process_group()
+    out = {"backend": "nccl", "mesh": [1, 1], "cut": {"num_layers": [full.num_layers, cfg.num_layers]},
+           "batch_seq": [b, s], "params_and_moments_bit_identical": identical, "steps": rows,
+           "meshless_steps": ref_rows, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("train on a mesh, (a) world of one over NCCL, llama3_2_3b full width cut to "
+          f"{MESH_TRAIN_LAYERS} layers, against meshless: " + json.dumps(out), flush=True)
+    for a, r in zip(rows, ref_rows):
+        assert (a["loss_bits"], a["grad_norm_bits"]) == (r["loss_bits"], r["grad_norm_bits"]), (a, r)
+    assert identical, "the (1, 1) mesh's parameters or moments differ from the meshless step's"
+    del got, got_opt, ref, ref_opt, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expected_shard_elems(cfg, data, model):
+    """Each rank's parameter elements on a (data, model) mesh, from the
+    reference's rules restated (``parallel/sharding.py::_PARAM_RULES``):
+    the embedding (vocab on model, d on data), every linear (d_in on data,
+    d_out on model), norms whole; an axis that does not divide a dim
+    leaves it whole."""
+    def split(n, k):
+        return n // k if n % k == 0 else n
+
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    linears = [(d, q), (d, kv), (d, kv), (q, d), (d, f), (d, f), (f, d)]
+    layer = 2 * d + sum(split(i, data) * split(o, model) for i, o in linears)
+    return split(cfg.vocab_size, model) * split(d, data) + d + cfg.num_layers * layer
+
+
+def _rank_train(rank, world, init, device: str = "cuda"):
+    """Rank side of 12 (f) (b): llama3_2_3b at full width cut to
+    ``MESH_TRAIN_RANK_LAYERS`` in f32 compute on the (1, 2) mesh, then the
+    (2, 1) mesh, over gloo on the shared card: 2 bf16 steps, 1 weight-QAT
+    step and 1 W4A4-QAT step from the seed-0 weights, each rank holding its
+    shards; exact launches a step; the local parameter and moment bytes;
+    the parameters gathered whole against rank 0's meshless run of the same
+    steps (held there); peak memory, step seconds, collectives."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import local_tree
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.trainstep import bind_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    full = get_config("llama3_2_3b")
+    cfg = dataclasses.replace(full, num_layers=MESH_TRAIN_RANK_LAYERS, compute_dtype="float32")
+    b, s = MESH_TRAIN_RANK_TOKENS
+    batches = _train_batches(cfg, 4, b, s)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    out, ref = {}, None
+    for layout in ((1, 2), (2, 1)):
+        mesh = make_test_mesh(layout, backend="gloo", device=device, init_method=f"file://{init}", rank=rank,
+                              world_size=world)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        whole = init_params(cfg, seed=0, device=dev)
+        if rank == 0 and ref is None:  # the meshless run, its parameters before and after the W4A4 step
+            p, o, rows = _mesh_train_run(cfg, None, tree_map(torch.clone, whole), None, batches[:3], False, dev,
+                                         counted=False)
+            before = tree_map(lambda t: t.to("cpu", copy=True), p)
+            p, _, last = _mesh_train_run(cfg, None, p, o, batches, True, dev, counted=False, first=3)
+            ref = (before, tree_map(lambda t: t.to("cpu", copy=True), p), rows + last)
+            del p, o
+        p_shard = bind_train_step(cfg, mesh, None)[1]
+        params = local_tree(whole, p_shard, mesh)
+        del whole
+        opt = init_opt_state(params)
+        nbytes = {"params": sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+                  "m": sum(t.numel() * t.element_size() for t in tree_leaves(opt.m)),
+                  "v": sum(t.numel() * t.element_size() for t in tree_leaves(opt.v))}
+        want = 4 * _expected_shard_elems(cfg, *layout)
+        assert nbytes == {"params": want, "m": want, "v": want}, (layout, nbytes, want)
+        collectives.stats.update(calls=0, seconds=0.0)
+        params, opt, rows = _mesh_train_run(cfg, mesh, params, opt, batches[:3], False, dev)
+        res = {"param_diff": {}}
+        res["param_diff"]["before_w4a4"] = _gathered_diff(params, p_shard, mesh, ref and ref[0])
+        params, opt, last = _mesh_train_run(cfg, mesh, params, opt, batches, True, dev, first=3)
+        res["param_diff"]["after_w4a4"] = _gathered_diff(params, p_shard, mesh, ref and ref[1])
+        res.update(rows=rows + last, local_bytes=nbytes, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   collectives=dict(collectives.stats), meshless_rows=ref and ref[2])
+        out[layout] = res
+        del params, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gathered_diff(params, p_shard, mesh, want):
+    """|the mesh's parameters gathered whole - ``want``| (rank 0 holds
+    ``want``, the meshless run's, on the host): the largest, and the share
+    above 1e-6; None on the other ranks."""
+    from repro_torch.bridge import gather_tree
+    from repro_torch.train.tree import tree_leaves
+
+    whole = gather_tree(params, p_shard, mesh)
+    if want is None:
+        return None
+    diffs = torch.cat([(a.cpu() - c).abs().flatten() for a, c in zip(tree_leaves(whole), tree_leaves(want))])
+    return {"max_abs": float(diffs.max()), "share_beyond_1e-6": float((diffs > 1e-6).float().mean())}
+
+
+def _train_two_ranks(detail):
+    """12 (f) (b), the parent's side, printed before it asserts: every
+    rank's loss and gradient norm the same bits; each within the step
+    bounds of the meshless run (losses 1e-5 relative, gradient norms 1e-4;
+    the W4A4 step within ``MESH_TRAIN_W4A4_RTOL``); the parameters gathered
+    after the third step within 4 x the summed learning rate and all but
+    0.1 % within 1e-6, after the W4A4 step within 4 x the summed learning
+    rate and all but ``MESH_TRAIN_W4A4_SHARE`` within 1e-6; each rank's
+    launches added to the kernels line's totals."""
+    ranks = _spawn_ranks("train")
+    out = {"backend": "gloo, both ranks on cuda:0; collectives staged through host memory (their times are no "
+                      "measure of NCCL)", "cut": {"num_layers": [28, MESH_TRAIN_RANK_LAYERS]},
+           "batch_seq": list(MESH_TRAIN_RANK_TOKENS), "compute_dtype": "float32"}
+    for layout in ((1, 2), (2, 1)):
+        res = [r[layout] for r in ranks]
+        out[f"mesh_{layout[0]}x{layout[1]}"] = {
+            "steps": res[0]["rows"], "meshless_steps": res[0]["meshless_rows"], "param_diff": res[0]["param_diff"],
+            "per_rank_local_bytes": [r["local_bytes"] for r in res],
+            "per_rank_peak_memory_gb": [r["peak_memory_gb"] for r in res],
+            "per_rank_step_s": [[x["step_s"] for x in r["rows"]] for r in res],
+            "per_rank_collectives": [r["collectives"] for r in res]}
+    print(f"train on a mesh, (b) llama3_2_3b full width cut to {MESH_TRAIN_RANK_LAYERS} layers, f32, on (1, 2) "
+          "and (2, 1), two ranks sharing one card over gloo: " + json.dumps(out), flush=True)
+    for layout in ((1, 2), (2, 1)):
+        res = [r[layout] for r in ranks]
+        for r in res:
+            assert [(x["loss_bits"], x["grad_norm_bits"]) for x in r["rows"]] == \
+                [(x["loss_bits"], x["grad_norm_bits"]) for x in res[0]["rows"]], f"{layout}: ranks disagree"
+            for x in r["rows"]:
+                _main_path_counts(x["launches"])
+        for x, w in zip(res[0]["rows"], res[0]["meshless_rows"]):
+            rtol = MESH_TRAIN_W4A4_RTOL if x["policy"] == "qat_w4a4" else (1e-5, 1e-4)
+            assert abs(x["loss"] - w["loss"]) <= rtol[0] * abs(w["loss"]), (layout, x, w)
+            assert abs(x["grad_norm"] - w["grad_norm"]) <= rtol[1] * w["grad_norm"], (layout, x, w)
+        before, after = res[0]["param_diff"]["before_w4a4"], res[0]["param_diff"]["after_w4a4"]
+        assert before["max_abs"] <= 4 * 3 * TRAIN_LR and before["share_beyond_1e-6"] <= 1e-3, (layout, before)
+        assert after["max_abs"] <= 4 * 4 * TRAIN_LR and after["share_beyond_1e-6"] <= MESH_TRAIN_W4A4_SHARE, \
+            (layout, after)
+    return out
+
+
+def _train_mesh(dev, detail):
+    """Phase 12 (f): training on a mesh, (a) then (b); each prints its line
+    before it asserts."""
+    out = {"world1_nccl": _train_world1_nccl(dev, detail)}
+    out["two_ranks"] = _train_two_ranks(detail)
+    detail["train_mesh"] = out
+    return out
+
+
 def _training(dev, detail):
     """Phase 12: (a) full-width training steps, (b) narrow card vs CPU, (c)
     the launchers and a restart from a checkpoint, (d) MLA and
     RecurrentGemma at their published widths, (e) both narrow card vs
-    CPU."""
+    CPU, (f) training on a mesh."""
     out = {"full_width": _train_full_width(dev, detail)}
     out["card_vs_cpu"] = _train_card_vs_cpu(dev)
     print("train card vs cpu (reduced llama3_2_3b, f32, 3 steps): " + json.dumps(out["card_vs_cpu"]), flush=True)
@@ -4364,7 +4664,10 @@ def _training(dev, detail):
     detail["phase_s"]["12 (e) narrow card vs cpu (inside 12)"] = time.perf_counter() - t0
     print("train card vs cpu (narrow deepseek_v2_236b at hd 192 / V 128, recurrentgemma_2b at hd 256, f32, 3 "
           "steps): " + json.dumps(out["wide_card_vs_cpu"]), flush=True)
-    detail["training"] = {k: v for k, v in out.items() if k not in ("full_width", "wide")}
+    t0 = time.perf_counter()
+    out["mesh"] = _train_mesh(dev, detail)
+    detail["phase_s"]["12 (f) training on a mesh (inside 12)"] = time.perf_counter() - t0
+    detail["training"] = {k: v for k, v in out.items() if k not in ("full_width", "wide", "mesh")}
     return out
 
 
@@ -4457,18 +4760,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("3 kernels at the recurrent archs' shapes")
 
-    engines, pack_s = _engines(cfg, dev)
-    e2e = _full_width(cfg, engines, detail, pack_s)
-    print("e2e llama3_2_3b full width: " + json.dumps(e2e))
-    paged = _paged_vs_contiguous(cfg, engines["w4_kv"], detail)
-    print("paged vs contiguous decode (full width, teacher-forced): " + json.dumps(paged))
-    print("W4A4 decode forward, llama3_2_3b full width, launches: "
-          + json.dumps(_decode_forward_counts(cfg, engines["w4a4_kv"], detail)))
-    serve = _serve_full_width(cfg, engines, detail)
-    print("serve llama3_2_3b full width: " + json.dumps(serve))
-    mark("4, 4b, 4c llama3_2_3b generate, paged, serve")
     cut_cfg = _llama_cut_cfg()
-    cut_engines, _ = _engines(cut_cfg, dev)
+    cut_engines, pack_s = _engines(cut_cfg, dev)
+    _llama_phase4(cut_cfg, cut_engines, detail, pack_s)
+    mark("4, 4b, 4c llama3_2_3b generate, paged, serve")
     print(f"disaggregated serve llama3_2_3b full width cut to {cut_cfg.num_layers} layers, 2 prefill + 2 decode "
           "replicas: " + json.dumps(_disagg(cut_cfg, cut_engines, detail)))
     mark("4f disagg")
@@ -4486,11 +4781,10 @@ def main() -> int:
           + json.dumps(_disagg_long(cut_cfg, eng, detail, detail["long_context"])))
     eng.scfg = short_cfg
     mesh_refs = _meshless_llama_refs(cut_cfg, cut_engines, dev)
-    del eng, cut_engines  # the mesh ranks share the card
     mark("4f disagg, long requests")
-    print("parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width: "
-          + json.dumps(_world1_nccl(cfg, engines, detail)))
-    del engines
+    print(f"parallel, world 1 over NCCL, mesh (1, 1), llama3_2_3b full width cut to {cut_cfg.num_layers} layers: "
+          + json.dumps(_world1_nccl(cut_cfg, cut_engines, detail)))
+    del eng, cut_engines  # the mesh ranks share the card
     torch.cuda.empty_cache()
     print(f"parallel, llama3_2_3b full width cut to {cut_cfg.num_layers} layers on the (1, 2) mesh, two ranks on "
           "one card over gloo: " + json.dumps(_parallel_llama(cut_cfg, detail, mesh_refs)))

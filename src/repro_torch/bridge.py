@@ -2,7 +2,9 @@
 
 The port never imports JAX: a caller that holds a JAX parameter tree first
 turns it into nested dicts of numpy arrays (``jax.tree_util.tree_map(
-np.asarray, tree)``) and hands that to ``params_from_numpy``.
+np.asarray, tree)``) and hands that to ``params_from_numpy``, or, on a
+train mesh, to ``shards_from_numpy`` for this rank's shards; ``gather_tree``
+turns a rank's shards back into whole leaves.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import torch
 from repro_torch.core.packing import PackedRazerWeight, PackedStackedTensor
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "packed_from_numpy", "packed_stacked_from_numpy"]
+__all__ = ["params_from_numpy", "shards_from_numpy", "gather_tree", "packed_from_numpy",
+           "packed_stacked_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -51,6 +54,45 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         else:
             out[key] = conv(sub)
     return out
+
+
+def shards_from_numpy(tree: Dict[str, Any], mesh, device=None, placement=None) -> Dict[str, Any]:
+    """The JAX package's parameter tree -> this rank's shards of the port's
+    tree on a train mesh (``placement``: by default the rules'
+    ``param_sharding_tree`` of the whole tree), on the mesh's device."""
+    from repro_torch.parallel.sharding import local_tree, param_sharding_tree
+    from repro_torch.train.tree import tree_map
+
+    whole = params_from_numpy(tree, device="cpu")
+    placement = placement if placement is not None else param_sharding_tree(whole, mesh)
+    dev = resolve_device(device if device is not None else mesh.device)
+    return tree_map(lambda t: t.to(dev), local_tree(whole, placement, mesh))
+
+
+@torch.no_grad()
+def gather_tree(tree, placement, mesh):
+    """A rank's tree of shards (dicts, lists, NamedTuples; ``placement``
+    the matching tree of ``Placement``) -> whole leaves on every rank,
+    gathered leaf by leaf over the axes that split them."""
+    from repro_torch.parallel.collectives import gather_dim
+
+    def leaf(t, place):
+        for d in range(t.ndim):
+            ax = place.axis(d)
+            if ax is not None:
+                t = gather_dim(t, d, mesh.group(ax))
+        return t
+
+    def walk(t, place):
+        if isinstance(t, dict):
+            return {k: walk(v, place[k]) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v, p) for v, p in zip(t, place)))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, p) for v, p in zip(t, place))
+        return leaf(t, place)
+
+    return walk(tree, placement)
 
 
 def _first_leaf(t):

@@ -22,7 +22,8 @@ from . import registry
 from .policy import QuantPolicy, TensorSpec, as_policy
 from .razer import ACT_SPECIAL_VALUES, WEIGHT_SPECIAL_VALUES
 
-__all__ = ["QuantConfig", "QuantizedLinear", "qdq_weight", "qdq_activation", "qdq_spec", "qlinear", "is_kshard"]
+__all__ = ["QuantConfig", "QuantizedLinear", "FakeQuantWeight", "qdq_weight", "qdq_activation", "qdq_spec",
+           "qlinear", "is_kshard"]
 
 
 @dataclass(frozen=True)
@@ -73,6 +74,15 @@ class QuantizedLinear:
         if spec.quantizes and spec.mode == "packed":
             return QuantizedLinear(w=spec.pack(w.to(torch.float32)), b=b)
         return QuantizedLinear(w=w, b=b)
+
+
+@dataclass
+class FakeQuantWeight:
+    """A slice of a dense weight fake-quantized whole under the policy's
+    weight spec: ``qlinear`` multiplies by it as it is (and fake-quantizes
+    x under W4A4, as for any fake-quantized weight)."""
+
+    w: torch.Tensor
 
 
 def qdq_weight(w: torch.Tensor, cfg) -> torch.Tensor:
@@ -162,7 +172,11 @@ def qlinear(x: torch.Tensor, w, policy: QuantPolicy, b: Optional[torch.Tensor] =
             y = entry.matmul_kernel(x, w, act=policy.act)
     else:
         spec = policy.weight
-        if spec.quantizes and spec.mode == "fakequant":
+        if isinstance(w, FakeQuantWeight):
+            w = w.w
+            if policy.act is not None:
+                x = qdq_activation(x, policy)
+        elif spec.quantizes and spec.mode == "fakequant":
             w = spec.qdq(w, axis=0)
             if policy.act is not None:
                 x = qdq_activation(x, policy)

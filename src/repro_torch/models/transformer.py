@@ -24,18 +24,32 @@ latent ``{"c", "kr"}`` for MLA, the recurrent ``{"h", "conv"}`` state for
 Training runs ``forward_hidden`` (each layer checkpointed by
 ``REMAT_POLICY``) and ``lm_loss``; on the card the kernels on that path
 (K9, K10) have backward kernels (``kernels.ops``).
+
+Inside ``sharding_ctx`` of a train mesh ``lm_loss`` runs a dense GQA stack
+under FSDP x tensor parallelism (``_lm_loss_mesh``): each rank holds its
+shards of every leaf (``parallel.sharding.param_sharding_tree``), takes its
+batch rows (``input_sharding``), keeps the residual stream and the norms on
+its S/tp sequence rows, gathers them for attention on its H/tp query and
+KVH/tp KV heads and for the MLP on its d_ff/tp columns, and scatters the
+row-parallel partial sums of ``wo`` and ``down`` back to its rows
+(Megatron's sequence parallelism; ``shard_activation`` at the points the
+reference constrains "resid"); the cross-entropy tail is the meshless one
+(``_xent``) with its two sums taken over the mesh.
 """
 from __future__ import annotations
 
 import contextvars
+import dataclasses
+import functools
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.policy import BF16, QuantPolicy
-from repro_torch.core.qlinear import qlinear
+from repro_torch.core.qlinear import FakeQuantWeight, qlinear
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import get_ctx
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -45,7 +59,8 @@ from .layers import (dense_init, embed, embedding_init, gelu_mlp, gelu_mlp_init,
                      unembed)
 
 __all__ = ["layer_groups", "init_params", "init_caches", "encode", "forward_hidden", "forward_train", "lm_loss",
-           "prefill", "prefill_paged_suffix", "decode_step", "decode_verify", "AUX_COEF", "REMAT_POLICY"]
+           "prefill", "prefill_paged_suffix", "decode_step", "decode_verify", "AUX_COEF", "REMAT_POLICY",
+           "check_train_mesh", "train_placement"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 AUX_COEF = 0.01  # weight of the MoE load-balance loss in lm_loss
@@ -276,6 +291,18 @@ def _dots_saved():
     return create_selective_checkpoint_contexts(policy)
 
 
+def _remat():
+    """-> run(layer, x): ``layer(x)`` checkpointed as ``REMAT_POLICY`` says
+    (torch's non-reentrant ``checkpoint``; "none" runs it plainly)."""
+    policy = REMAT_POLICY.get()
+    if policy not in ("full", "dots", "none"):
+        raise ValueError(f"REMAT_POLICY must be full, dots or none, got {policy!r}")
+    if policy == "none":
+        return lambda layer, x: layer(x)
+    kw = {"context_fn": _dots_saved} if policy == "dots" else {}
+    return lambda layer, x: torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False, **kw)
+
+
 def _embed_inputs(params, tokens: torch.Tensor, cfg: ArchConfig, frontend_embeds: Optional[torch.Tensor]):
     """The token embeddings in the compute dtype, the leading rows and
     positions replaced by ``frontend_embeds`` (B', P, d) (the vision stub)."""
@@ -303,19 +330,13 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: ArchConfig, quant: QuantPo
             raise ValueError(f"{cfg.name} is an encoder-decoder: the forward needs enc_frames (B, S_enc, d_model)")
         enc = encode(params, enc_frames.to(dev), cfg, quant)
         x = x + _sinusoid(s, cfg.d_model, dev).to(x.dtype)
-    policy = REMAT_POLICY.get()
-    if policy not in ("full", "dots", "none"):
-        raise ValueError(f"REMAT_POLICY must be full, dots or none, got {policy!r}")
+    remat = _remat()
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for ltype, lp in _layers(params, cfg):
         def layer(x, _lt=ltype, _lp=lp):
             return _layer_fwd(x, _lp, cfg, _lt, quant, positions, positions3, enc)
 
-        if policy == "none":
-            x, aux = layer(x)
-        else:
-            kw = {"context_fn": _dots_saved} if policy == "dots" else {}
-            x, aux = torch.utils.checkpoint.checkpoint(layer, x, use_reentrant=False, **kw)
+        x, aux = remat(layer, x)
         aux_total = aux_total + aux
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
@@ -333,17 +354,198 @@ def lm_loss(params, batch, cfg: ArchConfig, quant: QuantPolicy = BF16):
     The reference's memory-lean cross-entropy: loss = logsumexp(logits) -
     <x, head[label]>; the logits (B, S, V) in the compute dtype feed an f32
     logsumexp, and the label logit comes from a gather of head rows, (B,
-    S, d), never a second vocab-wide buffer."""
+    S, d), never a second vocab-wide buffer.  Inside ``sharding_ctx`` of a
+    train mesh ``params`` are this rank's shards, ``batch`` the global
+    batch, and the loss the mesh's (``_lm_loss_mesh``)."""
+    mesh = get_ctx()
+    if mesh is not None:
+        return _lm_loss_mesh(params, batch, cfg, quant, mesh)
     x, aux = forward_hidden(params, batch["tokens"], cfg, quant, positions3=batch.get("positions3"),
                             frontend_embeds=batch.get("frontend_embeds"), enc_frames=batch.get("enc_frames"))
-    labels = batch["labels"].long()
-    head = _head(params).to(x.dtype)
+    loss = _xent(x, _head(params), batch["labels"], batch.get("mask"))
+    return loss + AUX_COEF * aux, {"xent": loss, "aux": aux}
+
+
+def _xent(x, head, labels, mask, total=lambda t: t):
+    """The masked mean of logsumexp(x @ head.T) - <x, head[label]> over
+    x's rows: the sum of the losses and the sum of the mask each through
+    ``total`` (the identity meshless; on a mesh the sum over every batch
+    and sequence shard, the reference's global normalizer)."""
+    head = head.to(x.dtype)
     logits = x @ head.T
     lse = torch.logsumexp(logits.to(torch.float32), dim=-1)  # (B, S)
-    ll = torch.einsum("bsd,bsd->bs", x.to(torch.float32), head[labels].to(torch.float32))
-    mask = batch.get("mask")
+    ll = torch.einsum("bsd,bsd->bs", x.to(torch.float32), head[labels.long()].to(torch.float32))
     mask = torch.ones_like(lse) if mask is None else mask.to(torch.float32)
-    loss = torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return total(torch.sum((lse - ll) * mask)) / torch.clamp(total(torch.sum(mask)), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: a dense GQA stack under FSDP x TP with sequence
+# parallelism
+# ---------------------------------------------------------------------------
+_COLUMNS = ("wq", "wk", "wv", "gate", "up")  # d_out over the model axis: this rank's heads, FFN columns
+_ROWS = ("wo", "down")  # d_in over the model axis: the row-parallel half, partial sums
+_COLUMN_BIASES = ("bq", "bk", "bv")
+
+
+def check_train_mesh(cfg: ArchConfig, mesh, quant: QuantPolicy = BF16) -> None:
+    """Raise a ValueError naming the cause unless the port can train
+    ``cfg`` under ``quant`` on ``mesh``: a dense GQA decoder with a SwiGLU
+    MLP (MoE, MLA, the recurrent archs and the frontends train meshless);
+    query heads, KV heads and d_ff each split evenly over the model axis;
+    under W4A4 each rank's slice of ``wo``'s and ``down``'s input (H/tp x
+    hd, d_ff/tp) a whole number of the activation quantizer's blocks,
+    which run along that dim."""
+    types = {t for t, _ in layer_groups(cfg)}
+    if types != {"a"} or cfg.mla or cfg.moe or cfg.mrope or cfg.encoder_decoder or cfg.act_fn == "gelu":
+        raise ValueError(f"the port trains dense GQA decoders with a SwiGLU MLP on a mesh, not {cfg.name} "
+                         f"(layer types {sorted(types)}, mla={cfg.mla}, moe={cfg.moe}): mesh training of MoE, MLA, "
+                         f"the recurrent archs and the frontends is not ported; train it meshless (mesh=None)")
+    tp = mesh.tp
+    for what, n in (("query heads", cfg.num_heads), ("KV heads", cfg.num_kv_heads), ("FFN columns (d_ff)", cfg.d_ff)):
+        if n % tp:
+            raise ValueError(f"cannot split the {n} {what} of {cfg.name} over the model axis of size {tp}: each "
+                             f"rank runs an equal share of them -- choose a model axis that divides {n}")
+    if quant.weight.mode == "packed":
+        raise ValueError("training takes dense or fake-quantized weights, not packed ones")
+    if quant.act is not None and quant.weight.quantizes:
+        block = quant.act.effective_block_size
+        for what, n in (("wo's input (query heads/tp x hd)", cfg.num_heads // tp * cfg.hd),
+                        ("down's input (d_ff/tp)", cfg.d_ff // tp)):
+            if n % block:
+                raise ValueError(f"cannot split {what} = {n} into whole {block}-element blocks of the W4A4 "
+                                 f"activation quantizer on a model axis of size {tp}: its blocks run along that "
+                                 f"dim, so each rank's slice must hold whole blocks -- choose a model axis that "
+                                 f"keeps {n} a multiple of {block}")
+
+
+@functools.lru_cache(maxsize=16)
+def _placement(cfg: ArchConfig, axes: Tuple[Tuple[str, int], ...]):
+    from repro_torch.parallel.sharding import ServingMesh, param_sharding_tree
+
+    shape = dict(axes)
+    view = ServingMesh(ep=shape.get("data", 1), tp=shape.get("model", 1), data_index=0, model_index=0,
+                       device=torch.device("meta"), backend="none", pod=shape.get("pod", 1),
+                       axis_names=tuple(shape))
+    return param_sharding_tree(init_params(cfg, device="meta"), view)
+
+
+def train_placement(cfg: ArchConfig, mesh):
+    """The ``Placement`` tree of ``cfg``'s parameters on ``mesh`` (the
+    reference's ``param_sharding_tree`` of its global shapes)."""
+    return _placement(cfg, tuple(mesh.shape.items()))
+
+
+def _part(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    if n == 1:
+        return t
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def _gathered(t: torch.Tensor, place, mesh, keep: Tuple[int, ...] = ()) -> torch.Tensor:
+    """``t``, this rank's shard, gathered over the axes that split its dims
+    (but ``keep``), with autograd: the gradient is reduce-scattered back to
+    the shard."""
+    from repro_torch.parallel.collectives import gather_dim
+
+    for d in range(t.ndim):
+        ax = place.axis(d)
+        if ax is not None and d not in keep:
+            t = gather_dim(t, d, mesh.group(ax))
+    return t
+
+
+def _mesh_weight(w: torch.Tensor, place, mesh, rows: bool, wspec):
+    """This rank's compute slice of a linear's weight: its d_out/tp columns
+    (``rows`` False: column-parallel) or its d_in/tp rows (``rows`` True:
+    row-parallel).  The FSDP shard is gathered over the data axis; a
+    row-parallel weight, and any weight under weight QAT, is gathered whole
+    over the model axis too.  QAT quantizes the whole weight (the tensor
+    scale is the whole tensor's absmax; its 16-blocks run along d_in, so
+    the data axis may split d_in anywhere) and keeps the slice, as a
+    ``FakeQuantWeight``.  The gathered weight lives in this rank's layer
+    for the forward only: under remat the backward's recompute gathers it
+    again, so one layer's gathered weights are alive at a time (at
+    llama3_2_3b's widths a layer's whole weights are 100.7 M elements,
+    403 MB in f32; wo and down are whole on every rank, and under QAT
+    all seven)."""
+    whole = rows or wspec is not None
+    w = _gathered(w, place, mesh, keep=() if whole or place.axis(1) != "model" else (1,))
+    if wspec is not None:
+        w = wspec.qdq(w, axis=0)
+    if rows:
+        w = _part(w, 0, mesh.tp, mesh.model_index)
+    elif whole or place.axis(1) != "model":
+        w = _part(w, 1, mesh.tp, mesh.model_index)
+    return FakeQuantWeight(w) if wspec is not None else w
+
+
+def _mesh_layer(lp, place, mesh, wspec):
+    """One layer's parameters in compute layout (``_mesh_weight``; the
+    column-parallel biases sliced to this rank's columns, norms whole)."""
+    out = {}
+    for k, v in lp.items():
+        if isinstance(v, dict):
+            out[k] = _mesh_layer(v, place[k], mesh, wspec)
+        elif k in _COLUMNS or k in _ROWS:
+            out[k] = _mesh_weight(v, place[k], mesh, k in _ROWS, wspec)
+        elif k in _COLUMN_BIASES:
+            out[k] = _part(_gathered(v, place[k], mesh), 0, mesh.tp, mesh.model_index)
+        else:
+            out[k] = _gathered(v, place[k], mesh)
+    return out
+
+
+def _lm_loss_mesh(params, batch, cfg: ArchConfig, quant: QuantPolicy, mesh):
+    """``lm_loss`` on a train mesh.  This rank's rows of the global batch
+    (``input_sharding``: a batch that does not divide is replicated, and
+    the train step scales the gradient by the replicas), its S/tp
+    sequence rows; the loss is the sum of (lse - ll) * mask over the local
+    rows, summed over every batch and sequence shard, over the mask summed
+    the same way: the reference's global normalizer, the same number on
+    every rank."""
+    from repro_torch.parallel.collectives import gather_dim, group_sum
+    from repro_torch.parallel.sharding import input_sharding, shard_activation
+
+    extra = set(batch) - {"tokens", "labels", "mask"}
+    if extra:
+        raise ValueError(f"training on a mesh takes tokens, labels and mask, not {sorted(extra)}")
+    check_train_mesh(cfg, mesh, quant)
+    place = train_placement(cfg, mesh)
+    b, s = batch["tokens"].shape
+    rows = input_sharding(mesh, (b, s))
+    local = {k: rows.local(v, mesh) for k, v in batch.items()}
+    tokens = local["tokens"]
+    b, dev = tokens.shape[0], tokens.device
+    wspec = quant.weight if quant.weight.quantizes and quant.weight.mode == "fakequant" else None
+    table = _gathered(params["embed"], place["embed"], mesh)
+    x = shard_activation(embed(tokens, table, cfg.cdtype), mesh=mesh)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    tp = mesh.tp
+    lcfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+                               d_ff=cfg.d_ff // tp, head_dim=cfg.hd)
+    model = mesh.group("model")
+    remat = _remat()
+    layer_places = [pl for gi in range(len(layer_groups(cfg))) for pl in place[f"layers_{gi}"]]
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for (_, lp), lpl in zip(_layers(params, cfg), layer_places):
+        def layer(x, _lp=lp, _pl=lpl):
+            w = _mesh_layer(_lp, _pl, mesh, wspec)
+            h = gather_dim(rms_norm(x, w["ln1"], cfg.norm_eps), 1, model)
+            mix = attn.gqa_forward(h, w["mixer"], lcfg, quant=quant, positions=positions)
+            x = x + shard_activation(mix, partial=True, mesh=mesh)
+            h = gather_dim(rms_norm(x, w["ln2"], cfg.norm_eps), 1, model)
+            return x + shard_activation(_mlp(h, w, lcfg, quant), partial=True, mesh=mesh), aux
+
+        x, _ = remat(layer, x)
+    x = rms_norm(x, _gathered(params["final_norm"], place["final_norm"], mesh), cfg.norm_eps)
+    head = table if "lm_head" not in params else _gathered(params["lm_head"], place["lm_head"], mesh)
+    mask = local.get("mask")
+    shards = mesh.group(rows.split_axes() + ("model",))
+    # the logits (b, S/tp, V): the reference's "logits" rule's sequence rows, the head whole
+    loss = _xent(x, head, _part(local["labels"], 1, tp, mesh.model_index),
+                 None if mask is None else _part(mask, 1, tp, mesh.model_index), lambda t: group_sum(t, shards))
     return loss + AUX_COEF * aux, {"xent": loss, "aux": aux}
 
 

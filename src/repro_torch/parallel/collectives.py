@@ -10,7 +10,17 @@ XLA's partitioner).
   * ``dispatch_to_expert_shards`` / ``combine_from_expert_shards`` -- the
     tiled all-to-alls of expert-parallel MoE;
   * ``wire_encode`` / ``wire_decode`` / ``quantized_all_gather`` -- an
-    all-gather whose payload travels in the RaZeR 4.5-bit wire format.
+    all-gather whose payload travels in the RaZeR 4.5-bit wire format;
+  * the train mesh's, with autograd: ``gather_dim`` -- an all-gather along
+    a dim whose backward reduce-scatters the gradient (an FSDP weight
+    shard, the sequence-parallel gather of the residual rows);
+    ``scatter_dim`` -- its mirror (row-parallel partial sums summed and
+    scattered to the sequence rows; backward an all-gather); ``group_sum``
+    -- an all-reduce whose backward is the identity (the loss's sums over
+    the batch and sequence shards); ``all_reduce_`` -- in place, no
+    autograd (gradients of replicated leaves).  Sums of bf16 / f16 run in
+    f32 and round once.  A group of None (one rank) passes its input
+    through untouched.
 
 gloo takes CPU tensors only for most of these: on a gloo group a CUDA tensor
 is copied to the host, exchanged and copied back (two ranks sharing one card
@@ -29,7 +39,8 @@ import torch.distributed as dist
 from repro_torch.parallel.sharding import expert_shard_size
 
 __all__ = ["reduce_scatter", "all_gather_last", "all_gather_first", "dispatch_to_expert_shards",
-           "combine_from_expert_shards", "wire_encode", "wire_decode", "quantized_all_gather", "stats"]
+           "combine_from_expert_shards", "wire_encode", "wire_decode", "quantized_all_gather", "gather_dim",
+           "scatter_dim", "group_sum", "all_reduce_", "stats"]
 
 stats = {"calls": 0, "seconds": 0.0}
 
@@ -150,3 +161,94 @@ def quantized_all_gather(x: torch.Tensor, group) -> torch.Tensor:
     g_codes = _gather(codes, group).reshape(-1, codes.shape[-1])
     g_meta = _gather(meta, group).reshape(-1, meta.shape[-1])
     return wire_decode(g_codes, g_meta, (shape[0] * n,) + shape[1:], dtype=x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the train mesh's collectives (autograd)
+# ---------------------------------------------------------------------------
+def _sum_dtype(dtype):
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _gather_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    g = all_gather_first(x.movedim(dim, 0).contiguous(), group)
+    return g.movedim(0, dim)
+
+
+def _scatter_along(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"cannot scatter dim {dim} of {tuple(x.shape)} over {n} ranks")
+    chunks = x.to(_sum_dtype(x.dtype)).movedim(dim, 0)
+    chunks = chunks.reshape(n, x.shape[dim] // n, *chunks.shape[1:])
+    return reduce_scatter(chunks, group).movedim(0, dim).to(x.dtype)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_along(grad, ctx.dim, ctx.group), None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_along(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_along(grad, ctx.dim, ctx.group), None, None
+
+
+@_timed
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the group (a new tensor, in t's dtype)."""
+    src = _staged(t.to(_sum_dtype(t.dtype)), group)
+    if src is t:
+        src = src.clone()
+    dist.all_reduce(src, group=group)
+    return src.to(device=t.device, dtype=t.dtype)
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's block of ``dim``, concatenated in rank order; the
+    gradient of the result is summed over the group and this rank's block
+    returned (a reduce-scatter)."""
+    return x if group is None else _GatherDim.apply(x, dim, group)
+
+
+def scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``, this rank's block of
+    ``dim`` kept (a reduce-scatter); the backward all-gathers the gradient."""
+    return x if group is None else _ScatterDim.apply(x, dim, group)
+
+
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``.  The gradient passes
+    through unchanged: each rank differentiates its own share of a value
+    every rank holds, and the parameters' gradients are summed later."""
+    return x if group is None else _GroupSum.apply(x, group)
+
+
+@torch.no_grad()
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the group, in place."""
+    if group is not None:
+        t.copy_(_all_reduce(t, group))
+    return t

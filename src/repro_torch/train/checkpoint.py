@@ -12,6 +12,12 @@ group as a list of per-layer dicts where the reference stacks it: a
 ``layers_<g>`` or ``enc_layers`` list is written as one (L, ...) array a
 leaf and split again on restore.  bf16 leaves are stored as f32 (npz has no
 bf16) and cast back on restore.  The files are numpy's alone.
+
+From a train mesh (``mesh`` and the tree's ``placement``) every rank takes
+part in gathering each leaf whole and rank 0 writes the same single-host
+layout (``n_shards`` 1); a restore slices each whole leaf to this rank's
+block on any mesh, or keeps it whole without one, so a checkpoint moves
+between meshes, to no mesh, and to the JAX package.
 """
 from __future__ import annotations
 
@@ -50,68 +56,100 @@ def _children(tree):
     return list(tree.items())
 
 
-def flatten(tree) -> Dict[str, np.ndarray]:
-    """The port's tree -> the reference's flat {key: host array}, layer
-    groups stacked."""
-    flat: Dict[str, np.ndarray] = {}
+def _placed(place, k):
+    if place is None:
+        return None
+    return getattr(place, k[1:]) if isinstance(place, tuple) and hasattr(place, "_fields") else place[k]
 
-    def walk(prefix, node):
+
+def flatten(tree, placement=None, mesh=None) -> Dict[str, np.ndarray]:
+    """The port's tree -> the reference's flat {key: host array}, layer
+    groups stacked.  On a mesh (``placement``: the tree's placements) each
+    leaf is gathered whole, and only rank 0 keeps the host arrays."""
+    from repro_torch.bridge import gather_tree
+
+    flat: Dict[str, np.ndarray] = {}
+    keep = mesh is None or mesh.rank == 0
+
+    def walk(prefix, node, place):
         if node is None:
             return
         if isinstance(node, dict) or (isinstance(node, tuple) and hasattr(node, "_fields")):
             for k, v in _children(node):
                 key = f"{prefix}{_SEP}{k}" if prefix else str(k)
                 if _is_layer_list(k, v):
-                    layers = [flatten(layer) for layer in v]
+                    sub = _placed(place, k)
+                    layers = [flatten(layer, None if sub is None else sub[i], mesh) for i, layer in enumerate(v)]
                     for leaf in layers[0]:
                         flat[f"{key}{_SEP}{leaf}"] = np.stack([layer[leaf] for layer in layers])
                 else:
-                    walk(key, v)
+                    walk(key, v, _placed(place, k))
             return
-        flat[prefix] = _np(node)
+        if mesh is not None:
+            node = gather_tree(node, place, mesh)
+        if keep:
+            flat[prefix] = _np(node)
 
-    walk("", tree)
+    walk("", tree, placement)
     return flat
 
 
-def unflatten_into(template, flat: Dict[str, Any]):
+def unflatten_into(template, flat: Dict[str, Any], placement=None, mesh=None):
     """The reference's flat arrays -> a tree shaped like ``template``, each
-    leaf on the template leaf's device in its dtype."""
+    leaf on the template leaf's device in its dtype.  On a mesh
+    (``placement``: the template's placements) each whole array is cut to
+    this rank's block first."""
 
-    def leaf(key, t, arr):
+    def leaf(key, t, arr, place):
+        arr = torch.from_numpy(np.array(arr, copy=True))
+        if mesh is not None:
+            arr = place.local(arr, mesh)
         if tuple(arr.shape) != tuple(t.shape):
-            raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(t.shape)}")
-        return torch.from_numpy(np.array(arr, copy=True)).to(device=t.device, dtype=t.dtype)
+            raise ValueError(f"shape mismatch for {key}: {tuple(arr.shape)} vs {tuple(t.shape)}")
+        return arr.to(device=t.device, dtype=t.dtype)
 
     def get(key):
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key}")
         return flat[key]
 
-    def walk(prefix, node, index=None):
+    def walk(prefix, node, place, index=None):
         if node is None:
             return None
         if isinstance(node, dict) or (isinstance(node, tuple) and hasattr(node, "_fields")):
             out = {}
             for k, v in _children(node):
                 key = f"{prefix}{_SEP}{k}" if prefix else str(k)
+                sub = _placed(place, k)
                 if index is None and _is_layer_list(k, v):
-                    out[k] = [walk(key, layer, i) for i, layer in enumerate(v)]
+                    out[k] = [walk(key, layer, None if sub is None else sub[i], i) for i, layer in enumerate(v)]
                 else:
-                    out[k] = walk(key, v, index)
+                    out[k] = walk(key, v, sub, index)
             if isinstance(node, tuple):
                 return type(node)(*(out[f".{f}"] for f in node._fields))
             return out
         arr = get(prefix)
-        return leaf(prefix, node, arr if index is None else np.asarray(arr)[index])
+        return leaf(prefix, node, arr if index is None else np.asarray(arr)[index], place)
 
-    return walk("", template)
+    return walk("", template, placement)
 
 
-def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3) -> str:
+def save_checkpoint(directory: str, step: int, tree, *, keep: int = 3, mesh=None, placement=None) -> str:
     """Atomic save of a tree of tensors; prunes to the newest ``keep``
-    checkpoints."""
-    return _write(directory, step, flatten(tree), keep)
+    checkpoints.  On a mesh every rank calls it and rank 0 writes."""
+    flat = flatten(tree, placement, mesh)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if mesh is None or mesh.rank == 0:
+        final = _write(directory, step, flat, keep)
+    _barrier(mesh)
+    return final
+
+
+def _barrier(mesh):
+    if mesh is not None and mesh.groups:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def _write(directory: str, step: int, flat: Dict[str, np.ndarray], keep: int) -> str:
@@ -155,9 +193,11 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, template, step: Optional[int] = None) -> Tuple[Any, int]:
+def restore_checkpoint(directory: str, template, step: Optional[int] = None, *, mesh=None,
+                       placement=None) -> Tuple[Any, int]:
     """Restore the newest (or ``step``'s) checkpoint into a tree shaped like
-    ``template`` -> (tree, step)."""
+    ``template`` -> (tree, step); on a mesh ``template`` holds this rank's
+    shards, placed as ``placement`` says, whatever mesh wrote it."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoint in {directory}")
@@ -168,19 +208,23 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None) -> 
     for i in range(manifest["n_shards"]):
         with np.load(os.path.join(d, f"shard_{i:05d}.npz")) as z:
             flat.update({k: z[k] for k in z.files})
-    return unflatten_into(template, flat), step
+    return unflatten_into(template, flat, placement, mesh), step
 
 
 class CheckpointManager:
     """Background-thread checkpoint writer, at most one save in flight:
     ``maybe_save`` copies the tree to host arrays first, so training may
     go on changing its tensors while the thread writes.  A save that
-    failed raises from the next ``wait`` (or ``maybe_save``)."""
+    failed raises from the next ``wait`` (or ``maybe_save``).  On a mesh
+    every rank calls it: the leaves are gathered whole, rank 0 writes, and
+    ``wait`` holds every rank until the write is committed."""
 
-    def __init__(self, directory: str, keep: int = 3, every: int = 50):
+    def __init__(self, directory: str, keep: int = 3, every: int = 50, *, mesh=None, placement=None):
         self.directory = directory
         self.keep = keep
         self.every = every
+        self.mesh = mesh
+        self.placement = placement
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
@@ -194,15 +238,17 @@ class CheckpointManager:
         if not force and (self.every <= 0 or step % self.every != 0):
             return False
         self.wait()
-        host = flatten(tree)  # device -> host copy now
-        self._thread = threading.Thread(target=self._save, args=(step, host), daemon=True)
-        self._thread.start()
+        host = flatten(tree, self.placement, self.mesh)  # device -> host copy now
+        if self.mesh is None or self.mesh.rank == 0:
+            self._thread = threading.Thread(target=self._save, args=(step, host), daemon=True)
+            self._thread.start()
         return True
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier(self.mesh)
         if self._error is not None:
             error, self._error = self._error, None
             raise error

@@ -3,6 +3,11 @@ failure injection, restart from the newest checkpoint, a straggler
 watchdog.  A real cluster's failure signal (a lost device, a missed
 heartbeat) stands in as ``NodeFailure``, raised by a ``FailureInjector`` on
 a schedule, so the restart logic runs end to end in one process.
+
+Elasticity, as the reference's: a checkpoint holds whole leaves, and the
+data is addressed by (step, shard), so a restart onto another mesh (another
+data-axis size, or none) only places the leaves anew (the manager's
+``mesh`` and ``placement``) and splits the batch by the new mesh.
 """
 from __future__ import annotations
 
@@ -105,7 +110,8 @@ class ResilientLoop:
                 if latest_step(self.ckpt.directory) is None:
                     step = start_step  # nothing saved yet: replay from start
                     continue
-                state, step = restore_checkpoint(self.ckpt.directory, state)
+                state, step = restore_checkpoint(self.ckpt.directory, state, mesh=self.ckpt.mesh,
+                                                 placement=self.ckpt.placement)
                 if restore_fn is not None:
                     state = restore_fn(state)
         self.ckpt.wait()

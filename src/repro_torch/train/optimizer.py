@@ -8,6 +8,10 @@ its reciprocal, which rounds differently.  ``adamw_update`` writes the new
 parameters and moments into the tensors it is given (the reference returns
 new arrays): at full width the f32 parameters, gradients and two moments
 take most of the card, and a second copy would not fit.
+
+On a train mesh each rank updates its own shards and their moments; the
+gradient norm, and so the clip scale, is the whole mesh's
+(``global_norm(..., mesh=, placement=)``), the same on every rank.
 """
 from __future__ import annotations
 
@@ -61,21 +65,35 @@ def lr_at(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares, in f32."""
+def global_norm(tree, mesh=None, placement=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's sum of squares, in f32.
+    On a mesh (``placement``: the tree's ``Placement``s) ``tree`` holds
+    this rank's shards: each rank sums its own, a leaf held whole along
+    some axes (a norm gain, a leaf the rules leave unsplit) is counted on
+    the first rank along them only, and the total is summed over the mesh."""
     total = None
-    for x in tree_leaves(tree):
+    places = tree_leaves(tree_map(lambda _, pl: pl, tree, placement)) if mesh is not None else None
+    for i, x in enumerate(tree_leaves(tree)):
+        if places is not None and any(mesh.axis_index(a) for a in places[i].replicated_over(mesh)):
+            continue
         sq = torch.sum(torch.square(x.to(torch.float32)))
         total = sq if total is None else total + sq
+    if mesh is not None:
+        from repro_torch.parallel.collectives import group_sum
+
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=tree_leaves(tree)[0].device)
+        total = group_sum(total, mesh.group(mesh.axis_names))
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
+def adamw_update(params, grads, state: OptState, cfg: AdamWConfig, *, mesh=None, placement=None):
     """-> (params, state, {"lr", "grad_norm"}); params, m and v are updated
-    in place and returned."""
+    in place and returned.  On a mesh they are this rank's shards and
+    ``placement`` their ``Placement`` tree (for the mesh's gradient norm)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, placement)
     one = _f32(1.0, gnorm)
     scale = torch.minimum(one, _f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9)) if cfg.grad_clip else one
     stepf = step.to(torch.float32)

@@ -129,8 +129,3 @@ def test_remat_policies_give_the_same_gradients():
         assert torch.equal(out[policy][0], out["full"][0])
         assert all(torch.equal(a, b) for a, b in zip(out[policy][1], out["full"][1])), policy
 
-
-def test_a_mesh_raises():
-    _, cfg = configs("llama3_2_3b")
-    with pytest.raises(ValueError, match="meshless"):
-        make_train_step(cfg, object(), OPT)
